@@ -1,0 +1,123 @@
+"""Build and bind the port's CUDA kernels: nvcc -> shared library -> ctypes.
+
+Each kernel is one ``.cu`` file with a plain C interface, compiled for
+``sm_90a`` at first use into ``build/kernels/`` at the repository root
+(listed in ``.gitignore``). The library name carries a hash of the
+sources and flags, so an edited source is rebuilt and a stale library is
+never loaded. No ``nvcc`` runs when a module is imported: a CPU-only
+process never builds anything.
+
+``CudaKernel.launch`` calls one exported function (pointers as
+``c_void_p``, then the tensors' device ordinal and PyTorch's current
+stream on it), raises if it returns a CUDA error, and counts the launch.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent
+INCLUDE_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler; raises when there is none."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); cannot build kernels")
+
+
+class CudaKernel:
+    """One hand-written CUDA kernel: its source, exported functions, launches."""
+
+    def __init__(self, name: str, source: Path, functions: dict[str, list]):
+        self.name = name
+        self.source = Path(source)
+        self.functions = functions  # exported symbol -> ctypes argtypes
+        self.launches = 0
+        self._lib: ctypes.CDLL | None = None
+
+    def _digest(self) -> str:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in [self.source, *sorted(INCLUDE_DIR.glob("*.cuh"))]:
+            h.update(path.read_bytes())
+        return h.hexdigest()[:16]
+
+    @property
+    def library(self) -> Path:
+        return BUILD_DIR / f"lib{self.name}-{self._digest()}.so"
+
+    @property
+    def log(self) -> Path:
+        return BUILD_DIR / f"{self.name}.log"
+
+    def build_command(self, out: Path) -> list[str]:
+        return [nvcc(), *NVCC_FLAGS, f"-I{INCLUDE_DIR}", "-o", str(out),
+                str(self.source)]
+
+    def load(self) -> ctypes.CDLL:
+        """The bound library, built first if this source was never built."""
+        if self._lib is None:
+            if not self.library.exists():
+                build_all([self])
+            lib = ctypes.CDLL(str(self.library))
+            for fn, argtypes in self.functions.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def launch(self, fn: str, device: torch.device, *args) -> None:
+        """Launch on ``device``'s current stream; raise on any CUDA error."""
+        lib = self.load()
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        stream = torch.cuda.current_stream(index).cuda_stream
+        rc = getattr(lib, fn)(*args, index, stream)
+        if rc != 0:
+            msg = lib.repro_cuda_error_string(rc).decode()
+            raise RuntimeError(f"{self.name}: {fn} failed: CUDA error {rc} ({msg})")
+        self.launches += 1
+
+
+def build_all(kernels) -> None:
+    """Compile every kernel whose library is missing, all nvcc's at once.
+
+    Output goes to a temporary name and is renamed into place, so a
+    concurrent reader never loads a half-written library. The compiler's
+    output (``-Xptxas -v``: registers, shared memory, spills) is kept in
+    ``build/kernels/<name>.log``.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for k in kernels:
+        out = k.library
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        with open(k.log, "w") as log:
+            proc = subprocess.Popen(k.build_command(tmp), stdout=log,
+                                    stderr=subprocess.STDOUT)
+        jobs.append((k, proc, tmp, out))
+    failed = []
+    for k, proc, tmp, out in jobs:
+        if proc.wait() != 0:
+            failed.append(f"{k.name}:\n{k.log.read_text()}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed\n" + "\n".join(failed))

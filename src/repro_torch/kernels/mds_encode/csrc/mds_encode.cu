@@ -1,0 +1,22 @@
+// B3 MDS encode for Hopper (sm_90a): A~ = G A, once per plan.
+//
+// Replaces: src/repro/kernels/mds_encode/kernel.py `encode_kernel`
+// (pallas_call at :48), a (256,256,256)-tiled GEMM with f32
+// accumulation. The reference serve loop did this encode with np.einsum
+// (src/repro/runtime/serve_loop.py:140-147); the port routes
+// CodedLMHead.refresh and core/coding.encode through this kernel.
+//
+// Main-path shape: G (738, 594) f32 x vocab blocks (594, 256*1024) f32
+// -> (738, 262144) f32: 230 GFLOP against 1.4 GB, bound by float32
+// operations (67 TFLOP/s SIMT -> 3.4 ms at best). No TF32, so the coded
+// table matches the CPU path to f32 rounding. Large 128x128 tiles with an
+// 8x8 register block per thread raise the FMA-to-shared-load ratio; the
+// 12,288 blocks at this shape fill the card many times over.
+#include "common.cuh"
+#include "tile_sgemm.cuh"
+
+extern "C" int repro_mds_encode_f32(const float* g, const float* a,
+                                    float* out, int n, int d, int k,
+                                    int device, void* stream) {
+  return launch_tile_sgemm<128, 128, 8, 8, 8>(g, a, out, n, d, k, device, stream);
+}

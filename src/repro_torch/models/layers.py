@@ -1,0 +1,53 @@
+"""Shared layers on tensors (counterpart of ``repro/models/layers.py``).
+
+Weights are stored in the parameter dtype and cast to the activation
+dtype at use, exactly where the reference casts.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    y = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def mlp(w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+        x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: (silu(x W_g) * x W_u) W_d, in x's dtype."""
+    g = F.silu(x @ w_gate.to(x.dtype))
+    return (g * (x @ w_up.to(x.dtype))) @ w_down.to(x.dtype)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          compute_dtype: torch.dtype) -> torch.Tensor:
+    return table[tokens.long()].to(compute_dtype)
+
+
+def unembed(table: torch.Tensor, x: torch.Tensor,
+            logit_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Tied LM head ``x @ table^T`` with float32 accumulation.
+
+    The reference contracts in x's dtype with ``preferred_element_type=f32``.
+    ``torch.matmul`` on bf16 would round the product to bf16, so both
+    operands are first rounded to x's dtype (as the reference rounds the
+    table) and then multiplied in float32.
+    """
+    return torch.matmul(x.float(), table.to(x.dtype).float().T).to(logit_dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0
+         ) -> torch.Tensor:
+    """Rotary embeddings, half-split layout. x: (..., S, H, hd); positions: (..., S)."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    angles = positions[..., :, None].float() * freq  # (..., S, half)
+    cos = torch.cos(angles)[..., :, None, :]  # broadcast over heads
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1.to(x.dtype), y2.to(x.dtype)], dim=-1)

@@ -1,0 +1,188 @@
+"""Dense decoder model on a paged KV pool (counterpart of ``repro/models/model.py``).
+
+``Model`` is an ``nn.Module`` for ``family == "dense"`` (llama-style
+pre-norm GQA + SwiGLU, tied embedding). Its parameters are the
+reference's pytree with layers stacked on axis 0 (``scan_layers``):
+``embed`` (Vp, D), ``final_norm`` (D,), and per layer ``ln1``, ``ln2``,
+``wq``, ``wk``, ``wv``, ``wo``, ``q_norm``, ``k_norm``, ``w_gate``,
+``w_up``, ``w_down``. A Python loop over layers takes the place of
+``lax.scan``. ``params_from_jax`` carries the reference's
+``Model.init_params`` tree across; otherwise the module draws its own
+seeded init on its device at any width.
+
+The paged KV cache is ``{"k", "v"}`` of shape (L, NB+1, BL, KV, hd);
+both paged entry points update it in place and return it.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.attention import (
+    decode_attention_paged,
+    prefill_attention_paged,
+)
+
+NEG_INF = -1e30
+
+#: reference pytree path -> port parameter name
+_JAX_PATHS = {
+    ("embed", "table"): "embed",
+    ("final_norm", "scale"): "final_norm",
+    ("blocks", "ln1", "scale"): "ln1",
+    ("blocks", "ln2", "scale"): "ln2",
+    ("blocks", "attn", "wq"): "wq",
+    ("blocks", "attn", "wk"): "wk",
+    ("blocks", "attn", "wv"): "wv",
+    ("blocks", "attn", "wo"): "wo",
+    ("blocks", "attn", "q_norm"): "q_norm",
+    ("blocks", "attn", "k_norm"): "k_norm",
+    ("blocks", "mlp", "w_gate"): "w_gate",
+    ("blocks", "mlp", "w_up"): "w_up",
+    ("blocks", "mlp", "w_down"): "w_down",
+}
+_LAYER_PARAMS = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
+
+
+def padded_vocab(v: int, multiple: int = 256) -> int:
+    """Vocab padded to a multiple of 256 rows."""
+    return int(-(-v // multiple) * multiple)
+
+
+class Model(nn.Module):
+    """Dense decoder with paged decode and chunked paged prefill."""
+
+    def __init__(self, config: ModelConfig, *, device: str | torch.device = "cuda",
+                 seed: int = 0):
+        super().__init__()
+        if config.family != "dense":
+            raise NotImplementedError(
+                f"the port implements the dense family, not {config.family!r}"
+            )
+        self.config = c = config
+        self.device = dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        nl, d, f, hd = c.num_layers, c.d_model, c.d_ff, c.resolved_head_dim
+        h, kv = c.num_heads * hd, c.num_kv_heads * hd
+
+        def param(t: torch.Tensor) -> nn.Parameter:
+            return nn.Parameter(t.to(c.pdtype), requires_grad=False)
+
+        def normal(shape, scale):
+            return param(torch.randn(shape, generator=gen, device=dev) * scale)
+
+        def ones(*shape):
+            return param(torch.ones(shape, device=dev))
+
+        self.embed = normal((padded_vocab(c.vocab_size), d), 0.02)
+        self.final_norm = ones(d)
+        self.ln1, self.ln2 = ones(nl, d), ones(nl, d)
+        self.wq = normal((nl, d, h), 1 / math.sqrt(d))
+        self.wk = normal((nl, d, kv), 1 / math.sqrt(d))
+        self.wv = normal((nl, d, kv), 1 / math.sqrt(d))
+        self.wo = normal((nl, h, d), 1 / math.sqrt(h))
+        if c.qk_norm:
+            self.q_norm, self.k_norm = ones(nl, hd), ones(nl, hd)
+        self.w_gate = normal((nl, d, f), 1 / math.sqrt(d))
+        self.w_up = normal((nl, d, f), 1 / math.sqrt(d))
+        self.w_down = normal((nl, f, d), 1 / math.sqrt(f))
+
+    # ------------------------------------------------------------ params
+    @torch.no_grad()
+    def params_from_jax(self, tree) -> "Model":
+        """Copy the reference's ``Model.init_params`` pytree (numpy leaves) in."""
+        for path, name in _JAX_PATHS.items():
+            if not hasattr(self, name):  # q_norm/k_norm without qk_norm
+                continue
+            node = tree
+            for key in path:
+                node = node[key]
+            dst = getattr(self, name)
+            src = torch.from_numpy(np.array(node, np.float32))
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(
+                    f"{'.'.join(path)}: shape {tuple(src.shape)} != {tuple(dst.shape)}"
+                )
+            dst.copy_(src)
+        return self
+
+    def _layer(self, i: int) -> dict:
+        return {n: getattr(self, n)[i] for n in _LAYER_PARAMS if hasattr(self, n)}
+
+    def _mask_pad_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """Padded vocab slots never win argmax."""
+        v = self.config.vocab_size
+        if logits.shape[-1] == v:
+            return logits
+        ids = torch.arange(logits.shape[-1], device=logits.device)
+        return torch.where(ids < v, logits, torch.full_like(logits, NEG_INF))
+
+    def _mlp(self, i: int, h: torch.Tensor) -> torch.Tensor:
+        return L.mlp(self.w_gate[i], self.w_up[i], self.w_down[i],
+                     L.rmsnorm(self.ln2[i], h))
+
+    def _attn_kw(self) -> dict:
+        c = self.config
+        return dict(num_heads=c.num_heads, num_kv_heads=c.num_kv_heads,
+                    head_dim=c.resolved_head_dim, rope_theta=c.rope_theta)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """(S, 1, D) final hidden -> (S, V_padded) masked logits."""
+        x = L.rmsnorm(self.final_norm, x)
+        return self._mask_pad_logits(L.unembed(self.embed, x, self.config.ldtype)[:, 0])
+
+    # ------------------------------------------------------------- cache
+    def init_paged_cache(self, num_blocks: int, block_len: int) -> dict:
+        """KV block pool: ``num_blocks + 1`` blocks per layer (last = sink)."""
+        c = self.config
+        shape = (c.num_layers, num_blocks + 1, block_len, c.num_kv_heads,
+                 c.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=c.cdtype, device=self.device),
+                "v": torch.zeros(shape, dtype=c.cdtype, device=self.device)}
+
+    # ------------------------------------------------------ paged passes
+    @torch.no_grad()
+    def decode_step_paged(self, cache: dict, tokens, pos, table, active):
+        """One token per slot against the shared block pool.
+
+        tokens: (S,) int; pos: (S,) int32 write positions; table: (S, MB)
+        int32; active: (S,) bool (inactive rows write the sink). Returns
+        (logits (S, V_padded), cache).
+        """
+        c = self.config
+        x = L.embed(self.embed, tokens[:, None], c.cdtype)
+        for i in range(c.num_layers):
+            h = x + decode_attention_paged(
+                self._layer(i), L.rmsnorm(self.ln1[i], x), cache["k"][i],
+                cache["v"][i], table, pos, active, **self._attn_kw(),
+            )
+            x = h + self._mlp(i, h)
+        return self._logits(x), cache
+
+    @torch.no_grad()
+    def prefill_paged(self, cache: dict, tokens, start, chunk_len, table):
+        """One chunked-prefill admit round: C prompt tokens per slot.
+
+        tokens: (S, C) int, row s holding prompt positions ``[start[s],
+        start[s] + chunk_len[s])`` right-padded (``chunk_len == 0``: slot
+        not prefilling). Returns the logits at each row's last real chunk
+        position, (S, V_padded), and the cache.
+        """
+        c = self.config
+        b, cc = tokens.shape
+        x = L.embed(self.embed, tokens, c.cdtype)
+        for i in range(c.num_layers):
+            h = x + prefill_attention_paged(
+                self._layer(i), L.rmsnorm(self.ln1[i], x), cache["k"][i],
+                cache["v"][i], table, start, chunk_len, **self._attn_kw(),
+            )
+            x = h + self._mlp(i, h)
+        last = torch.clamp(chunk_len.long() - 1, 0, cc - 1)
+        x_last = x[torch.arange(b, device=x.device), last][:, None]
+        return self._logits(x_last), cache
