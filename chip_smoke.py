@@ -167,11 +167,14 @@ def kernel_phase(nb: int, kb: int) -> dict:
     want = pa.paged_decode_attend_plain(q, k_pool, v_pool, table, pos)
     check(bool(torch.isfinite(got).all()), "paged_decode output not finite")
     check(bool((got[3] == 0).all()), "paged_decode: empty slot must return zeros")
-    err = float((got.float() - want.float()).abs().max())
-    tol = 2.0**-7 * max(1.0, float(want.float().abs().max()))
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    # per element: at most one bf16 rounding step apart, |d| <= 2^-7 |want| + 1e-6
+    worst = float((diff / (2.0**-7 * want.float().abs() + 1e-6)).max())
     print(f"[kernels] paged_decode S={SLOTS} KV={kv} G={grp} hd={hd} "
-          f"MB={nblk}: max_abs_err {err:.3e} <= tol {tol:.3e} (2 bf16 ulp)")
-    check(err <= tol, "paged_decode disagrees with its plain version")
+          f"MB={nblk}: max_abs_err {err:.3e}; max |d| / (2^-7 |want| + 1e-6) "
+          f"{worst:.3e} <= 1 (one bf16 rounding step per element)")
+    check(worst <= 1.0, "paged_decode disagrees with its plain version")
     valid = pa.valid_mask(table, BLOCK_LEN, pos)  # (S, L)
     n_tok = int(valid.sum())
     # yardstick: SDPA over the gathered KV of the valid positions
@@ -285,8 +288,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     from repro_torch.configs import get_arch
+    from repro_torch.core.planner import deploy
     from repro_torch.core.runtime_model import ClusterSpec
-    from repro_torch.runtime.executor import CodedRoundExecutor
+    from repro_torch.core.schemes import make_scheme
     from repro_torch.runtime.serve_loop import set_full_fp32
 
     set_full_fp32()
@@ -294,8 +298,7 @@ def main() -> int:
     print(f"[setup] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     setup()
     kb = -(-151_936 // 256)
-    plan = CodedRoundExecutor(ClusterSpec.make(*CLUSTER), kb, "optimal",
-                              deadline_safety=SAFETY).plan
+    plan = deploy(make_scheme("optimal"), ClusterSpec.make(*CLUSTER), kb)
     rows = kernel_phase(plan.n, kb)
     counts = serve_phase(get_arch("qwen3-0.6b"))
 

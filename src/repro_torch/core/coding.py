@@ -19,17 +19,19 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.mds_encode.ops import mds_encode
 
 
 def make_generator(n: int, k: int, *, seed: int = 0, g: np.ndarray | None = None,
-                   device: str | torch.device = "cpu") -> torch.Tensor:
-    """(n, k) float32 systematic Gaussian generator ``[I_k; P]``.
+                   device: str | torch.device = "cuda") -> torch.Tensor:
+    """(n, k) float32 systematic Gaussian generator ``[I_k; P]`` on ``device``.
 
     ``P`` is drawn from a CPU ``torch.Generator`` seeded with ``seed``, so
     the code is the same on every device. ``g`` injects a given (n, k)
     matrix instead.
     """
+    device = resolve_device(device)
     if not n >= k >= 1:
         raise ValueError(f"need n >= k >= 1, got n={n}, k={k}")
     if g is not None:

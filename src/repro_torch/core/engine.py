@@ -69,6 +69,6 @@ class CodedComputeEngine:
         return float(self.plan.t_star)
 
     def generator(self, *, g: np.ndarray | None = None,
-                  device: str | torch.device = "cpu") -> torch.Tensor:
+                  device: str | torch.device = "cuda") -> torch.Tensor:
         """(n, k) MDS generator sized to the deployed plan (seed 0, or ``g``)."""
         return make_generator(self.plan.n, self.k, g=g, device=device)

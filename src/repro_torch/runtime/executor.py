@@ -21,10 +21,11 @@ from repro_torch.core.engine import CodedComputeEngine, plan_deadline
 from repro_torch.core.planner import DeploymentPlan
 from repro_torch.core.runtime_model import ClusterSpec, sample_worker_times
 from repro_torch.core.schemes import AllocationScheme
+from repro_torch.device import resolve_device
 
 
 class CodedRoundExecutor:
-    """Per-round mechanics for one coded workload, on one device."""
+    """Per-round mechanics for one coded workload, on ``device`` (CUDA by default)."""
 
     #: integer/real load ratio beyond which the analytic deadline is
     #: distrusted and the integer loads are Monte-Carlo'd
@@ -38,12 +39,12 @@ class CodedRoundExecutor:
         *,
         scheme_params: dict | None = None,
         deadline_safety: float = 3.0,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
     ):
         self.engine = CodedComputeEngine(cluster, k, scheme,
                                          scheme_params=scheme_params)
         self.deadline_safety = float(deadline_safety)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._bind_plan(self.engine.plan)
 
     def _bind_plan(self, plan: DeploymentPlan) -> None:

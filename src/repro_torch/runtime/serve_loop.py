@@ -243,7 +243,7 @@ class Server:
     def serve(self, trace, *, slots: int = 4, prompt_cap: int | None = None,
               decode_block: int = 4, queue_cap: int = 64,
               admission_threshold: float = 1.0, telemetry=None, seed: int = 0,
-              paged: bool = True, block_len: int | None = None,
+              block_len: int | None = None,
               num_blocks: int | None = None,
               prefill_chunk: int | None = None) -> ServeReport:
         """Continuous batching: serve a request trace through S slots.
@@ -255,10 +255,8 @@ class Server:
         ``BlockPool``: full reservation at admission, freed at retirement.
         ``num_blocks=None`` sizes the pool so the trace never exhausts it.
         Finish masks draw from a ``torch.Generator`` seeded with ``seed``.
-        Only paged serving is ported (``paged=False`` raises).
+        Only paged serving is ported: there is no dense option yet.
         """
-        if not paged:
-            raise NotImplementedError("the port serves from the paged KV pool only")
         set_full_fp32()
         trace = sorted(trace, key=lambda r: (r.arrival, r.rid))
         if not trace:

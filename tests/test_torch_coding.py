@@ -75,16 +75,17 @@ def test_decode_insufficient_survivors_zeroed(survivors):
 def test_make_generator_injected_and_seeded():
     n, k = 12, 8
     g = _ref_g(n, k)
-    np.testing.assert_array_equal(make_generator(n, k, g=g).numpy(), g)
-    own = make_generator(n, k, seed=3)
+    np.testing.assert_array_equal(make_generator(n, k, g=g, device="cpu").numpy(), g)
+    own = make_generator(n, k, seed=3, device="cpu")
     np.testing.assert_array_equal(own[:k].numpy(), np.eye(k, dtype=np.float32))
     assert own.dtype == torch.float32 and tuple(own.shape) == (n, k)
-    np.testing.assert_array_equal(own.numpy(), make_generator(n, k, seed=3).numpy())
-    assert not torch.equal(own, make_generator(n, k, seed=4))
+    again = make_generator(n, k, seed=3, device="cpu")
+    np.testing.assert_array_equal(own.numpy(), again.numpy())
+    assert not torch.equal(own, make_generator(n, k, seed=4, device="cpu"))
     with pytest.raises(ValueError, match="shape"):
-        make_generator(n, k, g=g[:, :-1])
+        make_generator(n, k, g=g[:, :-1], device="cpu")
     with pytest.raises(ValueError, match="n >= k"):
-        make_generator(4, 8)
+        make_generator(4, 8, device="cpu")
 
 
 def test_encode_matches_reference():
@@ -101,7 +102,7 @@ def test_encode_matches_reference():
 def test_port_generator_decodes_its_own_code():
     """The port's seeded generator is MDS: any k of n rows decode."""
     k, n = 64, 80
-    g = make_generator(n, k, seed=5)
+    g = make_generator(n, k, seed=5, device="cpu")
     x = torch.randn((k, 3), generator=torch.Generator().manual_seed(0))
     y = encode(g, x)
     mask = torch.ones(n, dtype=torch.bool)

@@ -83,9 +83,12 @@ def test_paged_decode_matches_plain(dev, dtype, g, hd, bl):
     want = pa.paged_decode_attend_plain(q, k_pool, v_pool, table, pos)
     assert got.dtype == dtype and bool(torch.isfinite(got).all())
     assert bool((got[3] == 0).all())  # slot 3 has no valid entry
-    ulp = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
-    tol = ulp * max(1.0, want.float().abs().max().item())
-    assert (got.float() - want.float()).abs().max().item() <= tol
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.bfloat16:
+        # per element: at most one bf16 rounding step apart
+        assert bool((diff <= 2.0**-7 * want.float().abs() + 1e-6).all())
+    else:
+        assert diff.max().item() <= 1e-5 * max(1.0, want.abs().max().item())
 
 
 def test_paged_decode_refusals(dev):

@@ -18,6 +18,8 @@ from repro.core.runtime_model import ClusterSpec as RefCluster
 from repro.core.schemes import make_scheme as ref_make_scheme
 from repro.runtime.executor import CodedRoundExecutor as RefExecutor
 from repro_torch.core import lambertw
+from repro_torch.core.coding import make_generator
+from repro_torch.core.engine import CodedComputeEngine
 from repro_torch.core.planner import deploy
 from repro_torch.core.runtime_model import ClusterSpec, LatencyModel
 from repro_torch.core.schemes import (
@@ -93,7 +95,7 @@ def test_plans_match_reference(name, params, ci, k):
 def test_executor_analytic_deadline_and_slot_owner(ci, k):
     """Where integerization is benign the deadline is analytic: 1e-9."""
     ours, ref = _clusters(ci)
-    ex = CodedRoundExecutor(ours, k, "optimal", deadline_safety=1.2)
+    ex = CodedRoundExecutor(ours, k, "optimal", deadline_safety=1.2, device="cpu")
     rx = RefExecutor(ref, k, "optimal", deadline_safety=1.2)
     alloc = ex.plan.allocation
     assert np.max(alloc.loads_int / alloc.loads) <= ex.INTEGERIZATION_SLACK
@@ -107,7 +109,8 @@ def test_executor_analytic_deadline_and_slot_owner(ci, k):
 
 def test_full_width_serve_plan():
     """kb = 594 on the serve fleet: nb = 738, deadline 1.2 T* (analytic)."""
-    ex = CodedRoundExecutor(*_clusters(0)[:1], 594, "optimal", deadline_safety=1.2)
+    ex = CodedRoundExecutor(*_clusters(0)[:1], 594, "optimal", deadline_safety=1.2,
+                            device="cpu")
     assert ex.n == 738 and ex.num_workers == 12
     np.testing.assert_allclose(ex.deadline, 1.2 * ex.plan.t_star, rtol=1e-12)
 
@@ -118,7 +121,8 @@ def test_monte_carlo_deadline_within_standard_error():
     errors of the difference of two independent means."""
     ours, ref = _clusters(3)
     k, safety = 8, 1.0
-    ex = CodedRoundExecutor(ours, k, "optimal", deadline_safety=safety)
+    ex = CodedRoundExecutor(ours, k, "optimal", deadline_safety=safety,
+                            device="cpu")
     rx = RefExecutor(ref, k, "optimal", deadline_safety=safety)
     alloc = ex.plan.allocation
     assert np.max(alloc.loads_int / alloc.loads) > ex.INTEGERIZATION_SLACK
@@ -134,7 +138,7 @@ def test_finish_mask_survival_matches_analytic_cdf():
     CDF F_j(d) = 1 - exp(-(k mu / l)(d - alpha l / k)), within 4 sigma."""
     ours, _ = _clusters(0)
     k, draws = 594, 4000
-    ex = CodedRoundExecutor(ours, k, "optimal", deadline_safety=1.2)
+    ex = CodedRoundExecutor(ours, k, "optimal", deadline_safety=1.2, device="cpu")
     gen = torch.Generator().manual_seed(3)
     hits = sum(ex.finish_mask(gen).to(torch.int64) for _ in range(draws)).numpy()
     rate = hits / draws
@@ -192,7 +196,22 @@ def test_cluster_parse_matches_reference():
 def test_deadline_for_scheme_without_analytic_t_star():
     """uniform_n has NaN T*: the deadline falls back to Monte Carlo."""
     ours, ref = _clusters(0)
-    ex = CodedRoundExecutor(ours, 594, "uniform_n", scheme_params={"n": 738})
+    ex = CodedRoundExecutor(ours, 594, "uniform_n", scheme_params={"n": 738},
+                            device="cpu")
     rx = RefExecutor(ref, 594, "uniform_n", scheme_params={"n": 738})
     assert np.isfinite(ex.deadline)
     assert abs(ex.deadline - rx.deadline) / rx.deadline < 0.05
+
+
+@pytest.mark.parametrize("entry", ["executor", "engine_generator", "make_generator"])
+def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch):
+    """No device argument means CUDA; with no card that raises, never the CPU."""
+    ours, _ = _clusters(1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {
+        "executor": lambda: CodedRoundExecutor(ours, 64, "optimal"),
+        "engine_generator": lambda: CodedComputeEngine(ours, 64).generator(),
+        "make_generator": lambda: make_generator(12, 8),
+    }[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()

@@ -209,10 +209,10 @@ def _ref_serve(ref, params, trace, monkeypatch, **kw):
 def test_serve_matches_reference_when_every_worker_finishes(models, monkeypatch):
     ref, params, ours = models
     trace_kw = dict(num_requests=5, prompt_len=(4, 20), out_len=(2, 5), vocab=512)
-    serve_kw = dict(slots=2, decode_block=2, prefill_chunk=8, paged=True)
+    serve_kw = dict(slots=2, decode_block=2, prefill_chunk=8)
     ref_rep, ref_streams, ref_sink = _ref_serve(
         ref, params, ref_wl.make_workload("poisson", **trace_kw).trace(seed=0),
-        monkeypatch, **serve_kw)
+        monkeypatch, paged=True, **serve_kw)
     server = Server(ours, ClusterSpec.make(*FLEET),
                     ServeConfig(block_rows=64, deadline_safety=50.0))
     sink = _Sink()
@@ -251,7 +251,7 @@ def test_serve_rejects_what_the_port_does_not_serve(models):
     _, _, ours = models
     server = Server(ours)
     trace = wl.make_workload("poisson", num_requests=1, vocab=512).trace(seed=0)
-    with pytest.raises(NotImplementedError, match="paged"):
+    with pytest.raises(TypeError, match="paged"):  # no dense serve in the port
         server.serve(trace, paged=False)
     with pytest.raises(ValueError, match="non-empty"):
         server.serve([])
