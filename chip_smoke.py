@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one H100: build, check and time its kernels,
-then serve full-width qwen3-0.6b through the coded paged server.
+serve full-width qwen3-0.6b through the coded paged server, then train it
+with gradient coding.
 
 Run from the repository root with no arguments:
 
@@ -8,16 +9,23 @@ Run from the repository root with no arguments:
 
 Phases (any failure raises, and the script exits non-zero):
 
-1. set-up   — build the three CUDA kernels from ``src/repro_torch`` (one
+1. set-up   — build the CUDA kernels from ``src/repro_torch`` (one
    ``nvcc`` per source, all at once, into ``build/kernels/``);
 2. kernels  — each kernel against its plain PyTorch version on the card
-   at the serving path's full-width shapes, with the tolerance stated,
-   timed beside the plain version and one PyTorch library call;
+   at its main path's full-width shapes (serve for B1-B3, train for the
+   fused cross-entropy B4), with the tolerance stated, timed beside the
+   plain version and one PyTorch library call;
 3. serve    — launch counters reset, then ``Server`` + ``serve`` of a
    seeded 8-request trace on full-width qwen3-0.6b (random seeded
    weights) with the coded LM head on a 12-worker cluster; counters read
    right after; then a few coded rounds on real logits held against the
-   uncoded logits.
+   uncoded logits;
+4. train    — launch counters reset, then ``Trainer.run`` of 6 gradient-
+   coded steps of full-width qwen3-0.6b (seeded init, batch 16 x 512) on
+   the same fleet; counters read right after; then a decodable round
+   with two workers erased held against the plain full-batch gradient,
+   and a round at deadline 0 that must leave every parameter and the
+   optimizer state bit-unchanged.
 
 The last three stdout lines are the card (``nvidia-smi``), the kernels
 JSON and ``{"ok": true, "device": {...}}``.
@@ -25,6 +33,7 @@ JSON and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -40,6 +49,8 @@ HBM_BYTES_PER_S = 3.35e12
 
 CLUSTER = ([6, 6], [8.0, 0.7])  # the serve benchmark's fleet
 SLOTS, BLOCK_LEN, CHUNK, DECODE_BLOCK, SAFETY = 4, 16, 64, 4, 1.2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, PARTITIONS = 16, 512, 6, 16
+U32 = 2.0**-24  # float32 unit roundoff
 
 
 def check(cond: bool, msg: str) -> None:
@@ -86,10 +97,10 @@ def setup():
     kernels.build_all()
     print(f"[setup] built {len(kernels.KERNELS)} kernels in "
           f"{time.perf_counter() - t:.1f} s")
-    for k in kernels.KERNELS:
-        for line in k.log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[setup] {k.name}: {line.strip()}")
+    for log in dict.fromkeys(k.log for k in kernels.KERNELS):
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"[setup] {log.stem}: {line.strip()}")
 
 
 def gemm_tolerance(a, b) -> float:
@@ -195,6 +206,131 @@ def kernel_phase(nb: int, kb: int) -> dict:
     return rows
 
 
+def fused_ce_phase(t: int = TRAIN_BATCH * TRAIN_SEQ, v: int = 151_936,
+                   d: int = 1024) -> dict:
+    """B4 forward and both backward kernels vs ``fused_ce_plain`` at the
+    training path's full-width shapes (bf16 operands, some labels masked)."""
+    import torch
+
+    from repro_torch.kernels.fused_ce import ops as ce
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    h = torch.randn((t, d), generator=gen, device=dev).to(torch.bfloat16)
+    e = (torch.randn((v, d), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    labels = torch.randint(0, v, (t,), generator=gen, device=dev)
+    labels[::7] = -1
+    labels32 = labels.to(torch.int32)
+    mask = (labels >= 0).float()
+
+    # a logit is an f32 dot product of length d: within 2 d u max|h||e|
+    # (Cauchy-Schwarz on the rows); lse adds the online sum over v/64 tiles
+    mag = float(h.float().norm(dim=1).max() * e.float().norm(dim=1).max())
+    tol_logit = 2 * d * U32 * mag
+    hk, ek = h.clone().requires_grad_(), e.clone().requires_grad_()
+    lse, ll, am = ce.fused_ce(hk, ek, labels)
+    hp, ep = h.clone().requires_grad_(), e.clone().requires_grad_()
+    lse_p, ll_p, am_p = ce.fused_ce_plain(hp, ep, labels)
+    tol_lse = tol_logit + (v / 64 + 64) * U32 + 2 * U32 * float(lse_p.detach().abs().max())
+    err_lse = float((lse - lse_p).detach().abs().max())
+    err_ll = float((ll - ll_p).detach().abs().max())
+    print(f"[kernels] fused_ce_fwd T={t} V={v} D={d} bf16: lse max_abs_err "
+          f"{err_lse:.3e} <= tol {tol_lse:.3e}; ll {err_ll:.3e} <= tol "
+          f"{tol_logit:.3e} (2 D u max|h| max|e| + (V/64 + 64) u + 2 u max|lse|)")
+    check(err_lse <= tol_lse and err_ll <= tol_logit, "fused_ce_fwd disagrees")
+    check(bool((ll[labels < 0] == 0).all()), "fused_ce_fwd: masked ll must be 0")
+    with torch.no_grad():
+        logits = h.float() @ e.float().T  # (T, V): the check's own oracle
+        top2 = logits.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * tol_logit
+    n_bad = int(((am != am_p) & clear).sum())
+    print(f"[kernels] fused_ce_fwd argmax: {int(clear.sum())}/{t} tokens with a "
+          f"top-two gap > 2 tol, {n_bad} disagree")
+    check(n_bad == 0, "fused_ce_fwd argmax disagrees")
+
+    # the training loss's upstream gradients (mean over masked tokens, z-loss)
+    g_lse = mask * (1 + 2e-4 * lse_p.detach()) / mask.sum()
+    g_ll = -mask / mask.sum()
+    dh, de = torch.autograd.grad((lse, ll), (hk, ek), (g_lse, g_ll))
+    dh_p, de_p = torch.autograd.grad((lse_p, ll_p), (hp, ep), (g_lse, g_ll),
+                                     retain_graph=True)
+    with torch.no_grad():
+        dl = torch.softmax(logits, dim=1).mul_(g_lse[:, None])
+        hit = torch.nonzero(labels >= 0)[:, 0]
+        dl[hit, labels[hit]] += g_ll[hit]
+        dl.abs_()
+        bound_h = dl @ e.float().abs()
+        bound_e = dl.T @ h.float().abs()
+    del logits, dl
+    # dlogits relative error 2 tol_lse (exp of the logit and lse errors),
+    # the f32 sum over V or T, then one bf16 rounding step of the output
+    errs = {}
+    for name, got, want, bound, n in (("dh", dh, dh_p, bound_h, v),
+                                      ("de", de, de_p, bound_e, t)):
+        diff = (got.float() - want.float()).abs()
+        lim = (2 * tol_lse + n * U32) * bound + 2.0**-7 * want.float().abs()
+        worst = float((diff / lim.clamp_min(1e-30)).max())
+        errs[name] = float(diff.max())
+        print(f"[kernels] fused_ce_bwd_{name}: max_abs_err {errs[name]:.3e}; max "
+              f"|d| / ((2 tol_lse + {n} u) (|dl||X|) + 2^-7 |want|) {worst:.3e} <= 1")
+        check(worst <= 1.0, f"fused_ce_bwd_{name} disagrees with its plain version")
+    del bound_h, bound_e
+    torch.cuda.empty_cache()
+
+    lse_d = lse.detach()
+    lab0 = labels.clamp_min(0)[:, None]
+
+    # yardstick: cuBLAS bf16 GEMM with f32 output, logsumexp and a gather;
+    # its backward composed the same way (mm's out_dtype form has no autograd)
+    def library():
+        lg = torch.mm(h, e.T, out_dtype=torch.float32)
+        return torch.logsumexp(lg, dim=1), lg.gather(1, lab0)[:, 0]
+
+    lg_saved = torch.mm(h, e.T, out_dtype=torch.float32)
+
+    def library_bwd(wrt):
+        def run():
+            dlog = torch.softmax(lg_saved, dim=1).mul_(g_lse[:, None])
+            dlog.scatter_add_(1, lab0, (g_ll * mask)[:, None])
+            dlog = dlog.to(torch.bfloat16)
+            if wrt == "dh":
+                return torch.mm(dlog, e, out_dtype=torch.float32).to(torch.bfloat16)
+            return torch.mm(dlog.T, h, out_dtype=torch.float32).to(torch.bfloat16)
+        return run
+
+    def plain_bwd(wrt):
+        return lambda: torch.autograd.grad((lse_p, ll_p), (wrt,), (g_lse, g_ll),
+                                           retain_graph=True)
+
+    io_bytes = 2 * (t * d + v * d) + 4 * t  # h, e, labels
+    fwd_bytes = io_bytes + t * (4 + 4 + 8)
+    bwd_bytes = io_bytes + 12 * t
+    flops = 2.0 * t * v * d
+    rows = {
+        "fused_ce_fwd": dict(
+            err=max(err_lse, err_ll),
+            ms=cuda_ms(lambda: ce.fused_ce_forward(h, e, labels32), 3, 1),
+            plain_ms=cuda_ms(lambda: ce.fused_ce_plain(h, e, labels), 3, 1),
+            library_ms=cuda_ms(library, 3, 1),
+            bound=bound_ms(fwd_bytes, flops, "bfloat16"),
+        ),
+    }
+    for name, kern, wrt_p, out_rows in (("dh", ce.BWD_DH, hp, t), ("de", ce.BWD_DE, ep, v)):
+        rows[f"fused_ce_bwd_{name}"] = dict(
+            err=errs[name],
+            ms=cuda_ms(lambda k=kern: ce.fused_ce_backward(k, h, e, labels32, lse_d,
+                                                           g_lse, g_ll), 2, 1),
+            plain_ms=cuda_ms(plain_bwd(wrt_p), 2, 1),
+            library_ms=cuda_ms(library_bwd(name), 2, 1),
+            bound=bound_ms(bwd_bytes + 2 * out_rows * d, 2 * flops, "bfloat16"),
+        )
+    for name, r in rows.items():
+        print(f"[kernels] {name}: {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"library {r['library_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
+              f"({r['bound'][1]})")
+    return rows
+
+
 def serve_phase(cfg, device: str = "cuda") -> dict:
     """Coded paged serve of ``cfg``; returns the launch counts of the run."""
     import torch
@@ -281,6 +417,112 @@ def serve_phase(cfg, device: str = "cuda") -> dict:
     return counts
 
 
+def train_phase(cfg, device: str = "cuda") -> dict:
+    """Gradient-coded ``Trainer.run`` of full-width ``cfg``; returns its launch counts."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.runtime_model import ClusterSpec
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train_loop import TrainConfig, Trainer, weighted_gradient
+
+    shape = ShapeConfig("smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t = time.perf_counter()
+    model = Model(cfg, device=device, seed=0)
+    trainer = Trainer(
+        model, SyntheticLMData(cfg, shape, seed=0, device=device),
+        AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS),
+        TrainConfig(steps=TRAIN_STEPS, log_every=1, cluster=ClusterSpec.make(*CLUSTER),
+                    scheme="grad_coding", partitions=PARTITIONS, deadline_safety=3.0),
+    )
+    exe = trainer.executor
+    sync = torch.cuda.synchronize if model.device.type == "cuda" else (lambda: None)
+    sync()
+    print(f"[train] {cfg.name}: {model.param_count() / 1e6:.1f} M params, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}; grad_coding k {PARTITIONS}, n {exe.n}, "
+          f"loads {exe.plan.loads_per_worker.tolist()}, deadline {exe.deadline:.6f} "
+          f"(set-up {time.perf_counter() - t:.1f} s)")
+
+    kernels.reset_launch_counts()
+    if model.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _, opt_state, hist = trainer.run()
+    counts = kernels.launch_counts()
+    for h, sec in zip(hist, trainer.step_seconds):
+        print(f"[train] step {int(h['step'])}: loss {h['loss']:.6f} accuracy "
+              f"{h['accuracy']:.6f} grad_norm {h['grad_norm']:.6f} survivors "
+              f"{int(h['survivors'])}/{exe.num_workers} skipped {int(h['skipped'])} "
+              f"wall {sec:.3f} s")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    wall = sum(trainer.step_seconds)
+    steady = trainer.step_seconds[1:]
+    print(f"[train] {TRAIN_STEPS} steps in {wall:.3f} s, {tokens * TRAIN_STEPS / wall:.1f} "
+          f"tokens/s ({tokens * len(steady) / sum(steady):.1f} after the first step)")
+    if model.device.type == "cuda":
+        print(f"[train] max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[train] launches {counts}")
+    skipped = int(sum(h["skipped"] for h in hist))
+    check(len(hist) == TRAIN_STEPS, "one history record per step")
+    check(all(math.isfinite(h["loss"]) for h in hist), "finite losses")
+    check(counts["fused_ce_fwd"] == TRAIN_STEPS, "fused_ce_fwd launches == steps")
+    for name in ("fused_ce_bwd_dh", "fused_ce_bwd_de"):
+        check(counts[name] == TRAIN_STEPS - skipped, f"{name} launches == backward runs")
+
+    # a decodable round with two workers erased, against the plain
+    # full-batch gradient; float32 compute, so bf16 rounding flips cannot
+    # hide or fake an error of the decode
+    k = PARTITIONS
+    m32 = Model(dataclasses.replace(cfg, compute_dtype="float32"), device=device, seed=0)
+    batch = SyntheticLMData(cfg, shape, seed=0, device=device).next_batch()
+    wmask = torch.ones(exe.num_workers, dtype=torch.bool, device=model.device)
+    wmask[:2] = False
+    rows = exe.slot_mask(wmask)
+    from repro_torch.core.gradient_coding import decode_vector_torch
+
+    a, ok = decode_vector_torch(trainer.b_matrix, rows)
+    check(bool(ok), "two erased workers must stay decodable")
+    order = torch.argsort((~rows).to(torch.int8), stable=True)[:k]
+    cond = float(torch.linalg.cond(trainer.b_matrix[order].double()))
+    g_coded, _, _ = weighted_gradient(m32, batch, (a @ trainer.b_matrix) / k, k)
+    loss, _ = m32.loss_fn(batch)
+    params = dict(m32.named_parameters())
+    g_plain = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    worst = 0.0
+    for name, gp in g_plain.items():
+        scale = float(gp.abs().max())
+        err = float((g_coded[name] - gp).abs().max())
+        worst = max(worst, err / ((cond + 64) * 2.0**-22 * scale))
+    print(f"[train] coded round, 2 workers erased ({int((~rows).sum())} rows): max over "
+          f"leaves of |g_coded - g_plain| / ((cond(B_S) + 64) 2^-22 max|g_plain|) "
+          f"{worst:.3e} <= 1 (cond {cond:.3e}, f32 compute)")
+    check(worst <= 1.0, "coded gradient disagrees with the full-batch gradient")
+    del m32, g_coded, g_plain, params, loss
+    if model.device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # a round at deadline 0: nobody finishes, nothing may change
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    m_before = {n: x.clone() for n, x in opt_state["m"].items()}
+    v_before = {n: x.clone() for n, x in opt_state["v"].items()}
+    count = opt_state["count"].clone()
+    new_state, metrics = trainer.coded_step_fn(
+        opt_state, trainer.data.next_batch(), exe.finish_mask(trainer.generator, 0.0))
+    check(float(metrics["skipped"]) == 1.0, "deadline 0 must skip the step")
+    same = all(torch.equal(p, before[n]) for n, p in model.named_parameters())
+    same &= all(torch.equal(new_state["m"][n], m_before[n]) for n in m_before)
+    same &= all(torch.equal(new_state["v"][n], v_before[n]) for n in v_before)
+    same &= bool(torch.equal(new_state["count"], count))
+    print(f"[train] deadline-0 round: skipped, params/m/v/count bit-unchanged: {same}")
+    check(same, "a skipped step changed the parameters or the optimizer state")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -300,7 +542,14 @@ def main() -> int:
     kb = -(-151_936 // 256)
     plan = deploy(make_scheme("optimal"), ClusterSpec.make(*CLUSTER), kb)
     rows = kernel_phase(plan.n, kb)
+    rows.update(fused_ce_phase())
+    torch.cuda.empty_cache()
     counts = serve_phase(get_arch("qwen3-0.6b"))
+    torch.cuda.empty_cache()
+    train_counts = train_phase(get_arch("qwen3-0.6b"))
+    for name in rows:
+        if name.startswith("fused_ce"):
+            counts[name] = train_counts[name]
 
     import repro_torch.kernels as kernels
 
@@ -308,6 +557,8 @@ def main() -> int:
         "coded_matvec": "src/repro/kernels/coded_matvec/kernel.py:48",
         "paged_decode": "src/repro/kernels/paged_attention/kernel.py:66",
         "mds_encode": "src/repro/kernels/mds_encode/kernel.py:48",
+        **dict.fromkeys(("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_de"),
+                        "src/repro/kernels/fused_ce/kernel.py:77"),
     }
     line = {"kernels": [
         {

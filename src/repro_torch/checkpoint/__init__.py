@@ -1,0 +1,9 @@
+"""Checkpoints in the reference's layout (counterpart of ``repro/checkpoint``)."""
+from repro_torch.checkpoint.store import (
+    AsyncCheckpointer,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
+
+__all__ = ["AsyncCheckpointer", "latest_step", "restore_checkpoint", "save_checkpoint"]

@@ -1,4 +1,5 @@
-"""ModelConfig: the architecture fields the port's dense family reads.
+"""ModelConfig (the architecture fields the port's dense family reads) and
+ShapeConfig (one batch shape).
 
 Counterpart of ``repro/configs/base.py``. Only the dense-family fields
 are carried; dtypes resolve to torch dtypes.
@@ -28,6 +29,11 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     logits_dtype: str = "float32"
+    #: recompute each layer in the backward (``torch.utils.checkpoint``)
+    remat: bool = True
+    #: query / key block sizes of the training attention's online softmax
+    attn_q_block: int = 512
+    attn_kv_block: int = 1024
 
     @property
     def resolved_head_dim(self) -> int:
@@ -59,4 +65,14 @@ class ModelConfig:
             head_dim=32,
             param_dtype="float32",
             compute_dtype="float32",
+            attn_q_block=32,
+            attn_kv_block=32,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"

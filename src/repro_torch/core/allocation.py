@@ -5,7 +5,9 @@ Counterpart of ``repro/core/allocation.py``, eager path only:
 * ``optimal_allocation`` — Theorem 2 (model (1)); Corollary 2 under
   ``LatencyModel.MODEL_30``.
 * ``t_star``             — minimum expected latency, eq. (18)/(33).
-* ``uniform_given_n``    — Section III-D-1: ``l = n/N``.
+* ``uniform_given_n``    — Section III-D-1: ``l = n/N``;
+* ``gradient_coding_allocation`` — Theorem 2 on gradient partitions,
+  loads clamped to k.
 
 Every function works on per-group ``(N, mu, alpha)`` arrays from
 ``ClusterSpec.arrays`` and returns an ``AllocationPlan``.
@@ -124,4 +126,28 @@ def uniform_given_n(cluster: ClusterSpec, k: int, n: float) -> AllocationPlan:
         k=k,
         t_star=float("nan"),
         scheme="uniform_n",
+    )
+
+
+def gradient_coding_allocation(cluster: ClusterSpec, k: int, *,
+                               model: LatencyModel | None = None) -> AllocationPlan:
+    """Theorem-2 load balancing on gradient partitions (arXiv:1901.09339).
+
+    ``k`` is the number of partitions of the global batch; a group-j
+    worker computes ``l_j`` coded partition-gradients per step and any k
+    coded rows recover the full-batch gradient. Loads are Theorem 2's,
+    clamped to k (no worker usefully holds more than every partition).
+    """
+    model = resolve_latency_model(model)
+    plan = optimal_allocation(cluster, k, model=model)
+    loads = np.minimum(plan.loads, float(k))
+    loads_int = np.minimum(plan.loads_int, k)
+    n_w = np.asarray([g.num_workers for g in cluster.groups], dtype=np.int64)
+    return dataclasses.replace(
+        plan,
+        loads=loads,
+        loads_int=loads_int,
+        n=float(np.sum(n_w * loads)),
+        n_int=int(np.sum(n_w * loads_int)),
+        scheme="grad_coding_per_row" if model.per_row else "grad_coding",
     )

@@ -9,7 +9,8 @@ semantics. Schemes are registered by name:
     plan = scheme.allocate(cluster, k)
 
 ``make_scheme`` rejects parameters a scheme's factory does not declare.
-This slice registers ``optimal``, ``optimal_per_row`` and ``uniform_n``.
+This port registers ``optimal``, ``optimal_per_row``, ``uniform_n``,
+``grad_coding`` and ``grad_coding_per_row``.
 """
 from __future__ import annotations
 
@@ -138,6 +139,30 @@ class UniformN(AllocationScheme):
         return allocation.uniform_given_n(cluster, k, self.n)
 
 
+@dataclasses.dataclass(frozen=True)
+class GradCoding(AllocationScheme):
+    """Heterogeneity-aware gradient coding (Wang et al., arXiv:1901.09339).
+
+    ``k`` is the number of gradient partitions of the global batch; loads
+    are coded partition-gradients per worker (Theorem 2 clamped to k).
+    Threshold decoding, so simulation and deadline come from the base.
+    """
+
+    name = "grad_coding"
+    model: LatencyModel = LatencyModel.MODEL_1
+
+    @property
+    def latency_model(self) -> LatencyModel:
+        return self.model
+
+    @property
+    def tag(self) -> str:
+        return "grad_coding_per_row" if self.model.per_row else "grad_coding"
+
+    def _allocate(self, cluster: ClusterSpec, k: int) -> AllocationPlan:
+        return allocation.gradient_coding_allocation(cluster, k, model=self.model)
+
+
 # --------------------------------------------------------------- registry
 SchemeFactory = Callable[..., AllocationScheme]
 
@@ -211,14 +236,19 @@ def _make_optimal(*, per_row=None, model=None):
     return Optimal(model=resolve_latency_model(model, per_row))
 
 
-def _make_optimal_per_row(*, per_row=None, model=None):
+def _model_30(base: str, per_row, model) -> LatencyModel:
+    """The per-row model of a ``<base>_per_row`` scheme; any other raises."""
     m = resolve_latency_model(model, per_row, default=LatencyModel.MODEL_30)
     if m is not LatencyModel.MODEL_30:
         raise ValueError(
-            "scheme 'optimal_per_row' is fixed to MODEL_30; use 'optimal' "
+            f"scheme '{base}_per_row' is fixed to MODEL_30; use '{base}' "
             "with model=MODEL_1 instead"
         )
-    return Optimal(model=LatencyModel.MODEL_30)
+    return m
+
+
+def _make_optimal_per_row(*, per_row=None, model=None):
+    return Optimal(model=_model_30("optimal", per_row, model))
 
 
 def _make_uniform_n(*, n=None):
@@ -227,9 +257,19 @@ def _make_uniform_n(*, n=None):
     return UniformN(n=float(n))
 
 
+def _make_grad_coding(*, per_row=None, model=None):
+    return GradCoding(model=resolve_latency_model(model, per_row))
+
+
+def _make_grad_coding_per_row(*, per_row=None, model=None):
+    return GradCoding(model=_model_30("grad_coding", per_row, model))
+
+
 register_scheme("optimal", _make_optimal)
 register_scheme("optimal_per_row", _make_optimal_per_row)
 register_scheme("uniform_n", _make_uniform_n)
+register_scheme("grad_coding", _make_grad_coding)
+register_scheme("grad_coding_per_row", _make_grad_coding_per_row)
 
 
 def scheme_for_plan(plan) -> AllocationScheme:

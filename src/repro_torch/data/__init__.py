@@ -1,0 +1,4 @@
+"""Synthetic training data (counterpart of ``repro/data``)."""
+from repro_torch.data.pipeline import SyntheticLMData
+
+__all__ = ["SyntheticLMData"]

@@ -1,0 +1,66 @@
+"""Deterministic synthetic LM data (counterpart of ``repro/data/pipeline.py``).
+
+Tokens are the reference's counter-mode hash of (step, batch row,
+position), computed with the same numpy arithmetic, so a batch here is
+identical to the reference's for the same (config, shape, seed, step).
+A Markov-ish structure gives the loss a learnable signal. The pipeline
+is seekable: ``state()`` returns {"step", "seed"} and ``start_step``
+resumes exactly. Batches land on ``device`` (CUDA by default) as int32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.device import resolve_device
+
+
+def _hash2d(step: int, b: int, s: int, seed: int) -> np.ndarray:
+    """uint32 counter hash (splitmix-style), vectorized over (b, s)."""
+    bi = np.arange(b, dtype=np.uint64)[:, None]
+    si = np.arange(s, dtype=np.uint64)[None, :]
+    with np.errstate(over="ignore"):  # uint64 wraparound is the hash
+        x = (np.uint64(step) * np.uint64(0x9E3779B97F4A7C15)
+             + bi * np.uint64(0xBF58476D1CE4E5B9)
+             + si * np.uint64(0x94D049BB133111EB)
+             + np.uint64(seed))
+        x ^= x >> np.uint64(30)
+        x *= np.uint64(0xBF58476D1CE4E5B9)
+        x ^= x >> np.uint64(27)
+        x *= np.uint64(0x94D049BB133111EB)
+        x ^= x >> np.uint64(31)
+    return (x & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+
+class SyntheticLMData:
+    """Iterator of {"tokens": (B, S) int32, "labels": (B, S) int32} batches."""
+
+    def __init__(self, config: ModelConfig, shape: ShapeConfig, seed: int = 0,
+                 start_step: int = 0, learnable: bool = True, *,
+                 device: str | torch.device = "cuda"):
+        if config.family != "dense":
+            raise NotImplementedError("family extras are not ported")
+        self.config = config
+        self.shape = shape
+        self.seed = seed
+        self.learnable = learnable
+        self.device = resolve_device(device)
+        self._step = start_step
+
+    def state(self) -> dict:
+        return {"step": self._step, "seed": self.seed}
+
+    def _raw(self, step: int) -> np.ndarray:
+        b, s = self.shape.global_batch, self.shape.seq_len
+        h = _hash2d(step, b, s + 1, self.seed)
+        v = self.config.vocab_size
+        if not self.learnable:
+            return (h % np.uint32(v)).astype(np.int32)
+        base = (h % np.uint32(17)).astype(np.int64)
+        return (np.cumsum(base, axis=1) % v).astype(np.int32)
+
+    def next_batch(self) -> dict:
+        seq = torch.from_numpy(self._raw(self._step)).to(self.device)  # (B, S+1)
+        self._step += 1
+        return {"tokens": seq[:, :-1].contiguous(), "labels": seq[:, 1:].contiguous()}

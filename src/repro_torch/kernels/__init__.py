@@ -2,7 +2,10 @@
 
 * ``coded_matvec``    — B1, ``Y = G X`` block mix of the coded LM head;
 * ``paged_attention`` — B2, single-query decode attend over the KV pool;
-* ``mds_encode``      — B3, ``A~ = G A`` coded vocab blocks, once per plan.
+* ``mds_encode``      — B3, ``A~ = G A`` coded vocab blocks, once per plan;
+* ``fused_ce``        — B4, per-token (lse, label logit, argmax) of
+  ``H E^T`` for the training loss, forward and its two backward kernels
+  (``fused_ce_fwd``, ``fused_ce_bwd_dh``, ``fused_ce_bwd_de``, one library).
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 PyTorch version beside it for CPU tensors, and counts its launches
@@ -13,6 +16,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.coded_matvec import ops as coded_matvec_ops
+from repro_torch.kernels.fused_ce import ops as fused_ce_ops
 from repro_torch.kernels.mds_encode import ops as mds_encode_ops
 from repro_torch.kernels.paged_attention import ops as paged_attention_ops
 
@@ -20,6 +24,7 @@ KERNELS = (
     coded_matvec_ops.KERNEL,
     paged_attention_ops.KERNEL,
     mds_encode_ops.KERNEL,
+    *fused_ce_ops.KERNELS,
 )
 
 

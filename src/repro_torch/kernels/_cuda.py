@@ -10,6 +10,8 @@ process never builds anything.
 ``CudaKernel.launch`` calls one exported function (pointers as
 ``c_void_p``, then the tensors' device ordinal and PyTorch's current
 stream on it), raises if it returns a CUDA error, and counts the launch.
+Several kernels of one source (a forward and its backward) share one
+library (``library_name``) and keep a launch count each.
 """
 from __future__ import annotations
 
@@ -43,8 +45,10 @@ def nvcc() -> str:
 class CudaKernel:
     """One hand-written CUDA kernel: its source, exported functions, launches."""
 
-    def __init__(self, name: str, source: Path, functions: dict[str, list]):
+    def __init__(self, name: str, source: Path, functions: dict[str, list],
+                 library_name: str | None = None):
         self.name = name
+        self.library_name = library_name or name
         self.source = Path(source)
         self.functions = functions  # exported symbol -> ctypes argtypes
         self.launches = 0
@@ -58,11 +62,11 @@ class CudaKernel:
 
     @property
     def library(self) -> Path:
-        return BUILD_DIR / f"lib{self.name}-{self._digest()}.so"
+        return BUILD_DIR / f"lib{self.library_name}-{self._digest()}.so"
 
     @property
     def log(self) -> Path:
-        return BUILD_DIR / f"{self.name}.log"
+        return BUILD_DIR / f"{self.library_name}.log"
 
     def build_command(self, out: Path) -> list[str]:
         return [nvcc(), *NVCC_FLAGS, f"-I{INCLUDE_DIR}", "-o", str(out),
@@ -100,14 +104,16 @@ def build_all(kernels) -> None:
     Output goes to a temporary name and is renamed into place, so a
     concurrent reader never loads a half-written library. The compiler's
     output (``-Xptxas -v``: registers, shared memory, spills) is kept in
-    ``build/kernels/<name>.log``.
+    ``build/kernels/<library_name>.log``. Kernels that share a library
+    build it once.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
+    jobs, seen = [], set()
     for k in kernels:
         out = k.library
-        if out.exists():
+        if out.exists() or out in seen:
             continue
+        seen.add(out)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         with open(k.log, "w") as log:
             proc = subprocess.Popen(k.build_command(tmp), stdout=log,
@@ -116,7 +122,7 @@ def build_all(kernels) -> None:
     failed = []
     for k, proc, tmp, out in jobs:
         if proc.wait() != 0:
-            failed.append(f"{k.name}:\n{k.log.read_text()}")
+            failed.append(f"{k.library_name}:\n{k.log.read_text()}")
         else:
             os.replace(tmp, out)
     if failed:

@@ -1,17 +1,24 @@
-"""Paged GQA attention (counterpart of ``repro/models/attention.py``).
+"""GQA attention (counterpart of ``repro/models/attention.py``).
 
-Only the paged paths of the serving slice: ``decode_attention_paged``
-(one query per slot, the B2 kernel on the card) and
-``prefill_attention_paged`` (a chunk of C queries per slot). Layer
-weights arrive as a dict of this layer's tensors (``wq``, ``wk``, ``wv``,
-``wo`` and optionally ``q_norm``/``k_norm``).
+The paged serving paths, ``decode_attention_paged`` (one query per slot,
+the B2 kernel on the card) and ``prefill_attention_paged`` (a chunk of C
+queries per slot), and the training path, ``attention`` over
+``chunked_attention`` (causal, flash-style online softmax over key
+blocks, no sliding window). The reference computes the training
+attention in jnp outside any Pallas kernel, so it is plain torch here.
+Layer weights arrive as a dict of this layer's tensors (``wq``, ``wk``,
+``wv``, ``wo`` and optionally ``q_norm``/``k_norm``).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models.layers import rope
+
+NEG_INF = -1e30
 
 
 def _qkv(p: dict, x: torch.Tensor, num_heads: int, num_kv_heads: int,
@@ -80,3 +87,82 @@ def prefill_attention_paged(p: dict, x, k_pool, v_pool, table, start,
     out = paged_ops.paged_chunk_attend(qr, k_pool, v_pool, table, pp)
     out = out.reshape(b, c, num_heads * head_dim).to(x.dtype)
     return out @ p["wo"].to(x.dtype)
+
+
+def chunked_attention(q, k, v, q_pos, kv_pos, *, num_heads, num_kv_heads, head_dim,
+                      causal=True, q_block=512, kv_block=1024):
+    """Flash-style attention. q: (B, S, H, hd); k, v: (B, Skv, KV, hd).
+
+    q_pos: (S,), kv_pos: (Skv,) absolute positions (kv_pos < 0 marks a
+    padded key). Blocks must divide S and Skv. Scores are taken in q's
+    dtype and then f32, the weights cast to v's dtype for the P V
+    product, as the reference promotes. Returns (B, S, H, hd).
+    """
+    b, s = q.shape[:2]
+    skv = k.shape[1]
+    g = num_heads // num_kv_heads
+    scale = 1.0 / math.sqrt(head_dim)
+    qb, kb = min(q_block, s), min(kv_block, skv)
+    if s % qb or skv % kb:
+        raise ValueError(f"blocks ({qb}, {kb}) must divide ({s}, {skv})")
+    qr = q.reshape(b, s // qb, qb, num_kv_heads, g, head_dim)
+    kr = k.reshape(b, skv // kb, kb, num_kv_heads, head_dim)
+    vr = v.reshape(b, skv // kb, kb, num_kv_heads, head_dim)
+    qp = q_pos.reshape(-1, qb)
+    kp = kv_pos.reshape(-1, kb)
+    outs = []
+    for qi in range(s // qb):
+        m = torch.full((b, num_kv_heads, g, qb), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, num_kv_heads, g, qb, head_dim), dtype=torch.float32,
+                          device=q.device)
+        for kj in range(skv // kb):
+            sc = (torch.einsum("bqkgh,bskh->bkgqs", qr[:, qi], kr[:, kj]) * scale).float()
+            mask = (kp[kj][None, :] >= 0).expand(qb, kb)
+            if causal:
+                mask = mask & (qp[qi][:, None] >= kp[kj][None, :])
+            sc = sc.masked_fill(~mask, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            pv = torch.einsum("bkgqs,bskh->bkgqh", p.to(v.dtype), vr[:, kj]).float()
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / l.clamp_min(1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, qb, num_heads, head_dim)
+                    .to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def attention(p: dict, x, positions, *, num_heads, num_kv_heads, head_dim,
+              causal=True, rope_theta=10_000.0, q_block=512, kv_block=1024):
+    """Full attention layer (train path). x: (B, S, D); positions: (S,).
+
+    Sequences that do not divide the blocks are padded: queries with
+    continuation positions (sliced back), keys with position -1 (masked).
+    Returns y (B, S, D).
+    """
+    b, s = x.shape[:2]
+    q, k, v = _qkv(p, x, num_heads, num_kv_heads, head_dim)
+    q, k = _maybe_qk_norm(p, q, k)
+    pos_b = positions[None, :].expand(b, s)
+    q = rope(q, pos_b, rope_theta)
+    k = rope(k, pos_b, rope_theta)
+    qb, kb = min(q_block, s), min(kv_block, s)
+    pad_q, pad_k = (-s) % qb, (-s) % kb
+    q_pos, kv_pos = positions, positions
+    if pad_q:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q_pos = torch.cat([positions, positions[-1] + 1 + torch.arange(
+            pad_q, dtype=positions.dtype, device=x.device)])
+    if pad_k:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
+        kv_pos = torch.cat([positions, torch.full((pad_k,), -1, dtype=positions.dtype,
+                                                  device=x.device)])
+    out = chunked_attention(q, k, v, q_pos, kv_pos, num_heads=num_heads,
+                            num_kv_heads=num_kv_heads, head_dim=head_dim,
+                            causal=causal, q_block=qb, kv_block=kb)[:, :s]
+    return out.reshape(b, s, num_heads * head_dim) @ p["wo"].to(x.dtype)

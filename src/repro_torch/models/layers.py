@@ -51,3 +51,33 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1.to(x.dtype), y2.to(x.dtype)], dim=-1)
+
+
+def ce_from_lse(lse: torch.Tensor, ll: torch.Tensor, mask: torch.Tensor | None = None,
+                z_loss: float = 1e-4) -> torch.Tensor:
+    """Token-mean ``lse - ll + z_loss lse^2`` over ``mask``, along the last axis.
+
+    Per-token f32 inputs (..., T) -> (...); a leading axis gives one loss
+    per partition.
+    """
+    nll = lse - ll
+    if z_loss:
+        nll = nll + z_loss * lse**2
+    if mask is None:
+        return nll.mean(-1)
+    mask = mask.float()
+    return (nll * mask).sum(-1) / mask.sum(-1).clamp_min(1.0)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None, z_loss: float = 1e-4
+                       ) -> torch.Tensor:
+    """Token-mean cross entropy with z-loss over materialized logits.
+
+    The oracle of the fused path: lse and the label logit in f32 from
+    (..., V) logits, then ``ce_from_lse``.
+    """
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0].float()
+    return ce_from_lse(lse.reshape(-1), ll.reshape(-1),
+                       None if mask is None else mask.reshape(-1), z_loss)

@@ -11,7 +11,13 @@ reference's pytree with layers stacked on axis 0 (``scan_layers``):
 seeded init on its device at any width.
 
 The paged KV cache is ``{"k", "v"}`` of shape (L, NB+1, BL, KV, hd);
-both paged entry points update it in place and return it.
+both paged entry points update it in place and return it (under
+``torch.no_grad``). The parameters are trainable: ``hidden`` runs the
+training forward (causal chunked attention, each layer under
+``torch.utils.checkpoint`` when ``config.remat``, as the reference's
+``jax.checkpoint``), and ``loss_fn`` takes the cross entropy through the
+B4 fused kernel on the card, so no (T, V) logits are materialized.
+``lm_logits`` is the materialized oracle.
 """
 from __future__ import annotations
 
@@ -20,11 +26,14 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.kernels.fused_ce.ops import fused_ce
 from repro_torch.models.attention import (
+    attention,
     decode_attention_paged,
     prefill_attention_paged,
 )
@@ -47,7 +56,10 @@ _JAX_PATHS = {
     ("blocks", "mlp", "w_up"): "w_up",
     ("blocks", "mlp", "w_down"): "w_down",
 }
+#: port parameter name -> reference tree path ("blocks/attn/wq", ...)
+JAX_NAMES = {name: "/".join(path) for path, name in _JAX_PATHS.items()}
 _LAYER_PARAMS = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
+_BLOCK_PARAMS = _LAYER_PARAMS + ("ln1", "ln2", "w_gate", "w_up", "w_down")
 
 
 def padded_vocab(v: int, multiple: int = 256) -> int:
@@ -72,7 +84,7 @@ class Model(nn.Module):
         h, kv = c.num_heads * hd, c.num_kv_heads * hd
 
         def param(t: torch.Tensor) -> nn.Parameter:
-            return nn.Parameter(t.to(c.pdtype), requires_grad=False)
+            return nn.Parameter(t.to(c.pdtype))
 
         def normal(shape, scale):
             return param(torch.randn(shape, generator=gen, device=dev) * scale)
@@ -136,6 +148,65 @@ class Model(nn.Module):
         """(S, 1, D) final hidden -> (S, V_padded) masked logits."""
         x = L.rmsnorm(self.final_norm, x)
         return self._mask_pad_logits(L.unembed(self.embed, x, self.config.ldtype)[:, 0])
+
+    def param_count(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    # ----------------------------------------------------------- training
+    def _block(self, p: dict, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        c = self.config
+        h = x + attention(p, L.rmsnorm(p["ln1"], x), positions, **self._attn_kw(),
+                          q_block=c.attn_q_block, kv_block=c.attn_kv_block)
+        return h + L.mlp(p["w_gate"], p["w_up"], p["w_down"], L.rmsnorm(p["ln2"], h))
+
+    def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
+        """(B, S) tokens -> (B, S, D) final-normed hidden states, compute dtype.
+
+        The stacked parameters are unbound once per call, so the backward
+        stacks each one's layer gradients in a single op.
+        """
+        c = self.config
+        x = L.embed(self.embed, tokens, c.cdtype)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
+        names = [n for n in _BLOCK_PARAMS if hasattr(self, n)]
+        per_layer = zip(*(getattr(self, n).unbind(0) for n in names))
+        remat = c.remat and torch.is_grad_enabled()
+        for views in per_layer:
+            p = dict(zip(names, views))
+            if remat:
+                x = checkpoint(self._block, p, x, positions, use_reentrant=False)
+            else:
+                x = self._block(p, x, positions)
+        return L.rmsnorm(self.final_norm, x)
+
+    def lm_logits(self, tokens: torch.Tensor) -> torch.Tensor:
+        """(B, S, V_padded) masked logits, materialized (the oracle path)."""
+        x = self.hidden(tokens)
+        return self._mask_pad_logits(L.unembed(self.embed, x, self.config.ldtype))
+
+    def token_ce(self, tokens: torch.Tensor, labels: torch.Tensor):
+        """Per-token (lse, ll, argmax) of the tied head, flattened to (B*S,).
+
+        Through ``fused_ce`` (B4 on the card): the first ``vocab_size``
+        rows of the table, rounded to the compute dtype as ``unembed``
+        rounds them; the padded rows would contribute exactly nothing.
+        """
+        x = self.hidden(tokens)
+        h = x.reshape(-1, x.shape[-1])
+        table = self.embed[: self.config.vocab_size].to(h.dtype)
+        return fused_ce(h.contiguous(), table.contiguous(), labels.reshape(-1))
+
+    def loss_fn(self, batch: dict):
+        """(loss, {"loss", "accuracy"}) of {"tokens", "labels"} (B, S) batches.
+
+        Labels < 0 are masked; the loss carries the 1e-4 lse^2 z-loss.
+        """
+        labels = batch["labels"].reshape(-1)
+        lse, ll, am = self.token_ce(batch["tokens"], labels)
+        mask = labels >= 0
+        loss = L.ce_from_lse(lse, ll, mask)
+        acc = ((am == labels) & mask).sum() / mask.sum().clamp_min(1)
+        return loss, {"loss": loss, "accuracy": acc}
 
     # ------------------------------------------------------------- cache
     def init_paged_cache(self, num_blocks: int, block_len: int) -> dict:

@@ -71,7 +71,7 @@ class CodedLMHead:
     def __init__(self, embed_table: torch.Tensor, cluster: ClusterSpec, *,
                  block_rows: int = 256, scheme: str | AllocationScheme = "optimal",
                  deadline_safety: float = 3.0, g: np.ndarray | None = None):
-        self.table = embed_table.float()  # (Vp, D)
+        self.table = embed_table.detach().float()  # (Vp, D)
         self.block_rows = block_rows
         self.kb = -(-self.table.shape[0] // block_rows)
         self.executor = CodedRoundExecutor(

@@ -1,0 +1,286 @@
+"""Training loop: heterogeneity-aware gradient coding on the coded substrate.
+
+Counterpart of ``repro/runtime/train_loop.py``. The global batch is split
+into ``k`` partitions; the ``grad_coding`` scheme (Theorem-2 balancing,
+``core/allocation.py``) assigns each worker a speed-proportional number
+of coded partition-gradients, and the master recovers the full-batch
+gradient from any ``k`` coded rows through a decode vector
+(``core/gradient_coding.py``). ``TrainConfig(cluster=...)`` turns coded
+execution on; without a cluster the plain step runs.
+
+The coded step takes the worker finish mask as an argument (``Trainer.run``
+draws it from a ``torch.Generator`` on the executor's device; tests
+inject the reference's). The mask and the decode vector do not depend on
+the gradients, so the step samples the mask first, solves ``a``, forms
+``w = a B`` and runs ONE backward of ``sum_p (w_p / k) loss_p``. By
+linearity that equals the reference's vmapped per-partition gradients
+contracted with ``w / k``, without k gradient copies. When fewer than k
+rows survive, the backward is not run and the parameters, m, v and
+``count`` stay bit-unchanged.
+
+Parameters live in the ``Model`` (updated in place after each step); the
+optimizer state is the dict of ``optim/adamw.py``. The scenario, adaptive
+control, measured-time and plan-bucket options of the reference's
+trainer, and ``Trainer.replan``, are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
+from repro_torch.core.allocation import optimal_allocation
+from repro_torch.core.gradient_coding import assignment_matrix, decode_vector_torch
+from repro_torch.core.runtime_model import ClusterSpec
+from repro_torch.core.schemes import AllocationScheme
+from repro_torch.models import layers as L
+from repro_torch.models.model import JAX_NAMES, Model
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
+from repro_torch.runtime.executor import CodedRoundExecutor
+from repro_torch.runtime.telemetry import Telemetry
+
+
+def heterogeneous_batch_split(cluster: ClusterSpec, global_batch: int) -> np.ndarray:
+    """Per-group microbatch sizes from the paper's optimal allocation.
+
+    Group j's share is ``N_j l*_j / n*``, rounded to integers preserving
+    the total (largest remainder).
+    """
+    plan = optimal_allocation(cluster, k=global_batch)
+    n_w = np.asarray([g.num_workers for g in cluster.groups], float)
+    raw = n_w * plan.loads / float(plan.n) * global_batch
+    base = np.floor(raw).astype(int)
+    rem = global_batch - base.sum()
+    base[np.argsort(-(raw - base))[:rem]] += 1
+    return base
+
+
+def aggregate_with_erasures(grads_list, token_counts, finished_mask, *,
+                            prev_grads=None, telemetry: Telemetry | None = None):
+    """Token-weighted mean of the gradient dicts of the workers that finished.
+
+    When every worker misses the deadline the step degrades: ``prev_grads``
+    when given, else zeros, and the event goes to ``telemetry``.
+    """
+    w = np.asarray(token_counts, np.float64) * np.asarray(finished_mask, np.float64)
+    total = w.sum()
+    if total <= 0:
+        if telemetry is not None:
+            telemetry.event("all_workers_missed_deadline", workers=len(grads_list))
+        if prev_grads is not None:
+            return prev_grads
+        return {n: torch.zeros_like(g, dtype=torch.float32) for n, g in grads_list[0].items()}
+    scale = [float(x / total) for x in w]
+    return {
+        n: sum(s * g[n].float() for s, g in zip(scale, grads_list))
+        for n in grads_list[0]
+    }
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    steps: int = 100
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 50
+    log_every: int = 10
+    telemetry_path: str | None = None
+    seed: int = 0
+    # ---- coded execution (gradient coding on the shared substrate) ----
+    #: straggler fleet to plan against; None = plain (uncoded) training
+    cluster: ClusterSpec | None = None
+    #: registry name or typed scheme for the partition-load allocation
+    scheme: str | AllocationScheme = "grad_coding"
+    scheme_params: dict | None = None
+    #: gradient partitions k (must divide the global batch); None = one
+    #: partition per batch row
+    partitions: int | None = None
+    deadline_safety: float = 3.0
+
+
+def _params(model: Model) -> dict:
+    return dict(model.named_parameters())
+
+
+@torch.no_grad()
+def _load_params(model: Model, new: dict) -> None:
+    for n, p in model.named_parameters():
+        p.copy_(new[n])
+
+
+def make_train_step_fn(model: Model, opt_cfg: AdamWConfig):
+    """Plain step: (opt_state, batch) -> (opt_state, metrics); params in place."""
+
+    def train_step(opt_state, batch):
+        params = _params(model)
+        loss, metrics = model.loss_fn(batch)
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        new_p, opt_state, opt_metrics = adamw_update(opt_cfg, grads, opt_state, params)
+        _load_params(model, new_p)
+        return opt_state, {**metrics, **opt_metrics}
+
+    return train_step
+
+
+def partition_losses(lse, ll, argmax, labels, partitions: int):
+    """Per-partition (loss, accuracy), each (k,), from per-token (B*S,) values.
+
+    Partition p is batch rows ``[p B/k, (p+1) B/k)``; each is the
+    reference's ``loss_fn`` of that sub-batch (masked token mean with z-loss).
+    """
+    labels = labels.reshape(partitions, -1)
+    mask = labels >= 0
+    loss_p = L.ce_from_lse(lse.reshape(partitions, -1), ll.reshape(partitions, -1), mask)
+    hits = (argmax.reshape(partitions, -1) == labels) & mask
+    return loss_p, hits.sum(1) / mask.sum(1).clamp_min(1)
+
+
+def weighted_gradient(model: Model, batch: dict, weights: torch.Tensor, partitions: int):
+    """Gradient of ``sum_p weights[p] loss_p`` in one forward and one backward.
+
+    Returns (grads {name: tensor}, loss_p, accuracy_p); with ``weights =
+    a^T B / k`` this is the coded aggregate ``sum_i a_i g~_i / k``.
+    """
+    params = _params(model)
+    with torch.enable_grad():
+        lse, ll, am = model.token_ce(batch["tokens"], batch["labels"])
+        loss_p, acc_p = partition_losses(lse, ll, am, batch["labels"], partitions)
+        objective = (weights.detach() * loss_p).sum()
+        grads = torch.autograd.grad(objective, list(params.values()))
+    return dict(zip(params, grads)), loss_p.detach(), acc_p
+
+
+def make_coded_train_step_fn(model: Model, opt_cfg: AdamWConfig,
+                             executor: CodedRoundExecutor, b_matrix: torch.Tensor,
+                             partitions: int):
+    """Coded step: (opt_state, batch, worker_mask) -> (opt_state, metrics).
+
+    ``worker_mask`` is the (W,) bool finish mask of this round. The
+    parameters are updated in place unless the round is undecodable;
+    then only the forward runs (for the metrics).
+    """
+    b_mat = b_matrix.to(torch.float32)
+
+    def coded_step(opt_state, batch, worker_mask):
+        row_alive = executor.slot_mask(worker_mask)
+        a, ok = decode_vector_torch(b_mat, row_alive)
+        if bool(ok):
+            w_part = (a @ b_mat) / partitions  # (k,), 1/k each up to the solve
+            grads, loss_p, acc_p = weighted_gradient(model, batch, w_part, partitions)
+            params = _params(model)
+            new_p, opt_state, opt_metrics = adamw_update(opt_cfg, grads, opt_state, params)
+            _load_params(model, new_p)
+        else:
+            # fewer than k coded rows: skip (params, m, v, count unchanged);
+            # the reference reports its zero aggregate's norm and next lr
+            with torch.no_grad():
+                lse, ll, am = model.token_ce(batch["tokens"], batch["labels"])
+            loss_p, acc_p = partition_losses(lse, ll, am, batch["labels"], partitions)
+            opt_metrics = {"grad_norm": torch.zeros((), device=lse.device),
+                           "lr": cosine_schedule(opt_cfg, opt_state["count"] + 1)}
+        metrics = {"loss": loss_p.mean(), "accuracy": acc_p.mean(), **opt_metrics}
+        metrics["survivors"] = worker_mask.sum().float()
+        metrics["coded_rows_alive"] = row_alive.sum().float()
+        metrics["skipped"] = 1.0 - ok.float()
+        return opt_state, metrics
+
+    return coded_step
+
+
+def state_tree(model: Model, opt_state: dict) -> dict:
+    """Flat ``{reference path: tensor}`` of params and optimizer state."""
+    out = {"opt/count": opt_state["count"]}
+    for n, p in model.named_parameters():
+        path = JAX_NAMES[n]
+        out[f"params/{path}"] = p
+        out[f"opt/m/{path}"] = opt_state["m"][n]
+        out[f"opt/v/{path}"] = opt_state["v"][n]
+    return out
+
+
+class Trainer:
+    """Single-device trainer with checkpoint/restart and coded execution.
+
+    With ``TrainConfig(cluster=...)`` a ``CodedRoundExecutor`` plans the
+    partition loads under the configured scheme on the model's device and
+    every step runs ``make_coded_train_step_fn`` with a finish mask drawn
+    from ``self.generator``. ``step_seconds`` holds each step's wall time
+    (host clock, the step ends in a host read of its metrics).
+    """
+
+    def __init__(self, model: Model, data, opt_cfg: AdamWConfig, cfg: TrainConfig):
+        self.model = model
+        self.data = data
+        self.opt_cfg = opt_cfg
+        self.cfg = cfg
+        self.executor: CodedRoundExecutor | None = None
+        self.step_seconds: list[float] = []
+        if cfg.cluster is not None:
+            gb = data.shape.global_batch
+            k = cfg.partitions if cfg.partitions is not None else gb
+            if gb % k:
+                raise ValueError(f"partitions ({k}) must divide the global batch ({gb})")
+            self.partitions = int(k)
+        self.telemetry = Telemetry(cfg.telemetry_path)
+        self._ckpt = AsyncCheckpointer(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+        if cfg.cluster is not None:
+            self.executor = CodedRoundExecutor(
+                cfg.cluster, self.partitions, cfg.scheme,
+                scheme_params=cfg.scheme_params, deadline_safety=cfg.deadline_safety,
+                device=model.device,
+            )
+            self.b_matrix = assignment_matrix(self.executor.n, self.partitions,
+                                              seed=cfg.seed, device=model.device)
+            self.coded_step_fn = make_coded_train_step_fn(
+                model, opt_cfg, self.executor, self.b_matrix, self.partitions)
+            self.generator = torch.Generator(device=model.device).manual_seed(cfg.seed + 1)
+        else:
+            self.step_fn = make_train_step_fn(model, opt_cfg)
+
+    def init_or_restore(self):
+        """(params, opt_state, start): the model's parameters, fresh or restored."""
+        params = _params(self.model)
+        opt_state = adamw_init(self.opt_cfg, params)
+        start = 0
+        if self.cfg.checkpoint_dir:
+            last = latest_step(self.cfg.checkpoint_dir)
+            if last is not None:
+                like = state_tree(self.model, opt_state)
+                state, meta = restore_checkpoint(self.cfg.checkpoint_dir, last, like)
+                _load_params(self.model, {n: state[f"params/{JAX_NAMES[n]}"]
+                                          for n in params})
+                opt_state = {
+                    "m": {n: state[f"opt/m/{JAX_NAMES[n]}"] for n in params},
+                    "v": {n: state[f"opt/v/{JAX_NAMES[n]}"] for n in params},
+                    "count": state["opt/count"],
+                }
+                start = meta["step"]
+                self.data._step = meta.get("data_step", start)
+        return params, opt_state, start
+
+    def run(self):
+        params, opt_state, start = self.init_or_restore()
+        tokens_per_step = self.data.shape.global_batch * self.data.shape.seq_len
+        history = []
+        for step in range(start, self.cfg.steps):
+            t0 = time.perf_counter()
+            batch = self.data.next_batch()
+            if self.executor is not None:
+                wmask = self.executor.finish_mask(self.generator)
+                opt_state, metrics = self.coded_step_fn(opt_state, batch, wmask)
+            else:
+                opt_state, metrics = self.step_fn(opt_state, batch)
+            metrics = {n: float(torch.as_tensor(v).detach()) for n, v in metrics.items()}
+            self.step_seconds.append(time.perf_counter() - t0)
+            self.telemetry.tick()
+            if (step + 1) % self.cfg.log_every == 0 or step == start:
+                history.append(self.telemetry.log(step + 1, metrics, tokens_per_step))
+            if self._ckpt and (step + 1) % self.cfg.checkpoint_every == 0:
+                self._ckpt.save(step + 1, state_tree(self.model, opt_state),
+                                {"data_step": self.data.state()["step"]})
+        if self._ckpt:
+            self._ckpt.wait()
+        self.telemetry.close()
+        return params, opt_state, history

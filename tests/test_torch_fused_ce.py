@@ -1,0 +1,134 @@
+"""Port parity, B4 fused linear cross-entropy on the CPU (its plain version).
+
+The port's ``fused_ce`` (per-token lse, label logit, argmax) against the
+reference's Pallas ``fused_ce_kernel`` run with ``interpret=True``, and
+its mean loss and (dH, dE) gradients against the reference's custom-VJP
+``fused_linear_ce`` and the jnp oracle ``linear_ce_ref``, on the
+reference test's shapes (vocab tails of 300 and 1000 rows included).
+Tolerances are the reference test's: 1e-5 relative for values, 1e-4
+relative / 1e-6 absolute for gradients.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.fused_ce.kernel import fused_ce_kernel
+from repro.kernels.fused_ce.ops import fused_linear_ce
+from repro.kernels.fused_ce.ref import linear_ce_ref
+from repro_torch.kernels.fused_ce import ops as ce
+
+torch.set_num_threads(1)
+
+# (t, v, d) and Pallas tiles (bt, bv) that divide them
+SHAPES = [(256, 512, 128, 256, 512), (100, 300, 64, 20, 60), (8, 1000, 32, 8, 200)]
+
+
+def _inputs(t, v, d, seed, scale=0.5, mask_first=0):
+    rng = np.random.default_rng(seed)
+    h = (rng.standard_normal((t, d)) * scale).astype(np.float32)
+    e = (rng.standard_normal((v, d)) * scale).astype(np.float32)
+    labels = rng.integers(0, v, t).astype(np.int32)
+    labels[:mask_first] = -1
+    return h, e, labels
+
+
+def _mean_ce(h, e, labels):
+    lse, ll, _ = ce.fused_ce(h, e, labels)
+    mask = (labels >= 0).float()
+    return ((lse - ll) * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+@pytest.mark.parametrize("t,v,d,bt,bv", SHAPES)
+def test_per_token_values_match_pallas_kernel(t, v, d, bt, bv):
+    h, e, labels = _inputs(t, v, d, t + v)
+    lse, ll, am = ce.fused_ce(torch.from_numpy(h), torch.from_numpy(e),
+                              torch.from_numpy(labels))
+    want_lse, want_ll = fused_ce_kernel(jnp.asarray(h), jnp.asarray(e), jnp.asarray(labels),
+                                        bt=bt, bv=bv, interpret=True)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=1e-5)
+    np.testing.assert_allclose(ll.numpy(), np.asarray(want_ll), rtol=1e-5, atol=1e-6)
+    logits = h.astype(np.float64) @ e.astype(np.float64).T
+    np.testing.assert_array_equal(am.numpy(), logits.argmax(1))
+    assert lse.dtype == ll.dtype == torch.float32 and am.dtype == torch.int64
+
+
+@pytest.mark.parametrize("t,v,d,bt,bv", SHAPES)
+def test_loss_matches_reference_and_oracle(t, v, d, bt, bv):
+    h, e, labels = _inputs(t, v, d, t + v)
+    got = float(_mean_ce(torch.from_numpy(h), torch.from_numpy(e), torch.from_numpy(labels)))
+    args = (jnp.asarray(h), jnp.asarray(e), jnp.asarray(labels))
+    np.testing.assert_allclose(got, float(fused_linear_ce(*args)), rtol=1e-5)
+    np.testing.assert_allclose(got, float(linear_ce_ref(*args)), rtol=1e-5)
+
+
+def test_masked_labels_match_reference():
+    """Masked tokens contribute nothing: ll 0, no one-hot term, no weight."""
+    h, e, labels = _inputs(64, 256, 32, 3, scale=1.0, mask_first=32)
+    th, te, tl = map(torch.from_numpy, (h, e, labels))
+    got = float(_mean_ce(th, te, tl))
+    want = fused_linear_ce(jnp.asarray(h), jnp.asarray(e), jnp.asarray(labels))
+    np.testing.assert_allclose(got, float(want), rtol=1e-5)
+    np.testing.assert_allclose(
+        got, float(linear_ce_ref(jnp.asarray(h[32:]), jnp.asarray(e),
+                                 jnp.asarray(labels[32:]))), rtol=1e-5)
+    _, ll, _ = ce.fused_ce(th, te, tl)
+    assert bool((ll[:32] == 0).all())
+
+
+@pytest.mark.parametrize("t,v,d,mask_first", [(64, 384, 48, 0), (100, 300, 64, 10),
+                                              (8, 1000, 32, 3)])
+def test_gradients_match_reference(t, v, d, mask_first):
+    h, e, labels = _inputs(t, v, d, t * d, scale=0.3, mask_first=mask_first)
+    th = torch.from_numpy(h).requires_grad_()
+    te = torch.from_numpy(e).requires_grad_()
+    gh, ge = torch.autograd.grad(_mean_ce(th, te, torch.from_numpy(labels)), (th, te))
+    rh, re_ = jax.grad(fused_linear_ce, argnums=(0, 1))(
+        jnp.asarray(h), jnp.asarray(e), jnp.asarray(labels))
+    np.testing.assert_allclose(gh.numpy(), np.asarray(rh), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(ge.numpy(), np.asarray(re_), rtol=1e-4, atol=1e-6)
+
+
+def test_plain_backward_is_the_dlogits_formula():
+    """dH = dl E and dE = dl^T H with dl = g_lse softmax + g_ll onehot: the
+    rule the backward kernels implement, checked on the plain version."""
+    h, e, labels = _inputs(12, 70, 16, 5, mask_first=2)
+    th = torch.from_numpy(h).requires_grad_()
+    te = torch.from_numpy(e).requires_grad_()
+    tl = torch.from_numpy(labels)
+    rng = np.random.default_rng(9)
+    g_lse = torch.from_numpy(rng.standard_normal(12).astype(np.float32))
+    g_ll = torch.from_numpy(rng.standard_normal(12).astype(np.float32))
+    lse, ll, _ = ce.fused_ce_plain(th, te, tl)
+    gh, ge = torch.autograd.grad((lse, ll), (th, te), (g_lse, g_ll))
+    logits = th.detach().double() @ te.detach().double().T
+    dl = torch.softmax(logits, 1) * g_lse.double()[:, None]
+    hit = tl >= 0
+    dl[torch.arange(12)[hit], tl[hit].long()] += g_ll.double()[hit]
+    np.testing.assert_allclose(gh.numpy(), (dl @ te.detach().double()).numpy(),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(ge.numpy(), (dl.T @ th.detach().double()).numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_argmax_takes_first_index_on_ties():
+    h = torch.randn(5, 8)
+    e = torch.ones(40, 8)
+    _, _, am = ce.fused_ce(h, e, torch.zeros(5, dtype=torch.long))
+    assert bool((am == 0).all())
+
+
+@pytest.mark.parametrize("bad,exc,match", [
+    (lambda h, e, l: (h[:, :7].contiguous(), e[:, :7].contiguous(), l), ValueError, "width"),
+    (lambda h, e, l: (h, e[:, :4].contiguous(), l), ValueError, "shapes"),
+    (lambda h, e, l: (h, e, l[:3]), ValueError, "labels"),
+    (lambda h, e, l: (h.double(), e.double(), l), TypeError, "bf16 or f32"),
+    (lambda h, e, l: (h, e.bfloat16(), l), TypeError, "one dtype"),
+    (lambda h, e, l: (h.T.contiguous().T, e, l), ValueError, "contiguous"),
+])
+def test_kernel_wrapper_refuses_what_the_kernels_do_not_take(bad, exc, match):
+    """The checks the wrapper runs before a launch on the card."""
+    h, e, l = torch.randn(6, 8), torch.randn(10, 8), torch.zeros(6, dtype=torch.int32)
+    with pytest.raises(exc, match=match):
+        ce._check(*bad(h, e, l))

@@ -19,6 +19,7 @@ from repro.kernels.mds_encode import ops as ref_mds
 from repro.kernels.mds_encode.ref import encode_ref
 import repro_torch.kernels as kernels
 from repro_torch.kernels.coded_matvec.ops import blocked_matvec
+from repro_torch.kernels.fused_ce.ops import fused_ce
 from repro_torch.kernels.mds_encode.ops import mds_encode
 from repro_torch.kernels.paged_attention import ops as pa
 
@@ -181,8 +182,11 @@ def test_wrappers_run_plain_on_cpu_and_refuse_other_devices():
     a = torch.ones((4, 3))
     blocked_matvec(a, torch.ones(3))
     mds_encode(a, torch.ones((3, 2)))
+    lse, _, _ = fused_ce(a, torch.ones((5, 3)), torch.zeros(4, dtype=torch.long))
+    assert lse.shape == (4,)
     assert kernels.launch_counts() == {
-        "coded_matvec": 0, "paged_decode": 0, "mds_encode": 0}
+        "coded_matvec": 0, "paged_decode": 0, "mds_encode": 0,
+        "fused_ce_fwd": 0, "fused_ce_bwd_dh": 0, "fused_ce_bwd_de": 0}
     meta = torch.empty((4, 3), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         blocked_matvec(meta, torch.empty(3, device="meta"))
@@ -191,6 +195,8 @@ def test_wrappers_run_plain_on_cpu_and_refuse_other_devices():
     q = torch.empty((1, 1, 1, 32), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         pa.paged_decode_attend(q, q, q, q, q)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_ce(meta, meta, torch.empty(4, device="meta"))
 
 
 def test_kernel_sources_are_where_the_wrappers_say():

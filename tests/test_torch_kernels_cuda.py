@@ -8,13 +8,15 @@ machine without CUDA. Run them on the card with
 (``--noconftest``: the suite's conftest imports JAX, which the port does not need.)
 
 Shapes are ragged on purpose (tile edges of the GEMMs; GQA group sizes,
-head dims and block lengths of the decode attend).
+head dims and block lengths of the decode attend; vocab tails and token
+counts off the fused cross-entropy's tiles).
 """
 import pytest
 import torch
 
 import repro_torch.kernels as kernels
 from repro_torch.kernels.coded_matvec import ops as cmv
+from repro_torch.kernels.fused_ce import ops as ce
 from repro_torch.kernels.mds_encode import ops as mds
 from repro_torch.kernels.paged_attention import ops as pa
 
@@ -100,3 +102,88 @@ def test_paged_decode_refusals(dev):
         pa.paged_decode_attend(q, pool, pool, table, pos)
     with pytest.raises(TypeError, match="int32"):
         pa.paged_decode_attend(q[:, :, :2], pool, pool, table.long(), pos)
+
+
+def _ce_case(dev, dtype, t, v, d, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn((t, d), generator=gen, device=dev).to(dtype)
+    e = (torch.randn((v, d), generator=gen, device=dev) * 0.05).to(dtype)
+    labels = torch.randint(0, v, (t,), generator=gen, device=dev)
+    labels[::3] = -1  # masked tokens
+    return h, e, labels
+
+
+def _ce_tolerances(h, e):
+    """Derived bounds: a logit's f32 dot product is within 2 D u max|h||e|
+    (Cauchy-Schwarz on the rows); lse adds the online sum over V/64 tiles."""
+    u = 2.0**-24
+    mag = float(h.float().norm(dim=1).max() * e.float().norm(dim=1).max())
+    tol_logit = 2 * h.shape[1] * u * mag
+    return tol_logit, tol_logit + (e.shape[0] / 64 + 64) * u
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,v,d", [(100, 300, 64), (37, 1000, 32), (256, 5000, 1024),
+                                   (16, 64, 4)])
+def test_fused_ce_matches_plain(dev, dtype, t, v, d):
+    """Forward (lse, ll, argmax) and backward (dH, dE) against the plain
+    version: vocab tails (V not a multiple of 64), T not a multiple of 16,
+    masked labels, f32 and bf16 operands."""
+    h, e, labels = _ce_case(dev, dtype, t, v, d, t + v + d)
+    tol_logit, tol_lse = _ce_tolerances(h, e)
+    hk = h.clone().requires_grad_()
+    ek = e.clone().requires_grad_()
+    before = kernels.launch_counts()
+    lse, ll, am = ce.fused_ce(hk, ek, labels)
+    hp = h.clone().requires_grad_()
+    ep = e.clone().requires_grad_()
+    lse_p, ll_p, am_p = ce.fused_ce_plain(hp, ep, labels)
+    mask = (labels >= 0).float()
+    g_lse = mask * (1 + 2e-4 * lse_p.detach()) / mask.sum()
+    g_ll = -mask / mask.sum()
+    dh, de = torch.autograd.grad((lse, ll), (hk, ek), (g_lse, g_ll))
+    dh_p, de_p = torch.autograd.grad((lse_p, ll_p), (hp, ep), (g_lse, g_ll))
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    for name in ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_de"):
+        assert after[name] == before[name] + 1, name
+    assert (lse - lse_p).abs().max().item() <= tol_lse + 2.0**-23 * lse_p.abs().max().item()
+    assert (ll - ll_p).abs().max().item() <= tol_logit
+    assert bool((ll[labels < 0] == 0).all())
+    logits = h.float() @ e.float().T
+    top2 = logits.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * tol_logit
+    assert bool((am == am_p)[clear].all())
+    # dlogits error relative to |dl|: 2 tol_lse from exp(logit - lse), plus
+    # the f32 sum over V (dH) or T (dE); then one rounding step of the output
+    rel = 2 * tol_lse
+    dl = torch.softmax(logits, 1) * g_lse[:, None]
+    dl[torch.arange(t, device=dev)[labels >= 0], labels[labels >= 0]] += g_ll[labels >= 0]
+    half_ulp = 2.0**-7 if dtype == torch.bfloat16 else 2.0**-22
+    for got, want, bound in ((dh, dh_p, dl.abs() @ e.float().abs()),
+                             (de, de_p, dl.abs().T @ h.float().abs())):
+        k = v if got.shape == h.shape else t
+        lim = (rel + k * 2.0**-24) * bound + half_ulp * want.float().abs() + 1e-30
+        assert bool(((got.float() - want.float()).abs() <= lim).all())
+
+
+def test_fused_ce_argmax_first_index_on_ties(dev):
+    h = torch.randn((20, 32), device=dev)
+    e = torch.ones((200, 32), device=dev)  # every logit of a token is equal
+    labels = torch.arange(20, device=dev)
+    _, ll, am = ce.fused_ce(h, e, labels)
+    assert bool((am == 0).all())
+    assert bool(torch.allclose(ll, h.sum(1), rtol=1e-5, atol=1e-5))
+
+
+def test_fused_ce_refusals(dev):
+    h = torch.randn((8, 30), device=dev)  # D not a multiple of 4
+    labels = torch.zeros(8, dtype=torch.long, device=dev)
+    with pytest.raises(ValueError, match="width"):
+        ce.fused_ce(h, torch.randn((10, 30), device=dev), labels)
+    with pytest.raises(TypeError):
+        ce.fused_ce(h[:, :28].contiguous().half(), torch.randn((10, 28), device=dev).half(),
+                    labels)
+    with pytest.raises(ValueError, match="contiguous"):
+        ce.fused_ce(torch.randn((32, 8), device=dev).T, torch.randn((10, 32), device=dev),
+                    labels)

@@ -53,15 +53,18 @@ def test_reduced_config_matches_reference():
 
 def test_params_from_jax_copies_every_leaf(pair):
     _, _, tree, ours = pair
-    np.testing.assert_array_equal(ours.embed.numpy(), tree["embed"]["table"])
-    np.testing.assert_array_equal(ours.final_norm.numpy(), tree["final_norm"]["scale"])
+    def leaf(name):  # parameters are trainable: detach before numpy
+        return getattr(ours, name).detach().numpy()
+
+    np.testing.assert_array_equal(leaf("embed"), tree["embed"]["table"])
+    np.testing.assert_array_equal(leaf("final_norm"), tree["final_norm"]["scale"])
     blocks = tree["blocks"]
     for name in ("wq", "wk", "wv", "wo", "q_norm", "k_norm"):
-        np.testing.assert_array_equal(getattr(ours, name).numpy(), blocks["attn"][name])
+        np.testing.assert_array_equal(leaf(name), blocks["attn"][name])
     for name in ("w_gate", "w_up", "w_down"):
-        np.testing.assert_array_equal(getattr(ours, name).numpy(), blocks["mlp"][name])
-    np.testing.assert_array_equal(ours.ln1.numpy(), blocks["ln1"]["scale"])
-    np.testing.assert_array_equal(ours.ln2.numpy(), blocks["ln2"]["scale"])
+        np.testing.assert_array_equal(leaf(name), blocks["mlp"][name])
+    np.testing.assert_array_equal(leaf("ln1"), blocks["ln1"]["scale"])
+    np.testing.assert_array_equal(leaf("ln2"), blocks["ln2"]["scale"])
     assert ours.embed.shape[0] == padded_vocab(ours.config.vocab_size)
     bad = dict(tree, final_norm={"scale": np.zeros(3, np.float32)})
     with pytest.raises(ValueError, match="shape"):
