@@ -8,21 +8,42 @@
 // carries the online (m, s, ll) across its sequential vocab axis in VMEM
 // scratch, and the wrapper pads the vocab with zero rows and removes
 // their exp(0) terms afterwards. Here blocks run in parallel and in no
-// order, so the sequential axis becomes a loop inside one CUDA block, and
-// the vocab tail is masked in the kernel (no padding, no correction):
+// order, so the sequential axis becomes a loop inside one CUDA block or
+// a sequence of launches, and the vocab tail is masked in the kernel (no
+// padding, no correction).
 //
-// * fused_ce_fwd: one block per 16-token tile. The tile's hidden rows sit
-//   in shared memory as f32; the block streams every 64-row vocab tile of
-//   E, forms the 16 x 64 logit tile, and folds it into an online
-//   (max, sum-exp) per token, picks up the label logit and tracks the
-//   argmax (first index on ties, as jnp.argmax).
-// * fused_ce_bwd_dh: one block per 16-token tile, streaming vocab tiles:
-//   dlogits = g_lse exp(logit - lse) + g_ll [v == label] is formed tile by
-//   tile in shared memory and folded into dH (16 x D, in registers).
-// * fused_ce_bwd_de: one block per 16 vocab rows, streaming 64-token
-//   tiles: the same dlogits, transposed, folded into dE (16 x D).
-//   Each output row belongs to exactly one block: no atomics, dE and dH
-//   are deterministic.
+// * fused_ce_fwd (bf16 and f32): one block per 16-token tile on the SIMT
+//   cores. The tile's hidden rows sit in shared memory as f32; the block
+//   streams every 64-row vocab tile of E, forms the 16 x 64 logit tile,
+//   and folds it into an online (max, sum-exp) per token, picks up the
+//   label logit and tracks the argmax (first index on ties, as
+//   jnp.argmax).
+// * fused_ce_bwd_dh / fused_ce_bwd_de, bf16 (the full-width training
+//   path): chunked GEMMs on the tensor cores (wgmma_gemm.cuh: a
+//   persistent grid, TMA loads, one producer and two wgmma consumer
+//   warpgroups, 128 x 256 tiles).
+//   The vocab is cut into chunks of Vc rows (the wrapper picks Vc so the
+//   (T, Vc) bf16 scratch it allocates stays within 64 MiB); per chunk,
+//   in a fixed order, two launches on the caller's stream:
+//   1. dlogits: S = H E_c^T (K = D); the epilogue forms, in registers,
+//      P = g_lse exp(S - lse) + g_ll [v == label] (0 past V; labels < 0
+//      have no one-hot term), rounds it to bf16 and stores it into the
+//      (T, Vc) scratch through shared memory and an asynchronous TMA
+//      store. The (T, V) logits are never written.
+//   2. bwd_dh: an f32 (T, D) scratch accumulates P_c E_c (K = Vc; E_c is
+//      the MN-major B); the last chunk writes dH in bf16.
+//      bwd_de: dE[c] = P_c^T H (K = T; both operands MN-major), written
+//      in bf16; chunks own disjoint rows of dE.
+//   Both kernels do 4 T V D operations (the logits again, then their
+//   product), the work the bound counts. No atomics, no split K, a fixed
+//   chunk order: dH and dE are the same bits on every launch.
+//   The one numeric difference from the reference backward: P is rounded
+//   to bf16 before the product (the reference keeps dlogits in f32), a
+//   relative error of at most 2^-8 per element of P.
+// * fused_ce_bwd_dh / fused_ce_bwd_de, f32 (the gradient check of the
+//   coded step): one block per 16-token (dH) or 16-vocab-row (dE) tile
+//   on the SIMT cores, streaming the other operand: the dlogits tile is
+//   formed in shared memory and folded into the block's own output rows.
 //
 // Numerics: operands come in the compute dtype (bf16 at full width, f32
 // in the reduced config) and every product accumulates in f32, as the
@@ -31,16 +52,15 @@
 // Bound: 2 T V D operations forward and 4 T V D backward (logits again,
 // then dH and dE); at T = 8192, V = 151,936, D = 1024 that is 2.55 and
 // 5.1 TFLOP, far above the card's bytes-per-operation line, so the
-// tensor-core rate bounds it. This first version runs on the SIMT cores
-// in f32 (a warp reduces four streamed rows against the 16 resident rows
-// per step, float4 shared-memory reads): right and simple, well below
-// that bound. wgmma tiles are the later step.
+// tensor-core rate bounds it. The forward still runs on the SIMT cores
+// in f32, well below that bound; the bf16 backward runs on wgmma.
 #include <cuda_bf16.h>
 
 #include <climits>
 #include <cmath>
 
 #include "common.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -52,15 +72,6 @@ constexpr int LD = CT + 1;             // logit tile row stride (no bank conflic
 constexpr int GROUP = 4;               // streamed rows a warp reduces at once
 constexpr int MAX_D = 1024;
 constexpr int COLS = MAX_D / THREADS;  // output columns a thread owns
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // Four consecutive elements as f32 (16-byte / 8-byte aligned loads).
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -218,20 +229,20 @@ fused_ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ E,
   }
 }
 
-// Backward. DE = false: resident rows are tokens (H), streamed rows are
-// vocab rows (E), output dH. DE = true: resident rows are vocab rows,
-// streamed rows are tokens, output dE.
-template <typename T, bool DE>
+// SIMT backward (the f32 entry points). DE = false: resident rows are
+// tokens (H), streamed rows are vocab rows (E), output dH. DE = true:
+// resident rows are vocab rows, streamed rows are tokens, output dE.
+template <bool DE>
 __global__ void __launch_bounds__(THREADS)
-fused_ce_bwd_kernel(const T* __restrict__ h, const T* __restrict__ E,
+fused_ce_bwd_kernel(const float* __restrict__ h, const float* __restrict__ E,
                     const int* __restrict__ labels, const float* __restrict__ lse,
                     const float* __restrict__ g_lse, const float* __restrict__ g_ll,
-                    T* __restrict__ out, int Tn, int V, int D) {
+                    float* __restrict__ out, int Tn, int V, int D) {
   extern __shared__ float smem[];
   float* rs = smem;           // [RT][D] resident rows
   float* ps = smem + RT * D;  // [RT][LD] logit tile, then dlogits
-  const T* res_src = DE ? E : h;
-  const T* X = DE ? h : E;
+  const float* res_src = DE ? E : h;
+  const float* X = DE ? h : E;
   const int nres = DE ? V : Tn;
   const int nx = DE ? Tn : V;
   const int r0 = blockIdx.x * RT;
@@ -261,12 +272,12 @@ fused_ce_bwd_kernel(const T* __restrict__ h, const T* __restrict__ E,
     __syncthreads();
     const int nj = min(CT, nx - x0);
     for (int j = 0; j < nj; ++j) {
-      const T* xr = X + static_cast<long long>(x0 + j) * D;
+      const float* xr = X + static_cast<long long>(x0 + j) * D;
       float xv[COLS];
 #pragma unroll
       for (int c = 0; c < COLS; ++c) {
         const int d = threadIdx.x + c * THREADS;
-        xv[c] = d < D ? to_f32(xr[d]) : 0.f;
+        xv[c] = d < D ? xr[d] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < RT; ++i) {
@@ -284,7 +295,7 @@ fused_ce_bwd_kernel(const T* __restrict__ h, const T* __restrict__ E,
 #pragma unroll
     for (int c = 0; c < COLS; ++c) {
       const int d = threadIdx.x + c * THREADS;
-      if (d < D) store(out + static_cast<long long>(r0 + i) * D + d, acc[i][c]);
+      if (d < D) out[static_cast<long long>(r0 + i) * D + d] = acc[i][c];
     }
   }
 }
@@ -309,23 +320,193 @@ int launch_fwd(const void* h, const void* E, const int* labels, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool DE>
+template <bool DE>
 int launch_bwd(const void* h, const void* E, const int* labels,
                const float* lse, const float* g_lse, const float* g_ll,
                void* out, int Tn, int V, int D, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = smem_bytes(D);
-  err = cudaFuncSetAttribute(fused_ce_bwd_kernel<T, DE>,
+  err = cudaFuncSetAttribute(fused_ce_bwd_kernel<DE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = DE ? V : Tn;
-  fused_ce_bwd_kernel<T, DE><<<(rows + RT - 1) / RT, THREADS, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(h), static_cast<const T*>(E), labels, lse, g_lse,
-      g_ll, static_cast<T*>(out), Tn, V, D);
+  fused_ce_bwd_kernel<DE><<<(rows + RT - 1) / RT, THREADS, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(h), static_cast<const float*>(E), labels, lse,
+      g_lse, g_ll, static_cast<float*>(out), Tn, V, D);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- bf16 backward on the tensor cores (wgmma_gemm.cuh) ----
+
+using bf16 = __nv_bfloat16;
+
+// Stage 1 epilogue: the dlogits tile P of chunk [v0, v0 + Vc) into the
+// (T, Vc) bf16 scratch (through shared memory and TMA; rows past T are
+// dropped). Rows are tokens, columns vocab rows of the chunk.
+struct DlogitsEpi {
+  const int* labels;
+  const float* lse;
+  const float* g_lse;
+  const float* g_ll;
+  int T, V, v0;
+
+  __device__ void operator()(float (&acc)[wg::ACC], int row0, int col0,
+                             const wg::Out& out) const {
+    constexpr float LOG2E = 1.4426950408889634f;
+    const int r = row0 + 16 * (out.tid / 32) + (out.tid % 32) / 4;
+    const int vq = v0 + col0 + 2 * (out.tid % 4);  // vocab row of this thread's column 0
+    float l2[2], gs[2], gl[2];
+    int lab[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = r + 8 * h;
+      const bool ok = t < T;
+      l2[h] = ok ? lse[t] * LOG2E : 0.f;
+      gs[h] = ok ? g_lse[t] : 0.f;
+      gl[h] = ok ? g_ll[t] : 0.f;
+      lab[h] = ok ? labels[t] : -1;
+    }
+    wg::store_tile_bf16(out, row0, col0, [&](int j, int h, int c) {
+      const int v = vq + 8 * j + c;
+      float q = 0.f;
+      if (v < V) {
+        // exp(S - lse) as exp2(S log2 e - lse log2 e)
+        q = gs[h] * exp2f(fmaf(acc[4 * j + 2 * h + c], LOG2E, -l2[h]));
+        if (v == lab[h]) q += gl[h];
+      }
+      return q;
+    });
+  }
+};
+
+// Stage 2 epilogue of bwd_dh: rows tokens, columns hidden units. The f32
+// scratch carries the sum over earlier chunks (all of this thread's loads
+// are issued before its first store); the last chunk writes dH.
+struct DhEpi {
+  float* sum;
+  bf16* dh;
+  int T, D, first, last;
+
+  __device__ void operator()(float (&acc)[wg::ACC], int row0, int col0,
+                             const wg::Out& out) const {
+    const int r = row0 + 16 * (out.tid / 32) + (out.tid % 32) / 4;
+    const int cq = col0 + 2 * (out.tid % 4);
+    if (!first) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = r + 8 * h;
+        if (t >= T) continue;
+        const float* row = sum + static_cast<long long>(t) * D;
+#pragma unroll
+        for (int j = 0; j < wg::ACC / 4; ++j) {
+          const int d = cq + 8 * j;
+          if (d >= D) continue;  // D even: d < D implies d + 1 < D
+          const float2 o = *reinterpret_cast<const float2*>(row + d);
+          acc[4 * j + 2 * h] = o.x + acc[4 * j + 2 * h];
+          acc[4 * j + 2 * h + 1] = o.y + acc[4 * j + 2 * h + 1];
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = r + 8 * h;
+      if (t >= T) continue;
+      const long long base = static_cast<long long>(t) * D;
+#pragma unroll
+      for (int j = 0; j < wg::ACC / 4; ++j) {
+        const int d = cq + 8 * j;
+        if (d >= D) continue;
+        const float x = acc[4 * j + 2 * h], y = acc[4 * j + 2 * h + 1];
+        if (last)
+          *reinterpret_cast<__nv_bfloat162*>(dh + base + d) = __floats2bfloat162_rn(x, y);
+        else
+          *reinterpret_cast<float2*>(sum + base + d) = make_float2(x, y);
+      }
+    }
+  }
+};
+
+// Stage 2 epilogue of bwd_de: rows vocab rows of the chunk, columns
+// hidden units; rows past V are not stored.
+struct DeEpi {
+  bf16* de;
+  int V, D, v0;
+
+  __device__ void operator()(float (&acc)[wg::ACC], int row0, int col0,
+                             const wg::Out& out) const {
+    const int r = row0 + 16 * (out.tid / 32) + (out.tid % 32) / 4;
+    const int cq = col0 + 2 * (out.tid % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int v = v0 + r + 8 * h;
+      if (v >= V) continue;
+      bf16* row = de + static_cast<long long>(v) * D;
+#pragma unroll
+      for (int j = 0; j < wg::ACC / 4; ++j) {
+        const int d = cq + 8 * j;
+        if (d >= D) continue;
+        *reinterpret_cast<__nv_bfloat162*>(row + d) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+};
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// bwd_dh (DE = false) or bwd_de (DE = true) for bf16 operands: per chunk
+// of Vc vocab rows, the dlogits launch and the product launch. `p` is the
+// (T, Vc) bf16 scratch; `sum` the (T, D) f32 scratch of bwd_dh (unused
+// when one chunk covers V, and by bwd_de).
+template <bool DE>
+int launch_bwd_tc(const void* h, const void* E, const int* labels,
+                  const float* lse, const float* g_lse, const float* g_ll,
+                  void* out, void* p, float* sum, int Tn, int V, int D, int Vc,
+                  int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (D % 8 != 0 || Vc <= 0 || Vc % wg::BN != 0) return cudaErrorInvalidValue;
+  const int chunks = cdiv(V, Vc);
+  if (!DE && chunks > 1 && sum == nullptr) return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  // stage 1 operands, both K-major: H (T, D) and E (V, D); its output P
+  CUtensorMap h_k, e_k, p_out, a2, b2;
+  bool ok = wg::bf16_map(&h_k, h, Tn, D, wg::BK, wg::BM) &&
+            wg::bf16_map(&e_k, E, V, D, wg::BK, wg::BN) &&
+            wg::bf16_map(&p_out, p, Tn, Vc, 64, 64);
+  if (DE) {
+    // P_c^T (A, MN-major over the scratch) and H (B, MN-major)
+    ok = ok && wg::bf16_map(&a2, p, Tn, Vc, 64, wg::BK) &&
+         wg::bf16_map(&b2, h, Tn, D, 64, wg::BK);
+  } else {
+    // P_c (A, K-major over the scratch) and E_c (B, MN-major)
+    ok = ok && wg::bf16_map(&a2, p, Tn, Vc, wg::BK, wg::BM) &&
+         wg::bf16_map(&b2, E, V, D, 64, wg::BK);
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  // (the product epilogues store directly: their output map is unused)
+  for (int c = 0; c < chunks; ++c) {
+    const int v0 = c * Vc;
+    const int vlen = V - v0 < Vc ? V - v0 : Vc;
+    const DlogitsEpi dl{labels, lse, g_lse, g_ll, Tn, V, v0};
+    err = wg::launch_gemm<false, false>(h_k, e_k, p_out, 0, v0, 0, cdiv(D, wg::BK),
+                                        cdiv(Tn, wg::BM), cdiv(vlen, wg::BN), dl, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (DE) {
+      const DeEpi epi{static_cast<bf16*>(out), V, D, v0};
+      err = wg::launch_gemm<true, true>(a2, b2, a2, 0, 0, 0, cdiv(Tn, wg::BK),
+                                        cdiv(vlen, wg::BM), cdiv(D, wg::BN), epi, st);
+    } else {
+      const DhEpi epi{sum, static_cast<bf16*>(out), Tn, D, c == 0, c == chunks - 1};
+      err = wg::launch_gemm<false, true>(a2, b2, a2, 0, 0, v0, cdiv(vlen, wg::BK),
+                                         cdiv(Tn, wg::BM), cdiv(D, wg::BN), epi, st);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -346,13 +527,16 @@ extern "C" int repro_fused_ce_fwd_f32(const void* h, const void* E,
                            stream);
 }
 
+// bf16 backward: `p` the (T, Vc) bf16 scratch, `sum` the (T, D) f32
+// scratch (dH with more than one chunk; null otherwise).
 extern "C" int repro_fused_ce_bwd_dh_bf16(const void* h, const void* E,
                                           const int* labels, const float* lse,
                                           const float* g_lse, const float* g_ll,
-                                          void* dh, int Tn, int V, int D,
-                                          int device, void* stream) {
-  return launch_bwd<__nv_bfloat16, false>(h, E, labels, lse, g_lse, g_ll, dh,
-                                          Tn, V, D, device, stream);
+                                          void* dh, void* p, void* sum, int Tn,
+                                          int V, int D, int Vc, int device,
+                                          void* stream) {
+  return launch_bwd_tc<false>(h, E, labels, lse, g_lse, g_ll, dh, p,
+                              static_cast<float*>(sum), Tn, V, D, Vc, device, stream);
 }
 
 extern "C" int repro_fused_ce_bwd_dh_f32(const void* h, const void* E,
@@ -360,17 +544,18 @@ extern "C" int repro_fused_ce_bwd_dh_f32(const void* h, const void* E,
                                          const float* g_lse, const float* g_ll,
                                          void* dh, int Tn, int V, int D,
                                          int device, void* stream) {
-  return launch_bwd<float, false>(h, E, labels, lse, g_lse, g_ll, dh, Tn, V, D,
-                                  device, stream);
+  return launch_bwd<false>(h, E, labels, lse, g_lse, g_ll, dh, Tn, V, D, device,
+                           stream);
 }
 
 extern "C" int repro_fused_ce_bwd_de_bf16(const void* h, const void* E,
                                           const int* labels, const float* lse,
                                           const float* g_lse, const float* g_ll,
-                                          void* de, int Tn, int V, int D,
-                                          int device, void* stream) {
-  return launch_bwd<__nv_bfloat16, true>(h, E, labels, lse, g_lse, g_ll, de,
-                                         Tn, V, D, device, stream);
+                                          void* de, void* p, void* sum, int Tn,
+                                          int V, int D, int Vc, int device,
+                                          void* stream) {
+  return launch_bwd_tc<true>(h, E, labels, lse, g_lse, g_ll, de, p,
+                             static_cast<float*>(sum), Tn, V, D, Vc, device, stream);
 }
 
 extern "C" int repro_fused_ce_bwd_de_f32(const void* h, const void* E,
@@ -378,6 +563,6 @@ extern "C" int repro_fused_ce_bwd_de_f32(const void* h, const void* E,
                                          const float* g_lse, const float* g_ll,
                                          void* de, int Tn, int V, int D,
                                          int device, void* stream) {
-  return launch_bwd<float, true>(h, E, labels, lse, g_lse, g_ll, de, Tn, V, D,
-                                 device, stream);
+  return launch_bwd<true>(h, E, labels, lse, g_lse, g_ll, de, Tn, V, D, device,
+                          stream);
 }

@@ -11,10 +11,18 @@ torch on (T,) vectors and autograd composes them.
 kernels of ``csrc/fused_ce.cu`` (forward, then ``bwd_dh`` and ``bwd_de``
 in the backward), CPU tensors run ``fused_ce_plain``, which materializes
 the logits. Labels < 0 have ``ll = 0`` and no one-hot term.
+
+The bf16 backward kernels run on the tensor cores over vocab chunks of
+``vocab_chunk`` rows: the wrapper allocates their scratch (the (T, Vc)
+bf16 dlogits chunk, and for ``bwd_dh`` an f32 (T, D) running sum when
+there is more than one chunk) and the kernels allocate nothing. They
+read H and E through TMA, which needs 16-byte row strides: the bf16 path
+takes a hidden width that is a multiple of 8.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 
 import torch
@@ -22,23 +30,26 @@ import torch
 from repro_torch.kernels._cuda import CudaKernel
 
 SOURCE = Path(__file__).parent / "csrc" / "fused_ce.cu"
-MAX_D = 1024  # hidden width the kernels hold per thread (csrc MAX_D)
+MAX_D = 1024  # hidden width the SIMT kernels hold per thread (csrc MAX_D)
+TILE_V = 256  # vocab rows of a tensor-core output tile (csrc wg::BN)
+SCRATCH_BYTES = 64 * 2**20  # bound on the bf16 dlogits chunk of the backward
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_P] * 6 + [_I] * 4 + [_P]
 _BWD_ARGS = [_P] * 7 + [_I] * 4 + [_P]
+_BWD_TC_ARGS = [_P] * 9 + [_I] * 5 + [_P]  # + dlogits and sum scratch, Vc
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
-def _kernel(name: str, args: list) -> CudaKernel:
-    return CudaKernel(name, SOURCE,
-                      {f"repro_{name}_{s}": args for s in _SUFFIX.values()},
+def _kernel(name: str, bf16_args: list, f32_args: list) -> CudaKernel:
+    return CudaKernel(name, SOURCE, {f"repro_{name}_bf16": bf16_args,
+                                     f"repro_{name}_f32": f32_args},
                       library_name="fused_ce")
 
 
-FWD = _kernel("fused_ce_fwd", _FWD_ARGS)
-BWD_DH = _kernel("fused_ce_bwd_dh", _BWD_ARGS)
-BWD_DE = _kernel("fused_ce_bwd_de", _BWD_ARGS)
+FWD = _kernel("fused_ce_fwd", _FWD_ARGS, _FWD_ARGS)
+BWD_DH = _kernel("fused_ce_bwd_dh", _BWD_TC_ARGS, _BWD_ARGS)
+BWD_DE = _kernel("fused_ce_bwd_de", _BWD_TC_ARGS, _BWD_ARGS)
 KERNELS = (FWD, BWD_DH, BWD_DE)
 
 
@@ -67,6 +78,9 @@ def _check(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor) -> None:
     if d % 4 or d > MAX_D:
         raise ValueError(f"fused_ce kernel: hidden width {d} unsupported "
                          f"(a multiple of 4, at most {MAX_D})")
+    if h.dtype == torch.bfloat16 and d % 8:
+        raise ValueError(f"fused_ce kernel: hidden width {d} unsupported in bf16 "
+                         f"(TMA rows need a multiple of 8)")
     for t in (h, table, labels):
         if t.device != h.device or not t.is_contiguous():
             raise ValueError("fused_ce kernel takes contiguous tensors on one device")
@@ -88,22 +102,74 @@ def fused_ce_forward(h, table, labels32):
     return lse, ll, am
 
 
-def fused_ce_backward(kernel: CudaKernel, h, table, labels32, lse, g_lse, g_ll):
-    """Launch ``bwd_dh`` (-> (T, D)) or ``bwd_de`` (-> (V, D)) in h's dtype."""
+def vocab_chunk(t: int, v: int, chunk: int | None = None) -> int:
+    """Vocab rows per chunk of the bf16 backward, a multiple of ``TILE_V``.
+
+    By default the largest whose (t, Vc) bf16 dlogits scratch fits in
+    ``SCRATCH_BYTES`` (at least one tile); never more than V rounded up
+    to a tile. ``chunk`` overrides the default (tests reach chunk edges
+    with it).
+    """
+    if chunk is None:
+        chunk = max(TILE_V, SCRATCH_BYTES // (2 * max(t, 1)) // TILE_V * TILE_V)
+    elif chunk <= 0 or chunk % TILE_V:
+        raise ValueError(f"fused_ce: chunk {chunk} is not a positive multiple of {TILE_V}")
+    return min(chunk, -(-v // TILE_V) * TILE_V)
+
+
+def backward_scratch(kernel: CudaKernel, t: int, v: int, d: int,
+                     chunk: int | None = None) -> dict[str, tuple]:
+    """Scratch of one bf16 backward launch: name -> (shape, dtype).
+
+    ``dlogits`` is the (t, Vc) bf16 chunk; ``bwd_dh`` adds an f32 (t, d)
+    running sum when the vocab takes more than one chunk.
+    """
+    vc = vocab_chunk(t, v, chunk)
+    out = {"dlogits": ((t, vc), torch.bfloat16)}
+    if kernel is BWD_DH and v > vc:
+        out["sum"] = ((t, d), torch.float32)
+    return out
+
+
+def scratch_bytes(kernel: CudaKernel, t: int, v: int, d: int,
+                  chunk: int | None = None) -> int:
+    """Bytes of ``backward_scratch``."""
+    return sum(math.prod(shape) * dtype.itemsize
+               for shape, dtype in backward_scratch(kernel, t, v, d, chunk).values())
+
+
+def fused_ce_backward(kernel: CudaKernel, h, table, labels32, lse, g_lse, g_ll,
+                      chunk: int | None = None):
+    """Launch ``bwd_dh`` (-> (T, D)) or ``bwd_de`` (-> (V, D)) in h's dtype.
+
+    bf16 runs the chunked tensor-core kernels on scratch allocated here
+    (``chunk``: vocab rows per chunk, ``vocab_chunk``'s default if None);
+    f32 runs the SIMT kernels.
+    """
     (t, d), v = h.shape, table.shape[0]
     out = torch.empty((t if kernel is BWD_DH else v, d), dtype=h.dtype, device=h.device)
-    if t and v:
-        kernel.launch(f"repro_{kernel.name}_{_SUFFIX[h.dtype]}", h.device,
-                      h.data_ptr(), table.data_ptr(), labels32.data_ptr(),
-                      lse.data_ptr(), g_lse.data_ptr(), g_ll.data_ptr(),
-                      out.data_ptr(), t, v, d)
+    if not (t and v):
+        return out
+    fn = f"repro_{kernel.name}_{_SUFFIX[h.dtype]}"
+    args = (h.data_ptr(), table.data_ptr(), labels32.data_ptr(), lse.data_ptr(),
+            g_lse.data_ptr(), g_ll.data_ptr(), out.data_ptr())
+    if h.dtype == torch.float32:
+        kernel.launch(fn, h.device, *args, t, v, d)
+        return out
+    scratch = {name: torch.empty(shape, dtype=dtype, device=h.device)
+               for name, (shape, dtype) in backward_scratch(kernel, t, v, d, chunk).items()}
+    total = scratch.get("sum")
+    kernel.launch(fn, h.device, *args, scratch["dlogits"].data_ptr(),
+                  total.data_ptr() if total is not None else None,
+                  t, v, d, scratch["dlogits"].shape[1])
     return out
 
 
 class _FusedCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, table, labels32):
+    def forward(ctx, h, table, labels32, chunk):
         lse, ll, am = fused_ce_forward(h, table, labels32)
+        ctx.chunk = chunk
         ctx.save_for_backward(h, table, labels32, lse)
         ctx.mark_non_differentiable(am)
         return lse, ll, am
@@ -119,19 +185,23 @@ class _FusedCE(torch.autograd.Function):
 
         g_lse, g_ll = grad_or_zeros(g_lse), grad_or_zeros(g_ll)
         args = (h, table, labels32, lse, g_lse, g_ll)
-        dh = fused_ce_backward(BWD_DH, *args) if ctx.needs_input_grad[0] else None
-        de = fused_ce_backward(BWD_DE, *args) if ctx.needs_input_grad[1] else None
-        return dh, de, None
+        dh = (fused_ce_backward(BWD_DH, *args, chunk=ctx.chunk)
+              if ctx.needs_input_grad[0] else None)
+        de = (fused_ce_backward(BWD_DE, *args, chunk=ctx.chunk)
+              if ctx.needs_input_grad[1] else None)
+        return dh, de, None, None
 
 
-def fused_ce(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor):
+def fused_ce(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
+             chunk: int | None = None):
     """Per-token (lse, ll, argmax) of ``h table^T``; never writes logits on the card.
 
     h: (T, D) and table: (V, D) in the compute dtype (bf16 or f32),
     labels: (T,) int (< 0 = masked: ll 0, no one-hot gradient). lse and
     ll are f32, argmax int64 (first index on ties). A CPU ``h`` runs
     ``fused_ce_plain``; a CUDA ``h`` launches the kernels (anything they
-    do not take raises).
+    do not take raises). ``chunk``: vocab rows per chunk of the bf16
+    backward (``vocab_chunk``).
     """
     if h.device.type == "cpu":
         return fused_ce_plain(h, table, labels)
@@ -139,4 +209,6 @@ def fused_ce(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor):
         raise ValueError(f"fused_ce: unsupported device {h.device}")
     labels32 = labels.to(torch.int32).contiguous()
     _check(h, table, labels32)
-    return _FusedCE.apply(h, table, labels32)
+    if h.dtype == torch.bfloat16:
+        vocab_chunk(h.shape[0], table.shape[0], chunk)  # refuse a bad chunk now
+    return _FusedCE.apply(h, table, labels32, chunk)

@@ -132,3 +132,76 @@ def test_kernel_wrapper_refuses_what_the_kernels_do_not_take(bad, exc, match):
     h, e, l = torch.randn(6, 8), torch.randn(10, 8), torch.zeros(6, dtype=torch.int32)
     with pytest.raises(exc, match=match):
         ce._check(*bad(h, e, l))
+
+
+def test_vocab_chunk_and_scratch_arithmetic():
+    """The bf16 backward's chunk: a multiple of the 256-row tile, the
+    (T, Vc) bf16 dlogits scratch within 64 MiB, never wider than V needs."""
+    t, v, d = 8192, 151_936, 1024
+    vc = ce.vocab_chunk(t, v)
+    assert vc == 4096 and -(-v // vc) == 38
+    assert ce.scratch_bytes(ce.BWD_DE, t, v, d) == 2 * t * vc == ce.SCRATCH_BYTES
+    assert ce.scratch_bytes(ce.BWD_DH, t, v, d) == 2 * t * vc + 4 * t * d
+    assert ce.vocab_chunk(100, 300) == 512  # one chunk: V rounded up to a tile
+    assert "sum" not in ce.backward_scratch(ce.BWD_DH, 100, 300, 64)
+    assert ce.vocab_chunk(10**6, v) == ce.TILE_V  # at least one tile
+    assert ce.vocab_chunk(200, 1000, chunk=256) == 256
+    assert ce.backward_scratch(ce.BWD_DH, 200, 1000, 128, chunk=256) == {
+        "dlogits": ((200, 256), torch.bfloat16), "sum": ((200, 128), torch.float32)}
+    assert ce.backward_scratch(ce.BWD_DE, 200, 1000, 128, chunk=256) == {
+        "dlogits": ((200, 256), torch.bfloat16)}
+    for bad in (0, -256, 100):
+        with pytest.raises(ValueError, match="chunk"):
+            ce.vocab_chunk(200, 1000, chunk=bad)
+
+
+def _chunked_backward(h, e, labels, lse, g_lse, g_ll, chunk):
+    """Plain rendering of the bf16 backward kernels' algorithm: per vocab
+    chunk, S = H E_c^T in f32, P = g_lse exp(S - lse) + g_ll [v == label]
+    rounded to bf16, then dH += P E_c (f32 running sum) and dE[c] = P^T H;
+    both outputs rounded to bf16 at the end."""
+    t, v = h.shape[0], e.shape[0]
+    vc = ce.vocab_chunk(t, v, chunk)
+    hf, ef = h.float(), e.float()
+    dh = torch.zeros_like(hf)
+    de = torch.empty_like(ef)
+    for v0 in range(0, v, vc):
+        ec = ef[v0:v0 + vc]
+        p = g_lse[:, None] * torch.exp(hf @ ec.T - lse[:, None])
+        hit = (labels[:, None] == torch.arange(v0, v0 + ec.shape[0])[None, :])
+        p = p + hit * g_ll[:, None]
+        p = p.to(torch.bfloat16).float()
+        dh += p @ ec
+        de[v0:v0 + vc] = p.T @ hf
+    return dh.to(torch.bfloat16), de.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("t,v,d,chunk", [(64, 1000, 32, 256), (40, 700, 16, 512),
+                                         (24, 300, 8, None)])
+def test_chunked_bf16_backward_within_error_model(t, v, d, chunk):
+    """The chunked algorithm with dlogits rounded to bf16, against the plain
+    version's autograd, within the error model the card's check uses:
+    (2 tol_lse + n u + 2^-8) (|dl| |X|) + 2^-7 |want| per element."""
+    rng = np.random.default_rng(t + v)
+    h = torch.from_numpy(rng.standard_normal((t, d)).astype(np.float32)).bfloat16()
+    e = torch.from_numpy((rng.standard_normal((v, d)) * 0.3).astype(np.float32)).bfloat16()
+    labels = torch.from_numpy(rng.integers(0, v, t))
+    labels[::3] = -1
+    hp, ep = h.clone().requires_grad_(), e.clone().requires_grad_()
+    lse, ll, _ = ce.fused_ce_plain(hp, ep, labels)
+    mask = (labels >= 0).float()
+    g_lse = mask * (1 + 2e-4 * lse.detach()) / mask.sum()
+    g_ll = -mask / mask.sum()
+    dh_p, de_p = torch.autograd.grad((lse, ll), (hp, ep), (g_lse, g_ll))
+    dh, de = _chunked_backward(h, e, labels, lse.detach(), g_lse, g_ll, chunk)
+    u = 2.0**-24
+    logits = h.float() @ e.float().T
+    tol_logit = 2 * d * u * float(h.float().norm(dim=1).max() * e.float().norm(dim=1).max())
+    tol_lse = tol_logit + (v / 64 + 64) * u
+    dl = torch.softmax(logits, 1) * g_lse[:, None]
+    hit = labels >= 0
+    dl[torch.arange(t)[hit], labels[hit]] += g_ll[hit]
+    for got, want, bound, n in ((dh, dh_p, dl.abs() @ e.float().abs(), v),
+                                (de, de_p, dl.abs().T @ h.float().abs(), t)):
+        lim = (2 * tol_lse + n * u + 2.0**-8) * bound + 2.0**-7 * want.float().abs()
+        assert bool(((got.float() - want.float()).abs() <= lim + 1e-30).all())

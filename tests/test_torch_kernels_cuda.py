@@ -122,19 +122,31 @@ def _ce_tolerances(h, e):
     return tol_logit, tol_logit + (e.shape[0] / 64 + 64) * u
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t,v,d", [(100, 300, 64), (37, 1000, 32), (256, 5000, 1024),
-                                   (16, 64, 4)])
-def test_fused_ce_matches_plain(dev, dtype, t, v, d):
+_CE_CASES = [
+    (dtype, t, v, d, None)
+    for dtype in (torch.float32, torch.bfloat16)
+    for t, v, d in ((100, 300, 64), (37, 1000, 32), (256, 5000, 1024))
+] + [
+    (torch.float32, 16, 64, 4, None),  # bf16 refuses D % 8 != 0 (test_fused_ce_refusals)
+    # bf16 over several vocab chunks with a ragged last one; T off the
+    # 128-row tile, V off the 256-row tile, D at the model widths
+    (torch.bfloat16, 200, 1000, 1024, 256),
+    (torch.bfloat16, 200, 1000, 128, 256),
+    (torch.bfloat16, 300, 5000, 128, 1024),
+]
+
+
+@pytest.mark.parametrize("dtype,t,v,d,chunk", _CE_CASES)
+def test_fused_ce_matches_plain(dev, dtype, t, v, d, chunk):
     """Forward (lse, ll, argmax) and backward (dH, dE) against the plain
     version: vocab tails (V not a multiple of 64), T not a multiple of 16,
-    masked labels, f32 and bf16 operands."""
+    masked labels, f32 and bf16 operands, bf16 over several vocab chunks."""
     h, e, labels = _ce_case(dev, dtype, t, v, d, t + v + d)
     tol_logit, tol_lse = _ce_tolerances(h, e)
     hk = h.clone().requires_grad_()
     ek = e.clone().requires_grad_()
     before = kernels.launch_counts()
-    lse, ll, am = ce.fused_ce(hk, ek, labels)
+    lse, ll, am = ce.fused_ce(hk, ek, labels, chunk=chunk)
     hp = h.clone().requires_grad_()
     ep = e.clone().requires_grad_()
     lse_p, ll_p, am_p = ce.fused_ce_plain(hp, ep, labels)
@@ -155,8 +167,9 @@ def test_fused_ce_matches_plain(dev, dtype, t, v, d):
     clear = (top2[:, 0] - top2[:, 1]) > 2 * tol_logit
     assert bool((am == am_p)[clear].all())
     # dlogits error relative to |dl|: 2 tol_lse from exp(logit - lse), plus
-    # the f32 sum over V (dH) or T (dE); then one rounding step of the output
-    rel = 2 * tol_lse
+    # the f32 sum over V (dH) or T (dE), plus (bf16) the rounding of the
+    # dlogits to bf16 before the product; then one rounding step of the output
+    rel = 2 * tol_lse + (2.0**-8 if dtype == torch.bfloat16 else 0.0)
     dl = torch.softmax(logits, 1) * g_lse[:, None]
     dl[torch.arange(t, device=dev)[labels >= 0], labels[labels >= 0]] += g_ll[labels >= 0]
     half_ulp = 2.0**-7 if dtype == torch.bfloat16 else 2.0**-22
@@ -165,6 +178,22 @@ def test_fused_ce_matches_plain(dev, dtype, t, v, d):
         k = v if got.shape == h.shape else t
         lim = (rel + k * 2.0**-24) * bound + half_ulp * want.float().abs() + 1e-30
         assert bool(((got.float() - want.float()).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("t,v,d,chunk", [(200, 1000, 128, 256), (256, 5000, 1024, None)])
+def test_fused_ce_backward_is_bit_deterministic(dev, t, v, d, chunk):
+    """Two launches of each bf16 backward kernel give the same bits."""
+    h, e, labels = _ce_case(dev, torch.bfloat16, t, v, d, 7)
+    labels32 = labels.to(torch.int32)
+    lse, _, _ = ce.fused_ce_forward(h, e, labels32)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g_lse = torch.rand(t, generator=gen, device=dev)
+    g_ll = -torch.rand(t, generator=gen, device=dev)
+    for kern in (ce.BWD_DH, ce.BWD_DE):
+        first = ce.fused_ce_backward(kern, h, e, labels32, lse, g_lse, g_ll, chunk=chunk)
+        second = ce.fused_ce_backward(kern, h, e, labels32, lse, g_lse, g_ll, chunk=chunk)
+        assert bool(torch.isfinite(first).all())
+        assert torch.equal(first, second), kern.name
 
 
 def test_fused_ce_argmax_first_index_on_ties(dev):
@@ -187,3 +216,9 @@ def test_fused_ce_refusals(dev):
     with pytest.raises(ValueError, match="contiguous"):
         ce.fused_ce(torch.randn((32, 8), device=dev).T, torch.randn((10, 32), device=dev),
                     labels)
+    # bf16 goes through TMA: rows of a multiple of 8 elements (16 bytes)
+    hb, eb, lb = _ce_case(dev, torch.bfloat16, 16, 64, 4, 0)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ce.fused_ce(hb, eb, lb)
+    with pytest.raises(ValueError, match="chunk"):
+        ce.fused_ce(*_ce_case(dev, torch.bfloat16, 16, 64, 8, 0), chunk=100)
