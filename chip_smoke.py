@@ -13,9 +13,10 @@ Phases (any failure raises, and the script exits non-zero):
    ``nvcc`` per source, all at once, into ``build/kernels/``);
 2. kernels  — each kernel against its plain PyTorch version on the card
    at its main path's full-width shapes (serve for B1-B3, train for the
-   fused cross-entropy B4; its backward kernels also launched twice and
-   held bit-identical), with the tolerance stated, timed beside the
-   plain version and one PyTorch library call;
+   fused cross-entropy B4; its forward and backward kernels also launched
+   twice and held bit-identical, and each split by the profiler into its
+   stages), with the tolerance stated, timed beside the plain version and
+   one PyTorch library call;
 3. serve    — launch counters reset, then ``Server`` + ``serve`` of a
    seeded 8-request trace on full-width qwen3-0.6b (random seeded
    weights) with the coded LM head on a 12-worker cluster; counters read
@@ -111,6 +112,27 @@ def device_us(ev) -> float:
                          getattr(ev, "self_cuda_time_total", 0.0)) or 0.0)
 
 
+def device_split(fn, stages: dict) -> dict | None:
+    """Device ms and launches of each stage of one call of ``fn`` under
+    ``torch.profiler``: ``stages`` maps a stage name to a test on the
+    kernel's name (the first that holds takes it). None when the profiler
+    recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {name: [0.0, 0] for name in stages}
+    for ev in prof.key_averages():
+        for name, test in stages.items():
+            if test(ev.key):
+                out[name][0] += device_us(ev) / 1e3
+                out[name][1] += ev.count
+                break
+    return out if sum(ms for ms, _ in out.values()) > 0 else None
+
+
 def gemm_tolerance(a, b) -> float:
     """Worst-case float32 dot-product error of either side: 2 K u max(|A||B|)."""
     import torch
@@ -163,6 +185,11 @@ def kernel_phase(nb: int, kb: int) -> dict:
         library_ms=cuda_ms(lambda: torch.matmul(g, a), 5),
         bound=bound_ms(4 * (m * k + k * n + m * n), 2 * m * n * k, "float32"),
     )
+    r = rows["mds_encode"]
+    print(f"[kernels] mds_encode: {r['ms']:.3f} ms ({2 * m * n * k / r['ms'] / 1e9:.1f} "
+          f"TFLOP/s, {r['ms'] / r['bound'][0]:.2f}x bound, {r['ms'] / r['library_ms']:.2f}x "
+          f"cuBLAS), plain {r['plain_ms']:.3f} ms, cuBLAS SGEMM {r['library_ms']:.3f} ms "
+          f"({2 * m * n * k / r['library_ms'] / 1e9:.1f} TFLOP/s)")
     del a
     torch.cuda.empty_cache()
 
@@ -255,6 +282,12 @@ def fused_ce_phase(t: int = TRAIN_BATCH * TRAIN_SEQ, v: int = 151_936,
     print(f"[kernels] fused_ce_fwd argmax: {int(clear.sum())}/{t} tokens with a "
           f"top-two gap > 2 tol, {n_bad} disagree")
     check(n_bad == 0, "fused_ce_fwd argmax disagrees")
+    again = ce.fused_ce_forward(h, e, labels32)
+    same = all(torch.equal(x, y.detach()) for x, y in zip(again, (lse, ll, am)))
+    print(f"[kernels] fused_ce_fwd: {-(-v // ce.TILE_V)} vocab tiles, partial scratch "
+          f"{ce.scratch_bytes(ce.FWD, t, v, d)} bytes; a second launch bit-identical: {same}")
+    check(same, "fused_ce_fwd is not deterministic")
+    del again
 
     # the training loss's upstream gradients (mean over masked tokens, z-loss)
     g_lse = mask * (1 + 2e-4 * lse_p.detach()) / mask.sum()
@@ -329,7 +362,7 @@ def fused_ce_phase(t: int = TRAIN_BATCH * TRAIN_SEQ, v: int = 151_936,
     rows = {
         "fused_ce_fwd": dict(
             err=max(err_lse, err_ll),
-            ms=cuda_ms(lambda: ce.fused_ce_forward(h, e, labels32), 3, 1),
+            ms=cuda_ms(lambda: ce.fused_ce_forward(h, e, labels32), 20),
             plain_ms=cuda_ms(lambda: ce.fused_ce_plain(h, e, labels), 3, 1),
             library_ms=cuda_ms(library, 3, 1),
             bound=bound_ms(fwd_bytes, flops, "bfloat16"),
@@ -353,25 +386,25 @@ def fused_ce_phase(t: int = TRAIN_BATCH * TRAIN_SEQ, v: int = 151_936,
               f"library {r['library_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
               f"({r['bound'][1]})")
 
-    # a backward launch's two stages (dlogits, product), by the profiler
-    from torch.profiler import ProfilerActivity, profile
-
-    for name, kern in (("dh", ce.BWD_DH), ("de", ce.BWD_DE)):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            ce.fused_ce_backward(kern, h, e, labels32, lse_d, g_lse, g_ll)
-            torch.cuda.synchronize()
-        stages = {"dlogits": [0.0, 0], "product": [0.0, 0]}
-        for ev in prof.key_averages():
-            if "gemm_kernel" in ev.key:
-                stage = stages["dlogits" if "DlogitsEpi" in ev.key else "product"]
-                stage[0] += device_us(ev) / 1e3
-                stage[1] += ev.count
-        if stages["dlogits"][0] <= 0:
-            print(f"[kernels] fused_ce_bwd_{name} stages: not measured (no device time)")
+    # each launch's stages by the profiler: the forward's GEMM and combine,
+    # a backward's dlogits and product GEMMs
+    calls = {
+        "fwd": (lambda: ce.fused_ce_forward(h, e, labels32),
+                {"gemm": lambda k: "FwdEpi" in k, "combine": lambda k: "combine" in k}),
+        **{f"bwd_{name}": (
+            lambda k=kern: ce.fused_ce_backward(k, h, e, labels32, lse_d, g_lse, g_ll),
+            {"dlogits": lambda k: "DlogitsEpi" in k, "product": lambda k: "gemm_kernel" in k})
+           for name, kern in (("dh", ce.BWD_DH), ("de", ce.BWD_DE))},
+    }
+    for name, (fn, tests) in calls.items():
+        split = device_split(fn, tests)
+        if split is None:
+            print(f"[kernels] fused_ce_{name} stages: not measured (no device time)")
             continue
-        print(f"[kernels] fused_ce_bwd_{name} stages: " + ", ".join(
-            f"{st} {ms:.3f} ms in {n} launches ({flops / ms / 1e9:.1f} TFLOP/s)"
-            for st, (ms, n) in stages.items()))
+        print(f"[kernels] fused_ce_{name} stages: " + ", ".join(
+            f"{st} {ms:.3f} ms in {n} launches"
+            + (f" ({flops / ms / 1e9:.1f} TFLOP/s)" if st != "combine" and ms > 0 else "")
+            for st, (ms, n) in split.items()))
     return rows
 
 
@@ -495,10 +528,14 @@ def profile_step(trainer, opt_state, top: int = 16):
         ms = device_us(ev) / 1e3
         print(f"[train]   {ms:9.2f} ms {100 * ms / total:5.1f}%  x{ev.count:<5d} "
               f"{ev.key[:110]}")
-    b4 = sum(device_us(ev) for ev in events
-             if "fused_ce" in ev.key or "gemm_kernel" in ev.key) / 1e3
-    print(f"[train] profiled step: B4 (fused_ce_fwd and the backward's GEMM "
-          f"kernels) {b4:.1f} ms, the rest {total - b4:.1f} ms of device time")
+    def b4_ms(test) -> float:
+        return sum(device_us(ev) for ev in events if test(ev.key)) / 1e3
+
+    fwd = b4_ms(lambda k: "FwdEpi" in k or "combine" in k or "fused_ce_fwd" in k)
+    b4 = b4_ms(lambda k: "fused_ce" in k or "gemm_kernel" in k)
+    print(f"[train] profiled step: fused_ce_fwd (GEMM and combine) {fwd:.1f} ms, "
+          f"B4 (forward and backward) {b4:.1f} ms = {100 * b4 / total:.1f}% of "
+          f"device time, the rest {total - b4:.1f} ms")
     return opt_state
 
 

@@ -213,20 +213,35 @@ __device__ __forceinline__ void store_tile_bf16(const Out& out, int row0, int co
   }
 }
 
+// First row and column of tile `tile` in the walk order over the
+// m_tiles x n_tiles grid: bands of n_group columns one after another,
+// inside a band n fastest, then m. n_group = n_tiles is plain row-major
+// order (n fastest); a narrow band keeps the B tiles that run at the same
+// time few, so all M rows reuse each B tile from L2.
+__device__ __forceinline__ void tile_origin(int tile, int m_tiles, int n_tiles,
+                                            int n_group, int& m0, int& n0) {
+  const int band = tile / (n_group * m_tiles);
+  const int first = band * n_group;
+  const int width = n_tiles - first < n_group ? n_tiles - first : n_group;
+  const int idx = tile - band * n_group * m_tiles;
+  m0 = (idx / width) * BM;
+  n0 = (first + idx % width) * BN;
+}
+
 // D = A B tile by tile: the grid is persistent (at most one block per
 // SM), block b takes tiles b, b + gridDim.x, ... of the m_tiles x n_tiles
-// grid (n fastest), each over `ktiles` K steps of BK. The producer runs
-// ahead across tiles, so the next tile's loads overlap this tile's
-// epilogue. Tensor coordinates of a tile's operands: A rows (or columns,
-// when MN-major) from m * BM, A's K from a_k0; B's N from b_n0 + n * BN,
-// B's K from b_k0. The epilogue gets (acc, first row of this warpgroup's
-// 64, first column, Out).
+// grid in `tile_origin`'s order, each over `ktiles` K steps of BK. The
+// producer runs ahead across tiles, so the next tile's loads overlap this
+// tile's epilogue. Tensor coordinates of a tile's operands: A rows (or
+// columns, when MN-major) from m * BM, A's K from a_k0; B's N from
+// b_n0 + n * BN, B's K from b_k0. The epilogue gets (acc, first row of
+// this warpgroup's 64, first column, Out).
 template <bool A_MN, bool B_MN, class Epi>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap ta,
             const __grid_constant__ CUtensorMap tb,
             const __grid_constant__ CUtensorMap tc, int a_k0, int b_n0, int b_k0,
-            int ktiles, int m_tiles, int n_tiles, Epi epi) {
+            int ktiles, int m_tiles, int n_tiles, int n_group, Epi epi) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -254,8 +269,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta,
     if (tid == 0) {
       int it = 0;  // k steps issued so far: ring slot it % STAGES
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = (tile / n_tiles) * BM;
-        const int n0 = (tile % n_tiles) * BN;
+        int m0, n0;
+        tile_origin(tile, m_tiles, n_tiles, n_group, m0, n0);
         for (int kt = 0; kt < ktiles; ++kt, ++it) {
           const int s = it % STAGES;
           if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
@@ -287,8 +302,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta,
     const Out out{&tc, so + c * OUT_BYTES, tid, c};
     int it = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int m0 = (tile / n_tiles) * BM;
-      const int n0 = (tile % n_tiles) * BN;
+      int m0, n0;
+      tile_origin(tile, m_tiles, n_tiles, n_group, m0, n0);
       float acc[ACC];
 #pragma unroll
       for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
@@ -366,12 +381,13 @@ inline bool bf16_map(CUtensorMap* map, const void* ptr, long long rows,
 }
 
 // Launch one tile grid of gemm_kernel on `stream` (`tc`: the epilogue's
-// output map; any map when the epilogue stores without TMA).
+// output map; any map when the epilogue stores without TMA). `n_group`:
+// the walk's band of columns (`tile_origin`); 0 walks n fastest.
 template <bool A_MN, bool B_MN, class Epi>
 cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb,
                         const CUtensorMap& tc, int a_k0,
                         int b_n0, int b_k0, int ktiles, int m_tiles, int n_tiles,
-                        const Epi& epi, cudaStream_t stream) {
+                        const Epi& epi, cudaStream_t stream, int n_group = 0) {
   auto kernel = gemm_kernel<A_MN, B_MN, Epi>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
@@ -382,8 +398,9 @@ cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   const int tiles = m_tiles * n_tiles;
+  if (n_group <= 0 || n_group > n_tiles) n_group = n_tiles;
   kernel<<<tiles < sms ? tiles : sms, THREADS, SMEM_BYTES, stream>>>(
-      ta, tb, tc, a_k0, b_n0, b_k0, ktiles, m_tiles, n_tiles, epi);
+      ta, tb, tc, a_k0, b_n0, b_k0, ktiles, m_tiles, n_tiles, n_group, epi);
   return cudaGetLastError();
 }
 

@@ -12,12 +12,26 @@
 // a sequence of launches, and the vocab tail is masked in the kernel (no
 // padding, no correction).
 //
-// * fused_ce_fwd (bf16 and f32): one block per 16-token tile on the SIMT
-//   cores. The tile's hidden rows sit in shared memory as f32; the block
-//   streams every 64-row vocab tile of E, forms the 16 x 64 logit tile,
-//   and folds it into an online (max, sum-exp) per token, picks up the
-//   label logit and tracks the argmax (first index on ties, as
-//   jnp.argmax).
+// * fused_ce_fwd, bf16 (the full-width training path): one persistent
+//   GEMM launch on the tensor cores (wgmma_gemm.cuh: TMA loads, one
+//   producer and two wgmma consumer warpgroups, 128 x 256 tiles), S =
+//   H E^T with K = D, then a combine launch, both on the caller's stream.
+//   The GEMM's epilogue works on the accumulators in registers: per token
+//   row of its tile the max logit and its first index, then the sum of
+//   exp(S - max) over the tile's vocab columns (columns past V masked),
+//   reduced over the four threads that share the row; it writes one
+//   partial (max, sum, argmax) per (token, vocab tile) to scratch, and
+//   the thread whose column is the token's label writes the label logit.
+//   Tiles are walked in bands of a few vocab tiles x every token band,
+//   so the blocks running at one time share their E tiles and E is read
+//   from device memory about once. The combine kernel (one warp per
+//   token) folds the token's partials in a fixed order: lse = m + log s,
+//   the argmax the first index that holds the max (as jnp.argmax).
+// * fused_ce_fwd, f32 (the gradient check of the coded step): one block
+//   per 16-token tile on the SIMT cores. The tile's hidden rows sit in
+//   shared memory; the block streams every 64-row vocab tile of E, forms
+//   the 16 x 64 logit tile, and folds it into an online (max, sum-exp)
+//   per token, picks up the label logit and tracks the argmax.
 // * fused_ce_bwd_dh / fused_ce_bwd_de, bf16 (the full-width training
 //   path): chunked GEMMs on the tensor cores (wgmma_gemm.cuh: a
 //   persistent grid, TMA loads, one producer and two wgmma consumer
@@ -52,8 +66,8 @@
 // Bound: 2 T V D operations forward and 4 T V D backward (logits again,
 // then dH and dE); at T = 8192, V = 151,936, D = 1024 that is 2.55 and
 // 5.1 TFLOP, far above the card's bytes-per-operation line, so the
-// tensor-core rate bounds it. The forward still runs on the SIMT cores
-// in f32, well below that bound; the bf16 backward runs on wgmma.
+// tensor-core rate bounds it. The bf16 forward and backward run on
+// wgmma; the f32 entry points stay on the SIMT cores, far below it.
 #include <cuda_bf16.h>
 
 #include <climits>
@@ -73,18 +87,9 @@ constexpr int GROUP = 4;               // streamed rows a warp reduces at once
 constexpr int MAX_D = 1024;
 constexpr int COLS = MAX_D / THREADS;  // output columns a thread owns
 
-// Four consecutive elements as f32 (16-byte / 8-byte aligned loads).
+// Four consecutive elements (a 16-byte aligned load).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 lo, hi;
-  lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -93,9 +98,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// dst[r][d] = src[row0 + r][d] as f32 for r < RT (zeros past nrows).
-template <typename T>
-__device__ void stage_rows(const T* __restrict__ src, int row0, int nrows,
+// dst[r][d] = src[row0 + r][d] for r < RT (zeros past nrows).
+__device__ void stage_rows(const float* __restrict__ src, int row0, int nrows,
                            int D, float* dst) {
   for (int e = threadIdx.x * 4; e < RT * D; e += THREADS * 4) {
     const int r = e / D, d = e % D;  // D % 4 == 0: the 4 stay in one row
@@ -108,8 +112,7 @@ __device__ void stage_rows(const T* __restrict__ src, int row0, int nrows,
 // out[i][j] = <res[i], X[x0 + j]> for i < RT, j < CT, f32 accumulation.
 // Rows of X past nx give 0; callers mask them. Each warp takes GROUP
 // streamed rows at a time; lanes split D four elements each.
-template <typename T>
-__device__ void dot_tile(const float* __restrict__ res, const T* __restrict__ X,
+__device__ void dot_tile(const float* __restrict__ res, const float* __restrict__ X,
                          int x0, int nx, int D, float* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -151,9 +154,9 @@ __device__ void dot_tile(const float* __restrict__ res, const T* __restrict__ X,
   }
 }
 
-template <typename T>
+// SIMT forward (the f32 entry point).
 __global__ void __launch_bounds__(THREADS)
-fused_ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ E,
+fused_ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ E,
                     const int* __restrict__ labels, float* __restrict__ lse,
                     float* __restrict__ ll, long long* __restrict__ argmax,
                     int Tn, int V, int D) {
@@ -302,20 +305,19 @@ fused_ce_bwd_kernel(const float* __restrict__ h, const float* __restrict__ E,
 
 size_t smem_bytes(int D) { return sizeof(float) * static_cast<size_t>(RT) * (D + LD); }
 
-template <typename T>
 int launch_fwd(const void* h, const void* E, const int* labels, float* lse,
                float* ll, long long* argmax, int Tn, int V, int D, int device,
                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = smem_bytes(D);
-  err = cudaFuncSetAttribute(fused_ce_fwd_kernel<T>,
+  err = cudaFuncSetAttribute(fused_ce_fwd_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_ce_fwd_kernel<T><<<(Tn + RT - 1) / RT, THREADS, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(h), static_cast<const T*>(E), labels, lse, ll,
+  fused_ce_fwd_kernel<<<(Tn + RT - 1) / RT, THREADS, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(h), static_cast<const float*>(E), labels, lse, ll,
       argmax, Tn, V, D);
   return static_cast<int>(cudaGetLastError());
 }
@@ -509,22 +511,180 @@ int launch_bwd_tc(const void* h, const void* E, const int* labels,
   return cudaSuccess;
 }
 
+// ---- bf16 forward on the tensor cores (wgmma_gemm.cuh) ----
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int FWD_BAND = 4;       // vocab tiles per band of the GEMM's walk
+constexpr int COMBINE_WARPS = 8;  // tokens per block of the combine kernel
+
+// The forward's partials: per (token, vocab tile), the tile's max logit,
+// its sum of exp(logit - max) and the first vocab index of the max, in
+// three token-major (T, n_tiles) planes.
+struct Partials {
+  float* m;
+  float* s;
+  int* arg;
+};
+
+// Partials of one 128 x 256 logit tile (rows tokens, columns vocab rows).
+// A thread holds 2 rows x 64 columns; the quad tid % 4 shares the rows.
+// In the ragged last vocab tile, columns past V (zeros from TMA's fill)
+// are set to -inf first. Per row, two passes over the thread's 64 values:
+// the max, reduced over the quad; then (after the label logit, in a
+// branch only the label's thread takes) the sum of exp(x - max) and the
+// first column that holds the max. Each value dies at its last use, so
+// the epilogue fits the consumers' registers.
+struct FwdEpi {
+  const int* labels;
+  float* ll;
+  Partials part;
+  int T, V, n_tiles;
+
+  __device__ __forceinline__ void row(const float (&acc)[wg::ACC], int h, int t,
+                                      int vq, int col0, int q) const {
+    float m = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < wg::ACC / 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) m = fmaxf(m, acc[4 * j + 2 * h + c]);
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    // column 0 of the tile is below V, so m is finite here
+    const int lc = (t < T ? labels[t] : -1) - vq;  // the label's column here
+    if (lc >= 0 && lc < 8 * (wg::ACC / 4) && lc % 8 < 2) {
+      float lv = 0.f;
+#pragma unroll
+      for (int j = 0; j < wg::ACC / 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (8 * j + c == lc) lv = acc[4 * j + 2 * h + c];
+      ll[t] = lv;  // one thread of the grid holds the label's column
+    }
+    float s = 0.f;
+    int arg = INT_MAX;
+#pragma unroll
+    for (int j = wg::ACC / 4 - 1; j >= 0; --j)  // downwards: the last hit is the first column
+#pragma unroll
+      for (int c = 1; c >= 0; --c) {
+        const float x = acc[4 * j + 2 * h + c];
+        s += exp2f((x - m) * LOG2E);
+        if (x == m) arg = vq + 8 * j + c;
+      }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    arg = min(arg, __shfl_xor_sync(0xffffffffu, arg, 1));
+    arg = min(arg, __shfl_xor_sync(0xffffffffu, arg, 2));
+    if (t < T && q == h) {
+      const long long i = static_cast<long long>(t) * n_tiles + col0 / wg::BN;
+      part.m[i] = m;
+      part.s[i] = s;
+      part.arg[i] = arg;
+    }
+  }
+
+  __device__ void operator()(float (&acc)[wg::ACC], int row0, int col0,
+                             const wg::Out& out) const {
+    const int q = out.tid % 4;
+    const int r = row0 + 16 * (out.tid / 32) + (out.tid % 32) / 4;
+    const int vq = col0 + 2 * q;  // vocab row of this thread's column 0
+    if (col0 + wg::BN > V) {
+#pragma unroll
+      for (int j = 0; j < wg::ACC / 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (vq + 8 * j + c >= V) acc[4 * j + c] = acc[4 * j + 2 + c] = -INFINITY;
+    }
+    row(acc, 0, r, vq, col0, q);
+    row(acc, 1, r + 8, vq, col0, q);
+  }
+};
+
+// (m, s, arg) <- the fold of two partials; the same bits either way round,
+// so the lanes of an xor tree agree. Equal maxima keep the smaller index.
+__device__ __forceinline__ void fold(float& m, float& s, int& arg, float om,
+                                     float os, int oa) {
+  const float mx = fmaxf(m, om);
+  if (mx == -INFINITY) return;  // both empty
+  s = s * expf(m - mx) + os * expf(om - mx);
+  if (om > m || (om == m && oa < arg)) arg = oa;
+  m = mx;
+}
+
+// One warp per token: lane l folds tiles l, l + 32, ... in order, then
+// the lanes fold in a fixed xor tree. Labels < 0 (or >= V, which no
+// GEMM thread holds) get ll = 0.
+__global__ void __launch_bounds__(32 * COMBINE_WARPS)
+fused_ce_combine_kernel(Partials part, const int* __restrict__ labels,
+                        float* __restrict__ lse, float* __restrict__ ll,
+                        long long* __restrict__ argmax, int Tn, int V,
+                        int n_tiles) {
+  const int t = blockIdx.x * COMBINE_WARPS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (t >= Tn) return;  // the whole warp
+  const long long base = static_cast<long long>(t) * n_tiles;
+  float m = -INFINITY, s = 0.f;
+  int arg = INT_MAX;
+  for (int i = lane; i < n_tiles; i += 32)
+    fold(m, s, arg, part.m[base + i], part.s[base + i], part.arg[base + i]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float om = __shfl_xor_sync(0xffffffffu, m, off);
+    const float os = __shfl_xor_sync(0xffffffffu, s, off);
+    const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
+    fold(m, s, arg, om, os, oa);
+  }
+  if (lane == 0) {
+    lse[t] = m + logf(s);
+    argmax[t] = arg;
+    const int lab = labels[t];
+    if (lab < 0 || lab >= V) ll[t] = 0.f;
+  }
+}
+
+// The GEMM launch with FwdEpi, then the combine launch; `part` holds
+// T x ceil(V / 256) partials.
+int launch_fwd_tc(const void* h, const void* E, const int* labels, float* lse,
+                  float* ll, long long* argmax, Partials part, int Tn, int V,
+                  int D, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (D % 8 != 0) return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  CUtensorMap h_k, e_k;  // both K-major: H (T, D) and E (V, D)
+  if (!(wg::bf16_map(&h_k, h, Tn, D, wg::BK, wg::BM) &&
+        wg::bf16_map(&e_k, E, V, D, wg::BK, wg::BN)))
+    return cudaErrorInvalidValue;
+  const int n_tiles = cdiv(V, wg::BN);
+  const FwdEpi epi{labels, ll, part, Tn, V, n_tiles};
+  // (the epilogue stores directly: the output map is unused)
+  err = wg::launch_gemm<false, false>(h_k, e_k, h_k, 0, 0, 0, cdiv(D, wg::BK),
+                                      cdiv(Tn, wg::BM), n_tiles, epi, st, FWD_BAND);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_ce_combine_kernel<<<cdiv(Tn, COMBINE_WARPS), 32 * COMBINE_WARPS, 0, st>>>(
+      part, labels, lse, ll, argmax, Tn, V, n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// bf16 forward: `pm`, `ps`, `parg` the (T, ceil(V / 256)) partial planes
+// (f32 max, f32 sum, int32 argmax).
 extern "C" int repro_fused_ce_fwd_bf16(const void* h, const void* E,
                                        const int* labels, float* lse, float* ll,
-                                       long long* argmax, int Tn, int V, int D,
+                                       long long* argmax, void* pm, void* ps,
+                                       void* parg, int Tn, int V, int D,
                                        int device, void* stream) {
-  return launch_fwd<__nv_bfloat16>(h, E, labels, lse, ll, argmax, Tn, V, D,
-                                   device, stream);
+  const Partials part{static_cast<float*>(pm), static_cast<float*>(ps),
+                      static_cast<int*>(parg)};
+  return launch_fwd_tc(h, E, labels, lse, ll, argmax, part, Tn, V, D, device,
+                       stream);
 }
 
 extern "C" int repro_fused_ce_fwd_f32(const void* h, const void* E,
                                       const int* labels, float* lse, float* ll,
                                       long long* argmax, int Tn, int V, int D,
                                       int device, void* stream) {
-  return launch_fwd<float>(h, E, labels, lse, ll, argmax, Tn, V, D, device,
-                           stream);
+  return launch_fwd(h, E, labels, lse, ll, argmax, Tn, V, D, device, stream);
 }
 
 // bf16 backward: `p` the (T, Vc) bf16 scratch, `sum` the (T, D) f32

@@ -12,12 +12,14 @@ kernels of ``csrc/fused_ce.cu`` (forward, then ``bwd_dh`` and ``bwd_de``
 in the backward), CPU tensors run ``fused_ce_plain``, which materializes
 the logits. Labels < 0 have ``ll = 0`` and no one-hot term.
 
-The bf16 backward kernels run on the tensor cores over vocab chunks of
-``vocab_chunk`` rows: the wrapper allocates their scratch (the (T, Vc)
-bf16 dlogits chunk, and for ``bwd_dh`` an f32 (T, D) running sum when
-there is more than one chunk) and the kernels allocate nothing. They
-read H and E through TMA, which needs 16-byte row strides: the bf16 path
-takes a hidden width that is a multiple of 8.
+The bf16 kernels run on the tensor cores, and the wrapper allocates
+their scratch (the kernels allocate nothing): the forward's per-(token,
+256-row vocab tile) partials (``forward_scratch``), and the backward's
+(T, Vc) bf16 dlogits chunk over vocab chunks of ``vocab_chunk`` rows,
+plus for ``bwd_dh`` an f32 (T, D) running sum when there is more than
+one chunk (``backward_scratch``). They read H and E through TMA, which
+needs 16-byte row strides: the bf16 path takes a hidden width that is a
+multiple of 8.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ SCRATCH_BYTES = 64 * 2**20  # bound on the bf16 dlogits chunk of the backward
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_P] * 6 + [_I] * 4 + [_P]
+_FWD_TC_ARGS = [_P] * 9 + [_I] * 4 + [_P]  # + the three partial planes
 _BWD_ARGS = [_P] * 7 + [_I] * 4 + [_P]
 _BWD_TC_ARGS = [_P] * 9 + [_I] * 5 + [_P]  # + dlogits and sum scratch, Vc
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -47,7 +50,7 @@ def _kernel(name: str, bf16_args: list, f32_args: list) -> CudaKernel:
                       library_name="fused_ce")
 
 
-FWD = _kernel("fused_ce_fwd", _FWD_ARGS, _FWD_ARGS)
+FWD = _kernel("fused_ce_fwd", _FWD_TC_ARGS, _FWD_ARGS)
 BWD_DH = _kernel("fused_ce_bwd_dh", _BWD_TC_ARGS, _BWD_ARGS)
 BWD_DE = _kernel("fused_ce_bwd_de", _BWD_TC_ARGS, _BWD_ARGS)
 KERNELS = (FWD, BWD_DH, BWD_DE)
@@ -88,17 +91,39 @@ def _check(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor) -> None:
             raise ValueError("fused_ce kernel takes 16-byte aligned tensors")
 
 
+def forward_scratch(t: int, v: int) -> dict[str, tuple]:
+    """Scratch of one bf16 forward launch: name -> (shape, dtype).
+
+    One partial per (token, ``TILE_V``-row vocab tile): the tile's max
+    logit, its sum of exp(logit - max) and the first index of the max.
+    """
+    tiles = (t, -(-v // TILE_V))
+    return {"max": (tiles, torch.float32), "sum": (tiles, torch.float32),
+            "argmax": (tiles, torch.int32)}
+
+
 def fused_ce_forward(h, table, labels32):
-    """Launch the forward kernel: (lse, ll, argmax) for CUDA tensors."""
+    """Launch the forward kernel: (lse, ll, argmax) for CUDA tensors.
+
+    bf16 runs the tensor-core GEMM and its combine on partials allocated
+    here (``forward_scratch``); f32 runs the SIMT kernel.
+    """
     t, d = h.shape
     v = table.shape[0]
     lse = torch.empty(t, dtype=torch.float32, device=h.device)
     ll = torch.empty(t, dtype=torch.float32, device=h.device)
     am = torch.empty(t, dtype=torch.int64, device=h.device)
-    if t and v:
-        FWD.launch(f"repro_fused_ce_fwd_{_SUFFIX[h.dtype]}", h.device, h.data_ptr(),
-                   table.data_ptr(), labels32.data_ptr(), lse.data_ptr(),
-                   ll.data_ptr(), am.data_ptr(), t, v, d)
+    if not (t and v):
+        return lse, ll, am
+    args = (h.data_ptr(), table.data_ptr(), labels32.data_ptr(), lse.data_ptr(),
+            ll.data_ptr(), am.data_ptr())
+    if h.dtype == torch.float32:
+        FWD.launch("repro_fused_ce_fwd_f32", h.device, *args, t, v, d)
+        return lse, ll, am
+    part = [torch.empty(shape, dtype=dtype, device=h.device)
+            for shape, dtype in forward_scratch(t, v).values()]
+    FWD.launch("repro_fused_ce_fwd_bf16", h.device, *args,
+               *(x.data_ptr() for x in part), t, v, d)
     return lse, ll, am
 
 
@@ -133,9 +158,11 @@ def backward_scratch(kernel: CudaKernel, t: int, v: int, d: int,
 
 def scratch_bytes(kernel: CudaKernel, t: int, v: int, d: int,
                   chunk: int | None = None) -> int:
-    """Bytes of ``backward_scratch``."""
-    return sum(math.prod(shape) * dtype.itemsize
-               for shape, dtype in backward_scratch(kernel, t, v, d, chunk).values())
+    """Bytes of the scratch of one bf16 launch of ``kernel``:
+    ``forward_scratch`` for ``FWD``, else ``backward_scratch``."""
+    spec = (forward_scratch(t, v) if kernel is FWD
+            else backward_scratch(kernel, t, v, d, chunk))
+    return sum(math.prod(shape) * dtype.itemsize for shape, dtype in spec.values())
 
 
 def fused_ce_backward(kernel: CudaKernel, h, table, labels32, lse, g_lse, g_ll,

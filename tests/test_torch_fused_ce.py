@@ -6,7 +6,10 @@ its mean loss and (dH, dE) gradients against the reference's custom-VJP
 ``fused_linear_ce`` and the jnp oracle ``linear_ce_ref``, on the
 reference test's shapes (vocab tails of 300 and 1000 rows included).
 Tolerances are the reference test's: 1e-5 relative for values, 1e-4
-relative / 1e-6 absolute for gradients.
+relative / 1e-6 absolute for gradients. Plain renderings of the bf16
+kernels' algorithms (the forward's per-tile partials and fixed-order
+combine, the backward's vocab chunks) are held to the plain version
+within the error model of the card's checks.
 """
 import jax
 import jax.numpy as jnp
@@ -153,6 +156,112 @@ def test_vocab_chunk_and_scratch_arithmetic():
     for bad in (0, -256, 100):
         with pytest.raises(ValueError, match="chunk"):
             ce.vocab_chunk(200, 1000, chunk=bad)
+
+
+def test_forward_scratch_arithmetic():
+    """The bf16 forward's partials: (max f32, sum f32, argmax int32) per
+    (token, 256-row vocab tile), 12 bytes each."""
+    t, v, d = 8192, 151_936, 1024
+    assert ce.forward_scratch(t, v) == {
+        "max": ((t, 594), torch.float32), "sum": ((t, 594), torch.float32),
+        "argmax": ((t, 594), torch.int32)}
+    assert ce.scratch_bytes(ce.FWD, t, v, d) == 12 * t * 594 == 58_392_576
+    assert ce.forward_scratch(100, 300)["max"][0] == (100, 2)
+    assert ce.scratch_bytes(ce.FWD, 3, 256, 8) == 3 * 12
+
+
+def _fold(a, b):
+    """Combine two (max, sum, argmax) partials as the combine kernel does:
+    the same bits either way round; equal maxima keep the smaller index."""
+    (m, s, i), (om, os_, oi) = a, b
+    mx = torch.maximum(m, om)
+    base = torch.where(mx == -torch.inf, torch.zeros_like(mx), mx)  # both empty
+    s = s * torch.exp(m - base) + os_ * torch.exp(om - base)
+    take = (om > m) | ((om == m) & (oi < i))
+    return mx, s, torch.where(take, oi, i)
+
+
+def _tiled_forward(h, e, labels):
+    """Plain rendering of the bf16 forward kernels' algorithm. The GEMM's
+    epilogue: per 256-column vocab tile of S = H E^T (f32), columns past V
+    masked to -inf, the tile's max and its first index and its sum of
+    exp2((S - max) log2 e); the label logit where its column falls. The
+    combine: lane l of a token's warp folds tiles l, l + 32, ... in order,
+    then the 32 lanes fold in an xor tree (16, 8, 4, 2, 1)."""
+    t, v = h.shape[0], e.shape[0]
+    nt = -(-v // ce.TILE_V)
+    logits = h.float() @ e.float().T
+    tiles = torch.nn.functional.pad(logits, (0, nt * ce.TILE_V - v),
+                                    value=-torch.inf).view(t, nt, ce.TILE_V)
+    m, first = tiles.max(dim=2)  # first index of the max
+    s = torch.exp2((tiles - m[..., None]) * 1.4426950408889634).sum(2)
+    arg = first + ce.TILE_V * torch.arange(nt)
+    lanes = -(-nt // 32) * 32  # lanes without a tile hold an empty partial
+    m = torch.nn.functional.pad(m, (0, lanes - nt), value=-torch.inf).view(t, -1, 32)
+    s = torch.nn.functional.pad(s, (0, lanes - nt)).view(t, -1, 32)
+    arg = torch.nn.functional.pad(arg, (0, lanes - nt), value=2**31 - 1).view(t, -1, 32)
+    acc = (m[:, 0], s[:, 0], arg[:, 0])
+    for j in range(1, m.shape[1]):
+        acc = _fold(acc, (m[:, j], s[:, j], arg[:, j]))
+    for off in (16, 8, 4, 2, 1):
+        partner = torch.arange(32) ^ off
+        acc = _fold(acc, tuple(x[:, partner] for x in acc))
+    m, s, arg = (x[:, 0] for x in acc)
+    hit = labels >= 0
+    ll = torch.where(hit, logits.gather(1, labels.clamp_min(0)[:, None])[:, 0], 0.0)
+    return m + torch.log(s), ll, arg
+
+
+def _bf16_case(t, v, d, seed):
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(rng.standard_normal((t, d)).astype(np.float32)).bfloat16()
+    e = torch.from_numpy((rng.standard_normal((v, d)) * 0.3).astype(np.float32)).bfloat16()
+    labels = torch.from_numpy(rng.integers(0, v, t))
+    labels[::3] = -1
+    return h, e, labels
+
+
+def _assert_forward_within_card_tolerance(h, e, labels):
+    """The card check's bounds: ll within 2 D u max|h| max|e|, lse within
+    that + (V/64 + 64) u + 2 u max|lse|, argmax equal where the top two
+    logits are more than 2 tol apart."""
+    lse, ll, am = _tiled_forward(h, e, labels)
+    lse_p, ll_p, am_p = ce.fused_ce_plain(h, e, labels)
+    d, v, u = h.shape[1], e.shape[0], 2.0**-24
+    tol_logit = 2 * d * u * float(h.float().norm(dim=1).max() * e.float().norm(dim=1).max())
+    tol_lse = tol_logit + (v / 64 + 64) * u + 2 * u * float(lse_p.abs().max())
+    assert float((lse - lse_p).abs().max()) <= tol_lse
+    assert float((ll - ll_p).abs().max()) <= tol_logit
+    assert bool((ll[labels < 0] == 0).all())
+    top2 = (h.float() @ e.float().T).topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * tol_logit
+    assert bool((am == am_p)[clear].all())
+    return am
+
+
+@pytest.mark.parametrize("t,v,d", [(40, 300, 16), (24, 700, 32), (70, 1000, 8), (8, 256, 8)])
+def test_tiled_forward_within_error_model(t, v, d):
+    """Tile partials and the fixed-order combine against the plain version,
+    vocab off the 256 tile (and one exact tile), masked labels."""
+    _assert_forward_within_card_tolerance(*_bf16_case(t, v, d, t + v))
+
+
+@pytest.mark.parametrize("case,want", [("equal", 0), ("tie", 300), ("tail", 999)])
+def test_tiled_forward_argmax_across_tiles(case, want):
+    """Every logit equal: argmax 0 across tiles; the max tied between tiles
+    1 and 2 (rows 300 and 700): the first wins; the max in the ragged last
+    tile (row 999 of V = 1000)."""
+    t, v, d = 20, 1000, 32
+    h = (torch.rand((t, d), generator=torch.Generator().manual_seed(1)) + 0.5).bfloat16()
+    if case == "equal":
+        e = torch.ones((v, d), dtype=torch.bfloat16)
+    else:
+        e = torch.zeros((v, d), dtype=torch.bfloat16)
+        e[[300, 700] if case == "tie" else [999]] = 1
+    labels = torch.arange(t) * 50
+    labels[::4] = -1
+    am = _assert_forward_within_card_tolerance(h, e, labels)
+    assert bool((am == want).all())
 
 
 def _chunked_backward(h, e, labels, lse, g_lse, g_ll, chunk):

@@ -36,8 +36,12 @@ def _gemm_tol(a, b):
     return 2 * a.shape[1] * 2.0**-24 * float((a.abs() @ b.abs()).max())
 
 
+# the last three reach the edges of mds_encode's pipeline: K below one
+# 16-deep slice, N % 4 != 0 at the main path's M = 738 and K = 594, and K
+# one past a slice
 @pytest.mark.parametrize("m,k,n", [(1, 1, 1), (7, 33, 5), (129, 130, 131),
-                                   (738, 594, 1024), (65, 600, 1)])
+                                   (738, 594, 1024), (65, 600, 1),
+                                   (33, 9, 260), (738, 594, 1030), (130, 17, 4100)])
 @pytest.mark.parametrize("op", ["coded_matvec", "mds_encode"])
 def test_gemm_kernels_match_plain(dev, op, m, k, n):
     gen = torch.Generator(device=dev).manual_seed(m + k + n)
@@ -50,6 +54,16 @@ def test_gemm_kernels_match_plain(dev, op, m, k, n):
     torch.cuda.synchronize()
     assert kernels.launch_counts()[op] == before + 1
     assert (got - plain(a, b)).abs().max().item() <= _gemm_tol(a, b)
+
+
+def test_mds_encode_unaligned_operand(dev):
+    """N % 4 == 0 but A not 16-byte aligned: the kernel's 4-byte copies."""
+    m, k, n = 70, 40, 516
+    g = torch.randn((m, k), device=dev)
+    a = torch.randn(k * n + 1, device=dev)[1:].view(k, n)
+    assert a.is_contiguous() and a.data_ptr() % 16
+    got = mds.mds_encode(g, a)
+    assert (got - mds.mds_encode_plain(g, a)).abs().max().item() <= _gemm_tol(g, a)
 
 
 def test_matvec_vector_and_refusals(dev):
@@ -194,6 +208,41 @@ def test_fused_ce_backward_is_bit_deterministic(dev, t, v, d, chunk):
         second = ce.fused_ce_backward(kern, h, e, labels32, lse, g_lse, g_ll, chunk=chunk)
         assert bool(torch.isfinite(first).all())
         assert torch.equal(first, second), kern.name
+
+
+@pytest.mark.parametrize("t,v,d", [(200, 1000, 128), (256, 5000, 1024)])
+def test_fused_ce_forward_is_bit_deterministic(dev, t, v, d):
+    """Two launches of the bf16 forward give the same bits."""
+    h, e, labels = _ce_case(dev, torch.bfloat16, t, v, d, 5)
+    labels32 = labels.to(torch.int32)
+    first = ce.fused_ce_forward(h, e, labels32)
+    second = ce.fused_ce_forward(h, e, labels32)
+    assert bool(torch.isfinite(first[0]).all())
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case,want", [("equal", 0), ("tie", 300), ("tail", 999)])
+def test_fused_ce_bf16_argmax_across_vocab_tiles(dev, case, want):
+    """bf16 forward over four 256-column tiles (V = 1000): every logit
+    equal (argmax 0); the max tied between tiles 1 and 2 (rows 300 and
+    700: the first wins); the max in the ragged last tile (row 999)."""
+    t, v, d = 20, 1000, 32
+    h = torch.rand((t, d), device=dev).add_(0.5).to(torch.bfloat16)
+    if case == "equal":
+        e = torch.ones((v, d), device=dev, dtype=torch.bfloat16)
+    else:
+        e = torch.zeros((v, d), device=dev, dtype=torch.bfloat16)
+        e[[300, 700] if case == "tie" else [999]] = 1
+    labels = torch.arange(t, device=dev) * 50
+    labels[::4] = -1
+    lse, ll, am = ce.fused_ce(h, e, labels)
+    lse_p, ll_p, _ = ce.fused_ce_plain(h, e, labels)
+    tol_logit, tol_lse = _ce_tolerances(h, e)
+    assert bool((am == want).all())
+    assert (lse - lse_p).abs().max().item() <= tol_lse + 2.0**-23 * lse_p.abs().max().item()
+    assert (ll - ll_p).abs().max().item() <= tol_logit
+    assert bool((ll[labels < 0] == 0).all())
 
 
 def test_fused_ce_argmax_first_index_on_ties(dev):
