@@ -16,7 +16,13 @@ Phases (any failure raises, and the script exits non-zero):
    fused cross-entropy B4; its forward and backward kernels also launched
    twice and held bit-identical, and each split by the profiler into its
    stages), with the tolerance stated, timed beside the plain version and
-   one PyTorch library call;
+   one PyTorch library call. B1 and B2 (a few microseconds each, so a
+   mean of back-to-back calls measures the host's pace) are also timed by
+   device time: the profiler's summed kernel time per call, for them and
+   for their library calls; both are launched twice and held
+   bit-identical, their launch plans, registers and blocks in flight are
+   printed, and B2 is timed once more over 28 pools in turn with the L2
+   flushed before each call (cold L2);
 3. serve    — launch counters reset, then ``Server`` + ``serve`` of a
    seeded 8-request trace on full-width qwen3-0.6b (random seeded
    weights) with the coded LM head on a 12-worker cluster; counters read
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -69,7 +76,9 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean time of ``fn`` over ``iters`` back-to-back calls between two
+    CUDA events. For a kernel of a few microseconds this is paced by the
+    host issuing the calls (``device_ms`` reads the kernels' own time)."""
     import torch
 
     for _ in range(warmup):
@@ -133,6 +142,52 @@ def device_split(fn, stages: dict) -> dict | None:
     return out if sum(ms for ms, _ in out.values()) > 0 else None
 
 
+def device_ms(fn, calls: int = 50, warmup: int = 3, match: str = "") -> float | None:
+    """Device time of one call of ``fn``: the summed self device time of the
+    kernels that ``calls`` calls launch under ``torch.profiler`` (those
+    whose name holds ``match``), over ``calls``. None when the profiler
+    recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(device_us(ev) for ev in prof.key_averages() if match in ev.key) / 1e3
+    return total / calls if total > 0 else None
+
+
+def ptxas_facts(log: Path, *parts: str) -> str:
+    """Registers and spills that ``-Xptxas -v`` printed for the first kernel
+    whose mangled name holds every one of ``parts``."""
+    lines = log.read_text().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and all(x in line for x in parts):
+            facts = []
+            for nxt in lines[i + 1:i + 6]:
+                if "Compiling entry function" in nxt:
+                    break
+                if "registers" in nxt or "spill" in nxt:
+                    facts.append(nxt.split("ptxas info    :")[-1].strip())
+            return "; ".join(facts)
+    return "not found in the build log"
+
+
+def blocks_by_registers(facts: str, threads: int) -> int | None:
+    """Blocks of ``threads`` threads whose registers (``ptxas_facts``) fit
+    in one SM's 65,536 (allocated 8 a thread at a time)."""
+    found = re.search(r"Used (\d+) registers", facts)
+    return None if found is None else 65536 // (-(-int(found[1]) // 8) * 8 * threads)
+
+
+def fmt_ms(x: float | None) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
 def gemm_tolerance(a, b) -> float:
     """Worst-case float32 dot-product error of either side: 2 K u max(|A||B|)."""
     import torch
@@ -162,13 +217,36 @@ def kernel_phase(nb: int, kb: int) -> dict:
     print(f"[kernels] coded_matvec ({nb},{kb})x({kb},{SLOTS * 256}): "
           f"max_abs_err {err:.3e} <= tol {tol:.3e} (2 K u max|G||X|)")
     check(err <= tol, "coded_matvec disagrees with its plain version")
+    same = torch.equal(cmv.blocked_matvec(g, x), got)
     m, k, n = nb, kb, x.shape[1]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = cmv.gemm_plan(m, n, k, sms)
+    bm, bn = cmv.TILE
+    facts = ptxas_facts(cmv.KERNEL.log, 'pipe_sgemm_kernel', f'Li{bm}ELi{bn}E', 'Lb1E')
+    per_sm = blocks_by_registers(facts, 256)
+    in_flight = "not known" if per_sm is None else min(plan.blocks, per_sm * sms)
+    print(f"[kernels] coded_matvec plan: {bm} x {bn} tiles, {plan.splits} splits of "
+          f"{plan.per_split} K slices, {plan.blocks} GEMM blocks; {per_sm} blocks an SM "
+          f"by registers x {sms} SMs: {in_flight} in flight; ptxas: {facts}; "
+          f"a second launch bit-identical: {same}")
+    check(same, "coded_matvec is not deterministic")
     rows["coded_matvec"] = dict(
         err=err, ms=cuda_ms(lambda: cmv.blocked_matvec(g, x), 200),
         plain_ms=cuda_ms(lambda: cmv.blocked_matvec_plain(g, x), 200),
         library_ms=cuda_ms(lambda: torch.matmul(g, x), 200),
+        device_ms=device_ms(lambda: cmv.blocked_matvec(g, x)),
+        library_device_ms=device_ms(lambda: torch.matmul(g, x)),
         bound=bound_ms(4 * (m * k + k * n + m * n), 2 * m * n * k, "float32"),
     )
+    r = rows["coded_matvec"]
+    ratio = (None if r["device_ms"] is None or r["library_device_ms"] is None
+             else r["device_ms"] / r["library_device_ms"])
+    print(f"[kernels] coded_matvec device time {fmt_ms(r['device_ms'])} per call (2 launches "
+          f"when split), cuBLAS SGEMM device time {fmt_ms(r['library_device_ms'])}"
+          + ("" if ratio is None else f": {ratio:.2f}x cuBLAS, "
+             f"{2 * m * n * k / r['device_ms'] / 1e9:.1f} TFLOP/s, "
+             f"{r['device_ms'] / r['bound'][0]:.2f}x bound")
+          + f"; host-paced means: kernel {r['ms']:.4f} ms, cuBLAS {r['library_ms']:.4f} ms")
 
     # B3: the once-per-plan encode, (nb, kb) x (kb, R*D)
     a = torch.randn((kb, 256 * 1024), generator=gen, device=dev) * 0.02
@@ -221,6 +299,19 @@ def kernel_phase(nb: int, kb: int) -> dict:
           f"MB={nblk}: max_abs_err {err:.3e}; max |d| / (2^-7 |want| + 1e-6) "
           f"{worst:.3e} <= 1 (one bf16 rounding step per element)")
     check(worst <= 1.0, "paged_decode disagrees with its plain version")
+    same = torch.equal(pa.paged_decode_attend(q, k_pool, v_pool, table, pos), got)
+    nsplit = pa.decode_splits(nblk)
+    active = kv * sum(max(0, min(int(p) // BLOCK_LEN + 1, nsplit)) for p in pos.tolist())
+    facts = ptxas_facts(pa.KERNEL.log, 'paged_decode_split_kernel', '13__nv_bfloat16',
+                        'Li128E')
+    per_sm = blocks_by_registers(facts, 128)
+    blocks = SLOTS * kv * nsplit
+    in_flight = "not known" if per_sm is None else min(blocks, per_sm * sms)
+    print(f"[kernels] paged_decode: {nsplit} splits of one table block, grid "
+          f"{SLOTS * kv} x {nsplit} = {blocks} blocks, {active} below pos (run), {per_sm} "
+          f"blocks an SM by registers x {sms} SMs: {in_flight} in flight; ptxas: {facts}; "
+          f"a second launch bit-identical: {same}")
+    check(same, "paged_decode is not deterministic")
     valid = pa.valid_mask(table, BLOCK_LEN, pos)  # (S, L)
     n_tok = int(valid.sum())
     # yardstick: SDPA over the gathered KV of the valid positions
@@ -229,15 +320,49 @@ def kernel_phase(nb: int, kb: int) -> dict:
     qs = q.reshape(SLOTS, kv * grp, 1, hd)
     mask = valid[:, None, None, :]
     nbytes = 2 * (q.numel() * 2 + 2 * n_tok * kv * hd) + 4 * (table.numel() + SLOTS)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask)
+
     rows["paged_decode"] = dict(
         err=err,
         ms=cuda_ms(lambda: pa.paged_decode_attend(q, k_pool, v_pool, table, pos), 200),
         plain_ms=cuda_ms(
             lambda: pa.paged_decode_attend_plain(q, k_pool, v_pool, table, pos), 50),
-        library_ms=cuda_ms(
-            lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask), 200),
+        library_ms=cuda_ms(sdpa, 200),
+        device_ms=device_ms(lambda: pa.paged_decode_attend(q, k_pool, v_pool, table, pos)),
+        library_device_ms=device_ms(sdpa),
         bound=bound_ms(nbytes, 4 * n_tok * kv * grp * hd, "bfloat16"),
     )
+    r = rows["paged_decode"]
+    print(f"[kernels] paged_decode device time {fmt_ms(r['device_ms'])} per call (split and "
+          f"combine launches), SDPA device time {fmt_ms(r['library_device_ms'])}; host-paced "
+          f"means: kernel {r['ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms; bound "
+          f"{r['bound'][0]:.6f} ms ({r['bound'][1]})")
+
+    # as the serve path sees it: one pool per layer, taken in turn, and
+    # the L2 flushed before each call (between two calls on one layer the
+    # serve path streams the other 27 layers' weights and pools through it)
+    layers = 28
+    pools = [torch.randn((layers, nblk + 1, BLOCK_LEN, kv, hd), generator=gen, device=dev)
+             .to(torch.bfloat16) for _ in range(2)]
+    for pool in pools:
+        pool[:, nblk] = float("nan")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # 5x the 50 MB L2
+    turn = iter(range(1 << 30))
+
+    def cold():
+        i = next(turn) % layers
+        flush.zero_()
+        return pa.paged_decode_attend(q, pools[0][i], pools[1][i], table, pos)
+
+    cold_dev = device_ms(cold, calls=2 * layers, match="paged_decode")
+    print(f"[kernels] paged_decode over {layers} pools in turn "
+          f"({2 * pools[0].numel() * 2 / 1e6:.1f} MB), a {flush.numel() >> 20} MiB write "
+          f"between calls to evict the L2: device time {fmt_ms(cold_dev)} per call (cold "
+          f"L2; the decode's kernels only) against {fmt_ms(r['device_ms'])} on one pool "
+          f"(warm)")
+    del pools, flush
     return rows
 
 
@@ -696,6 +821,8 @@ def main() -> int:
             "bound_ms": rows[k.name]["bound"][0],
             "bound_by": rows[k.name]["bound"][1],
             "library_ms": rows[k.name]["library_ms"],
+            "device_ms": rows[k.name].get("device_ms"),
+            "library_device_ms": rows[k.name].get("library_device_ms"),
         }
         for k in kernels.KERNELS
     ]}

@@ -5,18 +5,26 @@
 // (pallas_call at :48), which computes one y = A x in (256, 1024) tiles
 // and which the reference serve loop vmaps over the B*R logit columns
 // (src/repro/runtime/serve_loop.py:199-207). Here the columns are one
-// GEMM dimension: the whole block mix Y = G X runs in ONE launch.
+// GEMM dimension: the whole block mix Y = G X is one GEMM launch (and one
+// small launch that sums its split-K partials).
 //
 // Main-path shape: A = G (nb=738, kb=594) f32, X = logit blocks
 // (594, S*256) f32, S=4: 0.9 GFLOP against 7.2 MB, so it is bound by
-// float32 operations (67 TFLOP/s SIMT), not by memory. No TF32: Y feeds
-// the f32 erasure solve. The small M*N needs many blocks to fill 132 SMs,
-// so the tile is 64x64 (192 blocks at S=4), 4x4 per thread, BK=16.
+// float32 operations (67 TFLOP/s SIMT, 13.4 us), not by memory. No TF32:
+// Y feeds the f32 erasure solve. The mainloop is pipe_sgemm.cuh's at
+// B3's 128 x 256 tile (cp.async ring, float4 fragments, 8 x 16 outputs a
+// lane). The output is small: 24 tiles for 132 SMs. So K is split too:
+// the Python wrapper (ops.py, gemm_plan) picks the split count from
+// (M, N, K) and the SM count, the partials go to scratch the wrapper
+// allocates, and a second launch sums them in split order (bit-identical
+// on every launch, no atomics).
 #include "common.cuh"
-#include "tile_sgemm.cuh"
+#include "pipe_sgemm.cuh"
 
-extern "C" int repro_coded_matvec_f32(const float* a, const float* x,
-                                      float* y, int m, int n, int k,
-                                      int device, void* stream) {
-  return launch_tile_sgemm<64, 64, 16, 4, 4>(a, x, y, m, n, k, device, stream);
+extern "C" int repro_coded_matvec_f32(const float* a, const float* x, float* y,
+                                      float* scratch, int m, int n, int k, int per_split,
+                                      int splits, long long stride, int device,
+                                      void* stream) {
+  return psg::launch_pipe_sgemm<psg::Tile<128, 256, 4, 1>>(
+      a, x, y, scratch, m, n, k, per_split, splits, stride, device, stream);
 }

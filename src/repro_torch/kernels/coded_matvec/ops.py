@@ -2,24 +2,64 @@
 
 Counterpart of ``repro/kernels/coded_matvec/ops.py``. The reference vmaps
 its Pallas matvec over the columns of X; here the column batch is a
-kernel dimension, so the coded head's whole block mix is one launch
-(source note in ``csrc/coded_matvec.cu``).
+kernel dimension, so the coded head's whole block mix is one GEMM launch
+(source note in ``csrc/coded_matvec.cu``). ``gemm_plan`` splits K so that
+the card fills; with more than one split a second launch sums the
+partials in split order.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from pathlib import Path
 
 import torch
 
 from repro_torch.kernels._cuda import CudaKernel
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = CudaKernel(
     "coded_matvec",
     Path(__file__).parent / "csrc" / "coded_matvec.cu",
-    {"repro_coded_matvec_f32": [_P, _P, _P, _I, _I, _I, _I, _P]},
+    {"repro_coded_matvec_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _P]},
 )
+
+BK = 16            # K slice depth of the mainloop (csrc/pipe_sgemm.cuh)
+TILE = (128, 256)  # the block tile of csrc/coded_matvec.cu, one block an SM
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """The split of K of one ``Y = A X`` (M, K) x (K, N) launch."""
+
+    per_split: int   # K slices a split runs
+    splits: int      # splits of K (1: no partials, no second launch)
+    blocks: int      # GEMM blocks: tiles x splits
+
+
+def partial_stride(m: int, n: int) -> int:
+    """Floats between two split partials in the scratch: M N rounded up to
+    4, so every partial starts 16-byte aligned."""
+    return -(-m * n // 4) * 4
+
+
+@functools.lru_cache(maxsize=256)
+def gemm_plan(m: int, n: int, k: int, sms: int) -> GemmPlan:
+    """Split K of ``(M, K) x (K, N)`` on ``sms`` SMs so that the tiles
+    times the splits give each SM a block: ``ceil(sms / tiles)`` splits,
+    at most one a K slice. Splits never come out empty: the count is
+    ``ceil(slices / per_split)``."""
+    tiles = -(-m // TILE[0]) * -(-n // TILE[1])
+    slices = max(1, -(-k // BK))
+    per = -(-slices // min(slices, max(1, -(-sms // max(1, tiles)))))
+    splits = -(-slices // per)
+    return GemmPlan(per, splits, tiles * splits)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def blocked_matvec_plain(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -31,7 +71,8 @@ def blocked_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """A (M, K) times x (K,) or X (K, N) -> (M,) or (M, N).
 
     A CUDA ``a`` launches the kernel (float32, contiguous, same device;
-    anything else raises); a CPU ``a`` runs ``blocked_matvec_plain``.
+    anything else raises) split as ``gemm_plan`` says; a CPU ``a`` runs
+    ``blocked_matvec_plain``.
     """
     if a.device.type == "cpu":
         return blocked_matvec_plain(a, x)
@@ -47,6 +88,12 @@ def blocked_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     (m, k), n = a.shape, x2.shape[1]
     y = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if y.numel():
+        index = a.device.index if a.device.index is not None else torch.cuda.current_device()
+        plan = gemm_plan(m, n, k, sm_count(index))
+        stride = partial_stride(m, n)
+        scratch = (torch.empty(plan.splits * stride, dtype=torch.float32, device=a.device)
+                   if plan.splits > 1 else None)
         KERNEL.launch("repro_coded_matvec_f32", a.device, a.data_ptr(), x2.data_ptr(),
-                      y.data_ptr(), m, n, k)
+                      y.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+                      m, n, k, plan.per_split, plan.splits, stride)
     return y[:, 0] if x.dim() == 1 else y

@@ -7,9 +7,11 @@ scatter there, and no block table ever references it. The port scatters
 in place (the reference returns updated copies).
 
 ``paged_decode_attend`` is the B2 kernel's wrapper: a CUDA tensor
-launches the hand-written kernel (``csrc/paged_decode.cu``), a CPU
-tensor runs ``paged_decode_attend_plain``. The chunked-prefill attend
-has no TPU kernel and stays plain torch on every device.
+launches the hand-written split-KV kernel (``csrc/paged_decode.cu``: one
+launch over (slot x KV head, table block), one that folds the splits), a
+CPU tensor runs ``paged_decode_attend_plain``. ``decode_splits`` sizes
+the split grid from the table's width. The chunked-prefill attend has no TPU
+kernel and stays plain torch on every device.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from repro_torch.kernels._cuda import CudaKernel
 NEG_INF = -1e30
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P] * 6 + [_I] * 7 + [ctypes.c_float, _I, _P]
+_ARGS = [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _P]
 KERNEL = CudaKernel(
     "paged_decode",
     Path(__file__).parent / "csrc" / "paged_decode.cu",
@@ -33,6 +35,22 @@ KERNEL = CudaKernel(
 _ENTRY = {torch.bfloat16: "repro_paged_decode_bf16",
           torch.float32: "repro_paged_decode_f32"}
 MAX_G = 8  # query rows per KV head the kernel holds (csrc MAX_G)
+
+
+def decode_splits(table_width: int) -> int:
+    """Splits of the split-KV decode grid: one per table entry, at least
+    one (an empty table still writes zeros).
+
+    Sized from the table's width MB, never from ``pos``: reading ``pos``
+    on the host would synchronise once per layer. Splits that start past
+    a slot's ``pos`` exit at once on the card.
+    """
+    return max(1, table_width)
+
+
+def decode_scratch_floats(s: int, kv: int, g: int, hd: int, nsplit: int) -> int:
+    """Floats of the split partials: (m, l, acc[hd]) per (slot, head, row, split)."""
+    return s * kv * g * nsplit * (hd + 2)
 
 
 def _phys(table: torch.Tensor, sink: int) -> torch.Tensor:
@@ -102,8 +120,11 @@ def paged_decode_attend_plain(q, k_pool, v_pool, table, pos):
     scattered). Masked entries get weight exactly 0 and their gathered
     K/V are zeroed (the sink may hold anything, NaN included), and the
     output is divided by ``max(l, 1e-30)``, so a slot with no valid entry
-    returns zeros, as the kernel does. Returns (S, KV, G, hd) in v's dtype.
+    returns zeros, as the kernel does (an empty table too). Returns
+    (S, KV, G, hd) in v's dtype.
     """
+    if table.shape[1] == 0:
+        return torch.zeros(q.shape, dtype=v_pool.dtype, device=q.device)
     scale = 1.0 / math.sqrt(q.shape[-1])
     valid = valid_mask(table, k_pool.shape[1], pos)
     keep = valid[:, :, None, None]
@@ -146,11 +167,17 @@ def paged_decode_attend(q, k_pool, v_pool, table, pos):
     tensors = (q, k_pool, v_pool, table, pos)
     if any(t.device != q.device or not t.is_contiguous() for t in tensors):
         raise ValueError("paged_decode_attend kernel takes contiguous tensors on one device")
+    # the kernel reads K and V rows 16 bytes at a time; a pool view that
+    # starts off a 16-byte boundary is copied to one that does not
+    k_pool, v_pool = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (k_pool, v_pool))
     out = torch.empty_like(q)
-    if s * kv:
+    if s * kv * g:
+        nsplit = decode_splits(mb)
+        part = torch.empty(decode_scratch_floats(s, kv, g, hd, nsplit),
+                           dtype=torch.float32, device=q.device)
         KERNEL.launch(_ENTRY[q.dtype], q.device, q.data_ptr(), k_pool.data_ptr(),
                       v_pool.data_ptr(), table.data_ptr(), pos.data_ptr(),
-                      out.data_ptr(), s, kv, g, hd, bl, mb, nbp,
+                      part.data_ptr(), out.data_ptr(), s, kv, g, hd, bl, mb, nbp, nsplit,
                       1.0 / math.sqrt(hd))
     return out
 

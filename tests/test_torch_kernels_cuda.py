@@ -7,9 +7,10 @@ machine without CUDA. Run them on the card with
 
 (``--noconftest``: the suite's conftest imports JAX, which the port does not need.)
 
-Shapes are ragged on purpose (tile edges of the GEMMs; GQA group sizes,
-head dims and block lengths of the decode attend; vocab tails and token
-counts off the fused cross-entropy's tiles).
+Shapes are ragged on purpose (tile and split-K edges of the GEMMs; GQA
+group sizes, head dims, block lengths and split edges of the decode
+attend; vocab tails and token counts off the fused cross-entropy's
+tiles).
 """
 import pytest
 import torch
@@ -56,6 +57,85 @@ def test_gemm_kernels_match_plain(dev, op, m, k, n):
     assert (got - plain(a, b)).abs().max().item() <= _gemm_tol(a, b)
 
 
+def test_coded_matvec_worker_products_shape(dev):
+    """CodedLMHead.worker_products: the coded table (nb R, D) times h^T
+    (D, B) at full width, B = 4."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    a = torch.randn((188_928, 1024), generator=gen, device=dev) * 0.02
+    h = torch.randn((1024, 4), generator=gen, device=dev)
+    got = cmv.blocked_matvec(a, h)
+    assert (got - cmv.blocked_matvec_plain(a, h)).abs().max().item() <= _gemm_tol(a, h)
+
+
+def _launch_split(a, x, per_split, splits):
+    """B1's kernel on a forced split of K (the wrapper picks its own)."""
+    (m, k), n = a.shape, x.shape[1]
+    y = torch.empty((m, n), device=a.device)
+    stride = cmv.partial_stride(m, n)
+    scratch = torch.empty(splits * stride, device=a.device)
+    cmv.KERNEL.launch("repro_coded_matvec_f32", a.device, a.data_ptr(), x.data_ptr(),
+                      y.data_ptr(), scratch.data_ptr(), m, n, k, per_split, splits, stride)
+    return y
+
+
+# 4 splits: 320 = 4 splits x 5 slices exactly; 319 ends inside the last
+# slice; 321 needs a 21st slice (6 a split, the last one 3); 193 leaves
+# the fourth split one slice of one k
+@pytest.mark.parametrize("k,per,splits", [(319, 5, 4), (320, 5, 4), (321, 6, 4),
+                                          (193, 4, 4)])
+def test_coded_matvec_split_boundaries(dev, k, per, splits):
+    m, n = 738, 1024
+    gen = torch.Generator(device=dev).manual_seed(k)
+    a = torch.randn((m, k), generator=gen, device=dev)
+    x = torch.randn((k, n), generator=gen, device=dev)
+    before = kernels.launch_counts()["coded_matvec"]
+    got = _launch_split(a, x, per, splits)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["coded_matvec"] == before + 1
+    assert (got - cmv.blocked_matvec_plain(a, x)).abs().max().item() <= _gemm_tol(a, x)
+
+
+def test_coded_matvec_more_splits_than_slices(dev):
+    """(200, 40) x (40, 300) is 4 tiles: the card would take 33 splits, K
+    has 3 slices, so the plan stops at one split a slice. A forced split
+    count that leaves a split empty is refused."""
+    gen = torch.Generator(device=dev).manual_seed(40)
+    a = torch.randn((200, 40), generator=gen, device=dev)
+    x = torch.randn((40, 300), generator=gen, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert cmv.gemm_plan(200, 300, 40, sms).splits == 3
+    got = cmv.blocked_matvec(a, x)
+    assert (got - cmv.blocked_matvec_plain(a, x)).abs().max().item() <= _gemm_tol(a, x)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _launch_split(a, x, 1, 5)
+
+
+def test_coded_matvec_relaunch_is_bit_identical(dev):
+    """The serve shape (738, 594) x (594, 1024), split K: the partials are
+    summed in split order, so two launches give the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(594)
+    a = torch.randn((738, 594), generator=gen, device=dev)
+    x = torch.randn((594, 1024), generator=gen, device=dev)
+    assert cmv.gemm_plan(738, 1024, 594, torch.cuda.get_device_properties(dev)
+                         .multi_processor_count).splits > 1
+    first = cmv.blocked_matvec(a, x)
+    assert torch.equal(first, cmv.blocked_matvec(a, x))
+    assert (first - cmv.blocked_matvec_plain(a, x)).abs().max().item() <= _gemm_tol(a, x)
+
+
+def test_coded_matvec_unaligned_operand(dev):
+    """X not 16-byte aligned (4-byte copies) and N % 4 != 0, both split."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    a = torch.randn((300, 500), generator=gen, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n in (516, 258):
+        x = torch.randn(500 * n + 1, generator=gen, device=dev)[1:].view(500, n)
+        assert x.is_contiguous() and x.data_ptr() % 16
+        assert cmv.gemm_plan(300, n, 500, sms).splits > 1
+        got = cmv.blocked_matvec(a, x)
+        assert (got - cmv.blocked_matvec_plain(a, x)).abs().max().item() <= _gemm_tol(a, x)
+
+
 def test_mds_encode_unaligned_operand(dev):
     """N % 4 == 0 but A not 16-byte aligned: the kernel's 4-byte copies."""
     m, k, n = 70, 40, 516
@@ -81,7 +161,8 @@ def test_matvec_vector_and_refusals(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("g,hd,bl", [(1, 32, 4), (2, 128, 16), (4, 64, 8), (8, 128, 16)])
+@pytest.mark.parametrize("g,hd,bl", [(1, 32, 4), (2, 128, 16), (4, 64, 8), (8, 128, 16),
+                                     (3, 96, 5), (8, 1024, 16), (2, 256, 64)])
 def test_paged_decode_matches_plain(dev, dtype, g, hd, bl):
     gen = torch.Generator(device=dev).manual_seed(g * hd + bl)
     s, kv, nblk = 4, 2, 24
@@ -105,6 +186,78 @@ def test_paged_decode_matches_plain(dev, dtype, g, hd, bl):
         assert bool((diff <= 2.0**-7 * want.float().abs() + 1e-6).all())
     else:
         assert diff.max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+
+
+def _decode_close(got, want, dtype):
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.bfloat16:
+        # per element: at most one bf16 rounding step apart
+        return bool((diff <= 2.0**-7 * want.float().abs() + 1e-6).all())
+    return diff.max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g", [2, 8])
+def test_paged_decode_split_edges(dev, dtype, g):
+    """The serve loop's widths (hd = 128, 16-token blocks, a table as wide
+    as the pool, MB = 72: 72 splits of one block) with slots that reach
+    the split edges: a history over every split with split 2 a hole and
+    splits 4 and 5 holes; pos at the last token of a split, at the first
+    of the next, mid-block; pos = -1; no table entry at all. NaN in the
+    sink; a second launch bit-identical."""
+    gen = torch.Generator(device=dev).manual_seed(72 * g)
+    s, kv, hd, bl, mb = 7, 2, 128, 16, 72
+    assert pa.decode_splits(mb) == 72
+    k_pool = torch.randn((mb + 1, bl, kv, hd), generator=gen, device=dev).to(dtype)
+    v_pool = torch.randn((mb + 1, bl, kv, hd), generator=gen, device=dev).to(dtype)
+    k_pool[mb] = float("nan")
+    v_pool[mb] = float("nan")
+    q = torch.randn((s, kv, g, hd), generator=gen, device=dev).to(dtype)
+    table = torch.stack([torch.randperm(mb, generator=gen, device=dev)
+                         for _ in range(s)]).to(torch.int32)
+    table[0, 2] = -1         # split 2: a hole
+    table[0, 4:6] = -1       # splits 4 and 5: holes
+    table[6] = -1            # no entry at all
+    pos = torch.tensor([mb * bl - 1, 15, 16, 40, 1000, -1, 20], dtype=torch.int32,
+                       device=dev)
+    got = pa.paged_decode_attend(q, k_pool, v_pool, table, pos)
+    want = pa.paged_decode_attend_plain(q, k_pool, v_pool, table, pos)
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[5:] == 0).all())
+    assert _decode_close(got, want, dtype)
+    assert torch.equal(got, pa.paged_decode_attend(q, k_pool, v_pool, table, pos))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_empty_table(dev, dtype):
+    """MB = 0: one split that finds no entry; zeros, as the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((3, 2, 2, 64), generator=gen, device=dev).to(dtype)
+    pool = torch.randn((2, 16, 2, 64), generator=gen, device=dev).to(dtype)
+    table = torch.zeros((3, 0), dtype=torch.int32, device=dev)
+    pos = torch.tensor([-1, 0, 30], dtype=torch.int32, device=dev)
+    got = pa.paged_decode_attend(q, pool, pool, table, pos)
+    assert bool((got == 0).all())
+    assert torch.equal(got, pa.paged_decode_attend_plain(q, pool, pool, table, pos))
+
+
+def test_paged_decode_unaligned_pool(dev):
+    """A pool view that starts off a 16-byte boundary (the kernel reads
+    16-byte rows; the wrapper copies such a view)."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    s, kv, g, hd, bl, nblk = 2, 2, 2, 64, 8, 6
+    shape = (nblk + 1, bl, kv, hd)
+    n = (nblk + 1) * bl * kv * hd
+    k_pool = torch.randn(n + 1, generator=gen, device=dev).to(torch.bfloat16)[1:].view(shape)
+    v_pool = torch.randn(n + 1, generator=gen, device=dev).to(torch.bfloat16)[1:].view(shape)
+    assert k_pool.is_contiguous() and k_pool.data_ptr() % 16
+    q = torch.randn((s, kv, g, hd), generator=gen, device=dev).to(torch.bfloat16)
+    table = torch.tensor([[0, 1, 2, -1, -1, -1], [3, 4, -1, -1, -1, -1]], dtype=torch.int32,
+                         device=dev)
+    pos = torch.tensor([20, 9], dtype=torch.int32, device=dev)
+    got = pa.paged_decode_attend(q, k_pool, v_pool, table, pos)
+    want = pa.paged_decode_attend_plain(q, k_pool, v_pool, table, pos)
+    assert _decode_close(got, want, torch.bfloat16)
 
 
 def test_paged_decode_refusals(dev):
