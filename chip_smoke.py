@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one H100: build, check and time its kernels,
-serve full-width qwen3-0.6b through the coded paged server, then train it
-with gradient coding.
+serve full-width qwen3-0.6b through the coded server (paged and dense),
+generate with it under every baseline allocation scheme, run the serving
+CLI, then train it with gradient coding.
 
 Run from the repository root with no arguments:
 
@@ -21,14 +22,25 @@ Phases (any failure raises, and the script exits non-zero):
    device time: the profiler's summed kernel time per call, for them and
    for their library calls; both are launched twice and held
    bit-identical, their launch plans, registers and blocks in flight are
-   printed, and B2 is timed once more over 28 pools in turn with the L2
-   flushed before each call (cold L2);
+   printed, B2 is held once more at head_dim 120 (h2o-danube-3-4b's), and
+   timed over 28 pools in turn with the L2 flushed before each call;
 3. serve    — launch counters reset, then ``Server`` + ``serve`` of a
    seeded 8-request trace on full-width qwen3-0.6b (random seeded
    weights) with the coded LM head on a 12-worker cluster; counters read
    right after; then a few coded rounds on real logits held against the
    uncoded logits;
-4. train    — launch counters reset, then ``Trainer.run`` of 6 gradient-
+4. serve-dense — the same trace through ``serve(paged=False)`` (dense
+   per-slot caches, no B2), counters reset before and read after; the
+   first-round logits of the dense and the paged prefill held together;
+5. generate — ``Server.generate`` of 4 x 128-token prompts: uncoded (16
+   new tokens), coded under ``optimal`` (16), then under ``uniform_r``,
+   ``uniform_r_group_code``, ``reisizadeh``, ``uncoded``, ``comm_aware``
+   and ``comm_uniform`` (8 each; the comm pair behind finite links),
+   counters reset before each and read after; every coded run's tokens
+   held against the uncoded run's where the margin is clear;
+6. cli      — ``python -m repro_torch.launch.serve --coded --scheme
+   uniform_r`` as a subprocess: exit 0 and its coded-head line;
+7. train    — launch counters reset, then ``Trainer.run`` of 6 gradient-
    coded steps of full-width qwen3-0.6b (seeded init, batch 16 x 512) on
    the same fleet; counters read right after; then one more steady step
    under ``torch.profiler`` (device time by kernel); then a decodable round
@@ -340,6 +352,26 @@ def kernel_phase(nb: int, kb: int) -> dict:
           f"means: kernel {r['ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms; bound "
           f"{r['bound'][0]:.6f} ms ({r['bound'][1]})")
 
+    # B2 at h2o-danube-3-4b's head_dim: 120 (15 vectors of 16 bytes in bf16,
+    # a team of 16 lanes with one idle), KV 8, G 4, the same table and pos
+    dkv, dgrp, dhd = 8, 4, 120
+    dk = torch.randn((nblk + 1, BLOCK_LEN, dkv, dhd), generator=gen, device=dev).to(torch.bfloat16)
+    dv = torch.randn((nblk + 1, BLOCK_LEN, dkv, dhd), generator=gen, device=dev).to(torch.bfloat16)
+    dk[nblk] = float("nan")
+    dv[nblk] = float("nan")
+    dq = torch.randn((SLOTS, dkv, dgrp, dhd), generator=gen, device=dev).to(torch.bfloat16)
+    dgot = pa.paged_decode_attend(dq, dk, dv, table, pos)
+    dwant = pa.paged_decode_attend_plain(dq, dk, dv, table, pos)
+    ddiff = (dgot.float() - dwant.float()).abs()
+    dworst = float((ddiff / (2.0**-7 * dwant.float().abs() + 1e-6)).max())
+    print(f"[kernels] paged_decode S={SLOTS} KV={dkv} G={dgrp} hd={dhd} MB={nblk}: "
+          f"max_abs_err {float(ddiff.max()):.3e}; max |d| / (2^-7 |want| + 1e-6) "
+          f"{dworst:.3e} <= 1; finite {bool(torch.isfinite(dgot).all())}, empty slot zeros "
+          f"{bool((dgot[3] == 0).all())}")
+    check(dworst <= 1.0 and bool(torch.isfinite(dgot).all()) and bool((dgot[3] == 0).all()),
+          "paged_decode at hd = 120 disagrees with its plain version")
+    del dk, dv, dq, dgot, dwant, ddiff
+
     # as the serve path sees it: one pool per layer, taken in turn, and
     # the L2 flushed before each call (between two calls on one layer the
     # serve path streams the other 27 layers' weights and pools through it)
@@ -533,15 +565,11 @@ def fused_ce_phase(t: int = TRAIN_BATCH * TRAIN_SEQ, v: int = 151_936,
     return rows
 
 
-def serve_phase(cfg, device: str = "cuda") -> dict:
-    """Coded paged serve of ``cfg``; returns the launch counts of the run."""
+def make_model(cfg, device: str = "cuda"):
+    """The seeded model every serving phase shares."""
     import torch
 
-    import repro_torch.kernels as kernels
-    from repro_torch.core.runtime_model import ClusterSpec
     from repro_torch.models.model import Model
-    from repro_torch.runtime.serve_loop import ServeConfig, Server
-    from repro_torch.serve.workload import make_workload
 
     t = time.perf_counter()
     model = Model(cfg, device=device, seed=0)
@@ -551,8 +579,28 @@ def serve_phase(cfg, device: str = "cuda") -> dict:
           f"vocab {cfg.vocab_size}, params "
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
           f"(init {time.perf_counter() - t:.1f} s)")
-    trace = make_workload("poisson", num_requests=8, prompt_len=(64, 256),
-                          out_len=(8, 16), vocab=cfg.vocab_size).trace(seed=0)
+    return model
+
+
+def serve_trace(cfg):
+    """The serve phases' seeded 8-request trace."""
+    from repro_torch.serve.workload import make_workload
+
+    return make_workload("poisson", num_requests=8, prompt_len=(64, 256),
+                         out_len=(8, 16), vocab=cfg.vocab_size).trace(seed=0)
+
+
+def serve_phase(model):
+    """Coded paged serve on ``model``; returns the launch counts of the run
+    and its report."""
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.core.runtime_model import ClusterSpec
+    from repro_torch.runtime.serve_loop import ServeConfig, Server
+
+    cfg, device = model.config, model.device
+    trace = serve_trace(cfg)
 
     kernels.reset_launch_counts()
     server = Server(model, ClusterSpec.make(*CLUSTER),
@@ -616,7 +664,240 @@ def serve_phase(cfg, device: str = "cuda") -> dict:
         if checked == 4:
             break
     check(checked >= 1, "no coded round decoded through erasures")
+    return counts, rep
+
+
+def max_err(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def first_round_logits(model, reqs, chunk):
+    """(dense, paged) logits of the requests' last prompt positions: one
+    ``Model.prefill`` of the right-padded prompts, and ``prefill_paged``
+    over chunks of ``chunk`` tokens (None: the whole prompt at once)."""
+    import torch
+
+    device, v = model.device, model.config.vocab_size
+    n = len(reqs)
+    cap = max(r.prompt_len for r in reqs)
+    chunk = chunk or cap
+    prompts = torch.zeros((n, cap), dtype=torch.int32, device=device)
+    for i, r in enumerate(reqs):
+        prompts[i, : r.prompt_len] = torch.tensor(r.prompt, dtype=torch.int32)
+    lens = torch.tensor([r.prompt_len for r in reqs], dtype=torch.int32, device=device)
+    dense, _, _ = model.prefill(prompts, lens)
+    per = -(-(cap + 1) // BLOCK_LEN)
+    cache = model.init_paged_cache(n * per, BLOCK_LEN)
+    table = torch.arange(n * per, dtype=torch.int32, device=device).reshape(n, per)
+    paged = torch.zeros_like(dense)
+    for start in range(0, cap, chunk):
+        take = torch.clamp(lens - start, 0, chunk)
+        toks = torch.zeros((n, chunk), dtype=torch.int32, device=device)
+        width = min(chunk, cap - start)
+        toks[:, :width] = prompts[:, start:start + width]
+        plog, cache = model.prefill_paged(cache, toks, torch.full_like(lens, start), take,
+                                          table)
+        paged = torch.where(((take > 0) & (start + take >= lens))[:, None], plog, paged)
+    return dense[:, :v].float(), paged[:, :v].float()
+
+
+def serve_dense_phase(model, paged_rep) -> dict:
+    """The serve phase's trace through ``serve(paged=False)`` (dense per-slot
+    caches), same slots, decode chunks and seed; the first-round logits of
+    the two paths held against each other. Returns the launch counts."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.core.runtime_model import ClusterSpec
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.serve_loop import ServeConfig, Server
+
+    cfg, device = model.config, model.device
+    trace = serve_trace(cfg)
+    kernels.reset_launch_counts()
+    server = Server(model, ClusterSpec.make(*CLUSTER),
+                    ServeConfig(block_rows=256, deadline_safety=SAFETY, scheme="optimal"))
+    rep = server.serve(trace, slots=SLOTS, decode_block=DECODE_BLOCK, seed=0, paged=False)
+    counts = kernels.launch_counts()
+    done = [f for f in rep.finished if f.outcome == "done"]
+    same = sum(rep.streams.get(r.rid) == paged_rep.streams.get(r.rid) for r in trace)
+    print(f"[serve-dense] {len(done)}/{len(trace)} done, shed {rep.shed}, tokens "
+          f"{rep.tokens}, decode rounds {rep.decode_rounds}, prefill rounds "
+          f"{rep.prefill_rounds}, KV cache bytes {rep.kv_bytes} (paged pool "
+          f"{paged_rep.kv_bytes})")
+    print(f"[serve-dense] wall {rep.wall_s:.3f} s, {rep.tokens_per_s:.2f} tokens/s "
+          f"(paged {paged_rep.wall_s:.3f} s, {paged_rep.tokens_per_s:.2f} tokens/s), decode "
+          f"ok rate {rep.decode_ok}/{rep.decode_rounds}, erased rounds {rep.erased_rounds}")
+    print(f"[serve-dense] launches {counts}; {same}/{len(trace)} streams equal the paged "
+          f"serve's")
+    check(len(done) == len(trace) and rep.shed == 0, "dense: every request done, none shed")
+    check(rep.tokens == sum(r.out_len for r in trace), "dense: tokens == sum(out_len)")
+    check(counts["coded_matvec"] == rep.decode_rounds,
+          "dense: coded_matvec launches == decode steps")
+    check(counts["paged_decode"] == 0, "dense: paged_decode never launched")
+
+    # the logits each path samples a request's first token from: one dense
+    # prefill of the whole prompt, and the paged prefill in chunks of CHUNK
+    # tokens. The float32 model (same seed) must compute the same logits
+    # both ways; in bf16 the paths round differently (the dense attend
+    # rounds the scaled scores and the unnormalised P V to bf16, the paged
+    # one the scores and the normalised weights), and 28 layers of random
+    # weights amplify that, so each bf16 path is held against float32 and
+    # the dense one may be no noisier than the paged one.
+    reqs = trace[:SLOTS]
+    m32 = Model(dataclasses.replace(cfg, compute_dtype="float32"), device=device, seed=0)
+    dense32, paged32 = first_round_logits(m32, reqs, CHUNK)
+    del m32
+    err32, tol32 = max_err(dense32, paged32), 2.0**-14 * float(paged32.abs().max())
+    print(f"[serve-dense] first-round logits (f32 compute, same weights): dense prefill "
+          f"vs paged chunks of {CHUNK}: max_abs_err {err32:.3e} <= tol {tol32:.3e} "
+          f"(2^-14 max|logits|)")
+    check(err32 <= tol32, "dense and paged first-round logits disagree in float32")
+    dense, paged = first_round_logits(model, reqs, CHUNK)
+    scale = float(paged32.abs().max())
+    err, e_dense, e_paged = max_err(dense, paged), max_err(dense, dense32), max_err(paged, paged32)
+    print(f"[serve-dense] first-round logits (bf16): dense vs paged max_abs_err {err:.3e} "
+          f"({err / (2.0**-6 * scale):.2f} x 2^-6 max|logits|); against float32: dense "
+          f"{e_dense:.3e}, paged {e_paged:.3e} (dense <= 2 paged + 2^-8 max|logits| = "
+          f"{2 * e_paged + 2.0**-8 * scale:.3e}); argmax equal "
+          f"{int((dense.argmax(1) == paged.argmax(1)).sum())}/{SLOTS}")
+    check(bool(torch.isfinite(dense).all()) and e_dense <= 2 * e_paged + 2.0**-8 * scale,
+          "the dense path's bf16 logits are noisier than the paged path's")
     return counts
+
+
+#: the comm-delay schemes' fleet: the serve fleet behind finite links
+COMM_BANDWIDTHS, COMM_COSTS = [4.0, 1.0], {"upload": 0.05, "download": 0.05}
+GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_NEW_SCHEMES = 4, 128, 16, 8
+
+
+def generate_phase(model, card: str) -> dict:
+    """``Server.generate`` at full width: uncoded, then coded under every
+    scheme of the registry's baselines on the serve fleet, each held against
+    the uncoded tokens. Returns the coded optimal run's launch counts."""
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.core.runtime_model import ClusterSpec
+    from repro_torch.core.schemes import make_scheme
+    from repro_torch.runtime.serve_loop import ServeConfig, Server
+
+    cfg, device = model.config, model.device
+    v = cfg.vocab_size
+    prompts = torch.randint(0, v, (GEN_BATCH, GEN_PROMPT), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(3))
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    def run(server, max_new, seed, observe):
+        sync()
+        t = time.perf_counter()
+        out = server.generate(prompts, max_new, seed=seed, observe=observe)
+        sync()
+        return out, time.perf_counter() - t
+
+    plain_logits = []
+    kernels.reset_launch_counts()
+    plain, wall = run(Server(model), GEN_NEW, 0,
+                      lambda step, lg, sel, ok, mask: plain_logits.append(lg[:, :v].float()))
+    counts = kernels.launch_counts()
+    print(f"[generate] uncoded: batch {GEN_BATCH} x prompt {GEN_PROMPT}, {GEN_NEW} new: "
+          f"wall {wall:.3f} s, {GEN_BATCH * GEN_NEW / wall:.1f} tokens/s ({card}); "
+          f"launches {counts}")
+    check(tuple(plain.shape) == (GEN_BATCH, GEN_PROMPT + GEN_NEW), "uncoded output shape")
+    check(int(plain.max()) < v and int(plain.min()) >= 0, "uncoded tokens < vocab_size")
+    check(counts["coded_matvec"] == 0 and counts["paged_decode"] == 0,
+          "uncoded generate launches no head or paged kernel")
+    check(torch.equal(plain[:, :GEN_PROMPT].cpu(), prompts), "the prompt heads the output")
+    # each step's top-2 margin of the uncoded logits (per row)
+    margins = [lg.topk(2, dim=1).values for lg in plain_logits]
+    margins = [(m[:, 0] - m[:, 1]).cpu() for m in margins]
+    scales = [float(lg.abs().max()) for lg in plain_logits]
+    plain_new = plain[:, GEN_PROMPT:].cpu()
+
+    fleet = ClusterSpec.make(*CLUSTER)
+    comm_fleet = ClusterSpec.make(*CLUSTER, 1.0, COMM_BANDWIDTHS)
+    runs = [("optimal", {}, GEN_NEW, fleet),
+            ("uniform_r", {"r": 10}, GEN_NEW_SCHEMES, fleet),
+            ("uniform_r_group_code", {"r": 8}, GEN_NEW_SCHEMES, fleet),
+            ("reisizadeh", {}, GEN_NEW_SCHEMES, fleet),
+            ("uncoded", {}, GEN_NEW_SCHEMES, fleet),
+            ("comm_aware", COMM_COSTS, GEN_NEW_SCHEMES, comm_fleet),
+            ("comm_uniform", COMM_COSTS, GEN_NEW_SCHEMES, comm_fleet)]
+    optimal_counts = None
+    for seed, (name, params, max_new, cluster) in enumerate(runs, start=1):
+        kernels.reset_launch_counts()
+        server = Server(model, cluster, ServeConfig(
+            block_rows=256, deadline_safety=SAFETY, scheme=make_scheme(name, **params)))
+        rounds = []
+        out, wall = run(server, max_new, seed,
+                        lambda step, lg, sel, ok, mask: rounds.append((ok, mask)))
+        counts = kernels.launch_counts()
+        head = server.coded_head
+        ok_n = sum(int(ok) for ok, _ in rounds)
+        erased = sum(int(not bool(mask.all())) for _, mask in rounds)
+        # per round: cond of the generator rows the decode used
+        conds = []
+        for ok, mask in rounds:
+            alive = head.executor.slot_mask(mask)
+            order = torch.argsort((~alive).to(torch.int8), stable=True)[: head.kb]
+            conds.append(float(torch.linalg.cond(head.generator[order].double()))
+                         if bool(ok) else 0.0)  # a failed round returns the plain logits
+        new = out[:, GEN_PROMPT:].cpu()
+        covered = equal = 0
+        for r in range(GEN_BATCH):
+            for t in range(max_new):
+                tol = conds[t] * 2.0**-22 * scales[t]
+                clear = float(margins[t][r]) > 2 * tol  # each logit may move by tol
+                if int(new[r, t]) != int(plain_new[r, t]):
+                    check(not clear, f"{name}: token {t} of row {r} differs from the "
+                                     f"uncoded one with a clear margin")
+                    break  # the contexts differ from here on
+                equal += 1
+                covered += clear
+        print(f"[generate] {name} [{head.plan.scheme}]: kb {head.kb}, nb {head.nb}, loads "
+              f"{head.plan.loads_per_worker.tolist()}, deadline {head.deadline:.6f}")
+        print(f"[generate] {name}: {max_new} new, wall {wall:.3f} s, "
+              f"{GEN_BATCH * max_new / wall:.1f} tokens/s ({card}); decode ok "
+              f"{ok_n}/{max_new}, erased rounds {erased}; launches {counts}; "
+              f"{equal}/{GEN_BATCH * max_new} tokens equal the uncoded run's before any "
+              f"difference, {covered} of them checked (top-2 margin > 2 cond(G_S) 2^-22 "
+              f"max|logits|, cond up to {max(conds):.3e})")
+        check(tuple(out.shape) == (GEN_BATCH, GEN_PROMPT + max_new), f"{name}: output shape")
+        check(int(out.max()) < v and int(out.min()) >= 0, f"{name}: tokens < vocab_size")
+        check(counts["coded_matvec"] == max_new, f"{name}: coded_matvec launches == max_new")
+        check(counts["mds_encode"] == 1, f"{name}: mds_encode launches == 1 for the head")
+        check(counts["paged_decode"] == 0, f"{name}: paged_decode never launched")
+        check(len(rounds) == max_new, f"{name}: every token through the coded head")
+        if name == "optimal":
+            optimal_counts = counts
+        del server, head, rounds
+    return optimal_counts
+
+
+def cli_phase() -> None:
+    """The serving CLI as a user runs it, in a process of its own."""
+    import os
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen3-0.6b",
+           "--coded", "--scheme", "uniform_r", "--scheme-r", "10", "--max-new", "4"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    print(f"[cli] {' '.join(cmd[1:])}: exit {proc.returncode} in "
+          f"{time.perf_counter() - t:.1f} s")
+    for line in lines:
+        print(f"[cli]   {line}")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+    check(proc.returncode == 0, "the serving CLI exits 0")
+    check(any(line.startswith("coded LM head [uniform_r_group_code]: kb=594")
+              for line in lines), "the CLI prints its coded-head line")
+    check(any(line.startswith("generated (4, 20)") for line in lines),
+          "the CLI prints its generated line")
 
 
 def profile_step(trainer, opt_state, top: int = 16):
@@ -793,8 +1074,13 @@ def main() -> int:
     rows = kernel_phase(plan.n, kb)
     rows.update(fused_ce_phase())
     torch.cuda.empty_cache()
-    counts = serve_phase(get_arch("qwen3-0.6b"))
+    model = make_model(get_arch("qwen3-0.6b"))
+    counts, paged_rep = serve_phase(model)
+    serve_dense_phase(model, paged_rep)
+    generate_phase(model, card)
+    del model
     torch.cuda.empty_cache()
+    cli_phase()
     train_counts = train_phase(get_arch("qwen3-0.6b"))
     for name in rows:
         if name.startswith("fused_ce"):

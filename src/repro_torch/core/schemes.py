@@ -9,14 +9,16 @@ semantics. Schemes are registered by name:
     plan = scheme.allocate(cluster, k)
 
 ``make_scheme`` rejects parameters a scheme's factory does not declare.
-This port registers ``optimal``, ``optimal_per_row``, ``uniform_n``,
-``grad_coding`` and ``grad_coding_per_row``.
+The port registers the reference's eleven names: ``optimal``,
+``optimal_per_row``, ``uniform_n``, ``uniform_r`` (and its alias
+``uniform_r_group_code``), ``reisizadeh``, ``uncoded``, ``grad_coding``,
+``grad_coding_per_row``, ``comm_aware`` and ``comm_uniform``.
 """
 from __future__ import annotations
 
 import dataclasses
 import inspect
-from typing import Callable
+from typing import Callable, Mapping
 
 import torch
 
@@ -140,6 +142,60 @@ class UniformN(AllocationScheme):
 
 
 @dataclasses.dataclass(frozen=True)
+class UniformR(AllocationScheme):
+    """Section III-D-2 / Theorem 4: the fixed-r group code of [33]."""
+
+    name = "uniform_r"
+    r: int = 0
+
+    def __post_init__(self):
+        if not self.r > 0:
+            raise ValueError(
+                f"UniformR needs the completion count r > 0, got r={self.r!r}"
+            )
+
+    @property
+    def tag(self) -> str:
+        return "uniform_r_group_code"
+
+    def _allocate(self, cluster: ClusterSpec, k: int) -> AllocationPlan:
+        return allocation.uniform_given_r(cluster, k, self.r)
+
+    def simulate(self, generator, cluster, plan, num_trials=10_000, *,
+                 model=None, use_integer_loads=False) -> torch.Tensor:
+        """Group-code semantics: the max over groups of the r_j-th finisher."""
+        loads = plan.loads_int if use_integer_loads else plan.loads
+        return simulator.simulate_group_code(
+            generator, cluster, float(loads[0]), plan.r, plan.k, num_trials,
+            model=model or self.latency_model,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class Reisizadeh(AllocationScheme):
+    """Appendix D: the heterogeneous allocation of [32] (per-row model)."""
+
+    name = "reisizadeh"
+
+    @property
+    def latency_model(self) -> LatencyModel:
+        return LatencyModel.MODEL_30
+
+    def _allocate(self, cluster: ClusterSpec, k: int) -> AllocationPlan:
+        return allocation.reisizadeh_allocation(cluster, k)
+
+
+@dataclasses.dataclass(frozen=True)
+class Uncoded(AllocationScheme):
+    """Uncoded baseline: n = k uniform split, wait for every worker."""
+
+    name = "uncoded"
+
+    def _allocate(self, cluster: ClusterSpec, k: int) -> AllocationPlan:
+        return allocation.uncoded(cluster, k)
+
+
+@dataclasses.dataclass(frozen=True)
 class GradCoding(AllocationScheme):
     """Heterogeneity-aware gradient coding (Wang et al., arXiv:1901.09339).
 
@@ -161,6 +217,87 @@ class GradCoding(AllocationScheme):
 
     def _allocate(self, cluster: ClusterSpec, k: int) -> AllocationPlan:
         return allocation.gradient_coding_allocation(cluster, k, model=self.model)
+
+
+@dataclasses.dataclass(frozen=True)
+class _CommDelayScheme(AllocationScheme):
+    """Shared CommDelay behaviour: transfer-cost params + comm simulation.
+
+    ``upload``/``download`` are per-round transfer costs, divided by each
+    group's ``ClusterSpec`` bandwidth to form the comm terms
+    (``runtime_model.comm_terms``); infinite bandwidths make both vanish.
+    """
+
+    upload: float = 1.0
+    download: float = 1.0
+
+    def __post_init__(self):
+        if self.upload < 0 or self.download < 0:
+            raise ValueError(
+                f"{type(self).__name__} transfer costs must be >= 0, got "
+                f"upload={self.upload!r}, download={self.download!r}"
+            )
+
+    @property
+    def latency_model(self) -> LatencyModel:
+        return LatencyModel.COMM_DELAY
+
+    def simulate(self, generator, cluster, plan, num_trials=10_000, *,
+                 model=None, use_integer_loads=False) -> torch.Tensor:
+        """Threshold decoding with the transfer terms; an explicit other
+        ``model`` evaluates the plan comm-blind."""
+        loads = plan.loads_int if use_integer_loads else plan.loads
+        if model is not None and model is not LatencyModel.COMM_DELAY:
+            return simulator.simulate_threshold(
+                generator, cluster, loads, plan.k, num_trials, model=model
+            )
+        return simulator.simulate_comm_threshold(
+            generator, cluster, loads, plan.k, num_trials,
+            upload=self.upload, download=self.download,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CommAware(_CommDelayScheme):
+    """Communication-delay-aware optimum (Sun et al., arXiv:2109.11246).
+
+    The Lambert-W inner problem at comm-shifted alphas, the outer
+    deadline equation by bisection; groups whose transfer shift exceeds
+    the deadline get zero load. With every transfer term zero the plan is
+    ``Optimal``'s.
+    """
+
+    name = "comm_aware"
+
+    def _allocate(self, cluster: ClusterSpec, k: int) -> AllocationPlan:
+        return allocation.comm_aware_allocation(
+            cluster, k, upload=self.upload, download=self.download
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CommUniform(_CommDelayScheme):
+    """Uniform-split baseline under the CommDelay model.
+
+    ``n`` defaults to the comm-aware optimum's code size: the same
+    redundancy split uniformly over every worker, slow links included.
+    """
+
+    name = "comm_uniform"
+
+    n: float | None = None
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.n is not None and not self.n > 0:
+            raise ValueError(
+                f"CommUniform needs the total coded rows n > 0, got n={self.n!r}"
+            )
+
+    def _allocate(self, cluster: ClusterSpec, k: int) -> AllocationPlan:
+        return allocation.comm_uniform_allocation(
+            cluster, k, n=self.n, upload=self.upload, download=self.download
+        )
 
 
 # --------------------------------------------------------------- registry
@@ -257,6 +394,25 @@ def _make_uniform_n(*, n=None):
     return UniformN(n=float(n))
 
 
+def _make_uniform_r(*, r=None):
+    if r is None:
+        raise ValueError("scheme 'uniform_r' requires the completion count r")
+    return UniformR(r=int(r))
+
+
+def _costs(**given) -> dict:
+    """The provided (not None) scheme parameters, as floats."""
+    return {key: float(v) for key, v in given.items() if v is not None}
+
+
+def _make_comm_aware(*, upload=None, download=None):
+    return CommAware(**_costs(upload=upload, download=download))
+
+
+def _make_comm_uniform(*, n=None, upload=None, download=None):
+    return CommUniform(**_costs(n=n, upload=upload, download=download))
+
+
 def _make_grad_coding(*, per_row=None, model=None):
     return GradCoding(model=resolve_latency_model(model, per_row))
 
@@ -270,13 +426,21 @@ register_scheme("optimal_per_row", _make_optimal_per_row)
 register_scheme("uniform_n", _make_uniform_n)
 register_scheme("grad_coding", _make_grad_coding)
 register_scheme("grad_coding_per_row", _make_grad_coding_per_row)
+register_scheme("uniform_r", _make_uniform_r)
+register_scheme("uniform_r_group_code", _make_uniform_r)
+register_scheme("reisizadeh", lambda: Reisizadeh())
+register_scheme("uncoded", lambda: Uncoded())
+register_scheme("comm_aware", _make_comm_aware)
+register_scheme("comm_uniform", _make_comm_uniform)
 
 
 def scheme_for_plan(plan) -> AllocationScheme:
     """The scheme object behind a plan (Allocation- or DeploymentPlan).
 
     Registry plans carry their scheme object; otherwise the scheme is
-    rebuilt from the name tag (and ``n`` for ``uniform_n``).
+    rebuilt from the name tag and the plan's own fields: ``n`` for
+    ``uniform_n`` and ``comm_uniform`` (whose transfer costs are not on
+    the plan and take their defaults), ``r = k / load`` for the group code.
     """
     obj = getattr(plan, "scheme_obj", None)
     if obj is not None:
@@ -287,8 +451,30 @@ def scheme_for_plan(plan) -> AllocationScheme:
             return alloc.scheme_obj
         plan = alloc
     tag = plan.scheme
+    loads = getattr(plan, "loads", None)
+    if loads is None:
+        loads = plan.loads_per_worker  # a DeploymentPlan without its allocation
     if tag in ("optimal", "optimal_per_row"):
         return Optimal(model=LatencyModel.from_per_row(tag == "optimal_per_row"))
     if tag == "uniform_n":
         return UniformN(n=float(plan.n))
+    if tag in ("uniform_r", "uniform_r_group_code"):
+        return UniformR(r=int(round(plan.k / float(loads[0]))))
+    if tag == "comm_uniform":
+        return CommUniform(n=float(plan.n))
     return make_scheme(tag)
+
+
+#: each registered scheme's parameters, for a CLI's help
+SCHEME_PARAM_DOC: Mapping[str, str] = {
+    "optimal": "model: LatencyModel (default MODEL_1)",
+    "grad_coding": "model: LatencyModel (default MODEL_1); "
+                   "k = gradient partitions of the global batch",
+    "uniform_n": "n: total coded rows (float > 0)",
+    "uniform_r": "r: completion count (int in (0, N))",
+    "reisizadeh": "(no params; per-row model)",
+    "uncoded": "(no params)",
+    "comm_aware": "upload, download: transfer costs >= 0 "
+                  "(divided by ClusterSpec group bandwidths)",
+    "comm_uniform": "n: code size (default: comm-aware n*); upload, download",
+}

@@ -18,8 +18,9 @@ their scratch (the kernels allocate nothing): the forward's per-(token,
 (T, Vc) bf16 dlogits chunk over vocab chunks of ``vocab_chunk`` rows,
 plus for ``bwd_dh`` an f32 (T, D) running sum when there is more than
 one chunk (``backward_scratch``). They read H and E through TMA, which
-needs 16-byte row strides: the bf16 path takes a hidden width that is a
-multiple of 8.
+needs 16-byte row strides: the bf16 path takes any hidden width that is
+a multiple of 8 (the GEMMs loop over D in 64-wide boxes). The f32 SIMT
+kernels, the parity dtype, take a multiple of 4 up to ``MAX_D``.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import torch
 from repro_torch.kernels._cuda import CudaKernel
 
 SOURCE = Path(__file__).parent / "csrc" / "fused_ce.cu"
-MAX_D = 1024  # hidden width the SIMT kernels hold per thread (csrc MAX_D)
+MAX_D = 1024  # hidden width the f32 SIMT kernels hold per thread (csrc MAX_D)
 TILE_V = 256  # vocab rows of a tensor-core output tile (csrc wg::BN)
 SCRATCH_BYTES = 64 * 2**20  # bound on the bf16 dlogits chunk of the backward
 
@@ -78,12 +79,14 @@ def _check(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor) -> None:
     if h.dtype not in _SUFFIX or table.dtype != h.dtype:
         raise TypeError("fused_ce kernel takes bf16 or f32 h and table of one dtype")
     d = h.shape[1]
-    if d % 4 or d > MAX_D:
-        raise ValueError(f"fused_ce kernel: hidden width {d} unsupported "
-                         f"(a multiple of 4, at most {MAX_D})")
     if h.dtype == torch.bfloat16 and d % 8:
         raise ValueError(f"fused_ce kernel: hidden width {d} unsupported in bf16 "
                          f"(TMA rows need a multiple of 8)")
+    if h.dtype == torch.float32 and (d % 4 or d > MAX_D):
+        # the SIMT kernels hold a row in registers; bf16 (the training
+        # dtype) tiles D through the tensor-core K loop and takes any width
+        raise ValueError(f"fused_ce kernel: hidden width {d} unsupported in f32 "
+                         f"(a multiple of 4, at most {MAX_D})")
     for t in (h, table, labels):
         if t.device != h.device or not t.is_contiguous():
             raise ValueError("fused_ce kernel takes contiguous tensors on one device")

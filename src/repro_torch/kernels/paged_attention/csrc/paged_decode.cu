@@ -19,7 +19,7 @@
 //   rounds of rt = (128 / team) * R:
 //   - every thread first issues all of its round's K and V loads, 16 bytes
 //     each (a team of up to 32 lanes covers one head_dim row: 16 lanes at
-//     hd = 128 in bf16), then uses them;
+//     hd = 128 in bf16; at hd = 120 the 16th lane is idle), then uses them;
 //   - a team scores its tokens against all G query rows at once (shuffle
 //     sum within the team), so each (g, t) score is computed once;
 //   - one warp per query row takes the round's max, computes each exp
@@ -86,7 +86,11 @@ struct Cfg {
   static constexpr int NC = HDMAX / THREADS;      // head_dim columns a thread owns in P V
 
   // lanes covering one row: the 16-byte vectors of a row, rounded up to a
-  // power of two, at most a warp
+  // power of two, at most a warp. Where hd / VE is not a power of two
+  // (hd = 120 in bf16: 15 vectors, a team of 16) the lanes past the row's
+  // last vector load nothing and add 0 to the team's score sum (v < nvec
+  // below), and in P V and the combine a column past hd is never touched
+  // (col < hd), so the tail is masked at every step.
   __host__ __device__ static int team(int hd) {
     const int nvec = hd / VE;
     int t = 1;
@@ -358,7 +362,10 @@ int launch(const void* q, const void* k, const void* v, const int* table, const 
            int nsplit, float scale, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  if (G < 1 || G > MAX_G || hd % 32 || hd > 1024 || S < 1 || KV < 1 ||
+  // head_dim: whole 16-byte vectors (8 bf16 or 4 f32); a row that is not a
+  // power-of-two number of vectors leaves the tail lanes of its team idle
+  if (G < 1 || G > MAX_G || hd % (16 / static_cast<int>(sizeof(T))) || hd > 1024 ||
+      S < 1 || KV < 1 ||
       reinterpret_cast<uintptr_t>(k) % 16 || reinterpret_cast<uintptr_t>(v) % 16)
     return cudaErrorInvalidValue;
   // one split per table entry, at least one (the wrapper's decode_splits)

@@ -144,8 +144,9 @@ def paged_decode_attend(q, k_pool, v_pool, table, pos):
 
     Shapes as ``paged_decode_attend_plain``; ``table``/``pos`` int32. On
     the card q and the pools must share a dtype (bfloat16 or float32),
-    be contiguous, and have head_dim a multiple of 32 (<= 1024) and at
-    most ``MAX_G`` query rows per KV head; anything else raises.
+    be contiguous, and have a head_dim of whole 16-byte vectors (a
+    multiple of 8 in bf16, of 4 in f32; at most 1024) and at most
+    ``MAX_G`` query rows per KV head; anything else raises.
     """
     if q.device.type == "cpu":
         return paged_decode_attend_plain(q, k_pool, v_pool, table, pos)
@@ -162,8 +163,10 @@ def paged_decode_attend(q, k_pool, v_pool, table, pos):
         raise TypeError("paged_decode_attend kernel takes bf16 or f32 q/k/v of one dtype")
     if table.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError("paged_decode_attend kernel takes int32 table and pos")
-    if hd % 32 or hd > 1024 or g > MAX_G:
-        raise ValueError(f"paged_decode_attend kernel: hd={hd}, G={g} unsupported")
+    if hd % (16 // q.element_size()) or hd > 1024 or g > MAX_G:
+        raise ValueError(f"paged_decode_attend kernel: hd={hd}, G={g} unsupported "
+                         f"(head_dim a whole number of 16-byte vectors, at most "
+                         f"1024; G at most {MAX_G})")
     tensors = (q, k_pool, v_pool, table, pos)
     if any(t.device != q.device or not t.is_contiguous() for t in tensors):
         raise ValueError("paged_decode_attend kernel takes contiguous tensors on one device")

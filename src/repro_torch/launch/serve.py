@@ -1,0 +1,152 @@
+"""Serving entry point: ``python -m repro_torch.launch.serve --arch qwen3-0.6b --coded``
+
+Counterpart of ``repro/launch/serve.py``: batched greedy generation on
+the port's dense model (seeded random weights), on the card unless
+``--device cpu``. With ``--coded`` the LM head's matvec is MDS-coded over
+a simulated heterogeneous fleet (``--groups``) under any registered
+allocation scheme (``--scheme``); workers that miss the deadline are
+erasures and the logits are decoded from the survivors. ``--trace``
+replays a seeded request workload through the continuous-batching
+server instead, on the paged KV pool or, with ``--dense-kv``, on dense
+per-slot caches.
+
+Not ported (argparse refuses them): the scenario and adaptive-control
+flags, plan bucketing, measured timing, telemetry and Chrome traces,
+``--slots auto``, the reference's numpy host loop (``--legacy-decode``)
+and ``--use-kernel`` (on the card the head always runs its kernel).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.core.runtime_model import ClusterSpec
+from repro_torch.core.schemes import make_scheme, scheme_names
+from repro_torch.models.model import Model
+from repro_torch.runtime.serve_loop import ServeConfig, Server
+from repro_torch.serve.workload import make_workload, workload_names
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the CPU-sized smoke variant of the arch")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--coded", action="store_true",
+                    help="serve logits through the coded LM head")
+    ap.add_argument("--groups", default="6:2.0,6:0.5",
+                    help="heterogeneous fleet as N:mu or N:mu:bandwidth groups "
+                         "(bandwidth feeds the comm-delay schemes)")
+    ap.add_argument("--bandwidth", type=float, default=None,
+                    help="link bandwidth for groups without their own "
+                         "(default: infinite = comm-free)")
+    ap.add_argument("--scheme", default="optimal", choices=scheme_names(),
+                    help="registered allocation scheme for the coded head")
+    ap.add_argument("--scheme-n", type=float, default=None,
+                    help="code size n for --scheme uniform_n / comm_uniform")
+    ap.add_argument("--scheme-r", type=int, default=None,
+                    help="completion count r for --scheme uniform_r")
+    ap.add_argument("--comm-upload", type=float, default=None,
+                    help="fixed per-round transfer cost for --scheme comm_aware / "
+                         "comm_uniform (divided by bandwidth)")
+    ap.add_argument("--comm-download", type=float, default=None,
+                    help="per-row transfer cost for --scheme comm_aware / "
+                         "comm_uniform (divided by bandwidth)")
+    ap.add_argument("--trace", default=None, choices=workload_names(),
+                    help="continuous-batching mode: replay this seeded request "
+                         "workload through Server.serve instead of one generate")
+    ap.add_argument("--arrival-rate", type=float, default=None,
+                    help="requests per decode round for --trace workloads that "
+                         "accept it (poisson, chat)")
+    ap.add_argument("--num-requests", type=int, default=None,
+                    help="trace length for --trace (default: the preset)")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="in-flight stream slots for --trace")
+    ap.add_argument("--dense-kv", action="store_true",
+                    help="serve --trace from dense per-slot KV caches instead "
+                         "of the paged block pool")
+    ap.add_argument("--block-len", type=int, default=None,
+                    help="tokens per physical KV block for paged --trace (default 16)")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="KV block pool size for paged --trace (default: sized "
+                         "so the trace never exhausts it)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="admission chunk width for paged --trace")
+    ap.add_argument("--admission-threshold", type=float, default=1.0,
+                    help="admission-control strictness for --trace (higher "
+                         "sheds earlier)")
+    ap.add_argument("--trace-seed", type=int, default=0,
+                    help="workload trace seed for --trace")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain paths)")
+    args = ap.parse_args(argv)
+
+    config = get_arch(args.arch)
+    if args.reduced:
+        config = config.reduced()
+    model = Model(config, device=args.device, seed=0)
+    scheme = make_scheme(args.scheme, n=args.scheme_n, r=args.scheme_r,
+                         upload=args.comm_upload, download=args.comm_download)
+    cluster = ClusterSpec.parse(args.groups, args.bandwidth) if args.coded else None
+    server = Server(model, cluster,
+                    ServeConfig(max_decode_steps=args.max_new, scheme=scheme))
+    if server.coded_head is not None:
+        h = server.coded_head
+        print(f"coded LM head [{h.plan.scheme}]: "
+              f"kb={h.kb} blocks x {h.block_rows} rows, "
+              f"(n,k)=({h.nb},{h.kb}) rate={h.kb / h.nb:.3f}, "
+              f"loads/worker={h.plan.loads_per_worker.tolist()}, "
+              f"deadline={h.deadline:.4f}")
+    if args.trace is not None:
+        return _serve_trace(server, args, config)
+    prompts = torch.randint(0, config.vocab_size, (args.batch, args.prompt_len),
+                            generator=torch.Generator().manual_seed(1),
+                            dtype=torch.int32)
+    sync = (lambda: torch.cuda.synchronize(model.device)) \
+        if model.device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = server.generate(prompts, args.max_new)
+    sync()
+    dt = time.perf_counter() - t0
+    print(f"generated {tuple(out.shape)} in {dt:.2f}s "
+          f"({args.batch * args.max_new / dt:.1f} tok/s)")
+    print("sample:", out[0, -args.max_new:].tolist())
+    return out
+
+
+def _serve_trace(server: Server, args, config):
+    """Continuous-batching mode: replay a seeded workload end to end.
+
+    Latency is reported in rounds (1 decode step = 1 round, 1 batched
+    prefill = 1 round), throughput in wall-clock tokens/s.
+    """
+    wl = make_workload(args.trace, arrival_rate=args.arrival_rate,
+                       num_requests=args.num_requests, vocab=config.vocab_size)
+    trace = wl.trace(seed=args.trace_seed)
+    rep = server.serve(trace, slots=args.slots,
+                       admission_threshold=args.admission_threshold,
+                       paged=not args.dense_kv, block_len=args.block_len,
+                       num_blocks=args.num_blocks, prefill_chunk=args.prefill_chunk)
+    lat = rep.latencies()
+    print(f"workload {wl.name!r}: {len(trace)} requests "
+          f"(rate={wl.arrival_rate}/round, seed={args.trace_seed})")
+    print(f"served {rep.admitted} ({rep.shed} shed), {rep.tokens} tokens "
+          f"in {rep.rounds:.0f} rounds "
+          f"({rep.prefill_rounds} prefill + {rep.decode_rounds} decode) "
+          f"/ {rep.wall_s:.2f}s = {rep.tokens_per_s:.1f} tok/s")
+    if len(lat):
+        print(f"latency rounds: p50={np.percentile(lat, 50):.1f} "
+              f"p99={np.percentile(lat, 99):.1f}")
+    return rep
+
+
+if __name__ == "__main__":
+    main()

@@ -2,12 +2,16 @@
 
 The paged serving paths, ``decode_attention_paged`` (one query per slot,
 the B2 kernel on the card) and ``prefill_attention_paged`` (a chunk of C
-queries per slot), and the training path, ``attention`` over
+queries per slot); the training and prefill path, ``attention`` over
 ``chunked_attention`` (causal, flash-style online softmax over key
-blocks, no sliding window). The reference computes the training
-attention in jnp outside any Pallas kernel, so it is plain torch here.
-Layer weights arrive as a dict of this layer's tensors (``wq``, ``wk``,
-``wv``, ``wo`` and optionally ``q_norm``/``k_norm``).
+blocks, no sliding window; ``return_kv`` hands back the post-rope K/V a
+batched prefill splices into a dense cache); and the dense-cache decode
+paths, ``decode_attention`` (one position for the whole batch) and
+``decode_attention_slots`` (a position per row). The reference computes
+all but the paged decode attend in jnp outside any Pallas kernel, so
+they are plain torch here. The dense caches (``init_attn_cache``) are
+updated in place. Layer weights arrive as a dict of this layer's tensors
+(``wq``, ``wk``, ``wv``, ``wo`` and optionally ``q_norm``/``k_norm``).
 """
 from __future__ import annotations
 
@@ -137,12 +141,15 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, num_heads, num_kv_heads, head_d
 
 
 def attention(p: dict, x, positions, *, num_heads, num_kv_heads, head_dim,
-              causal=True, rope_theta=10_000.0, q_block=512, kv_block=1024):
-    """Full attention layer (train path). x: (B, S, D); positions: (S,).
+              causal=True, rope_theta=10_000.0, q_block=512, kv_block=1024,
+              return_kv=False):
+    """Full attention layer (train/prefill path). x: (B, S, D); positions: (S,).
 
     Sequences that do not divide the blocks are padded: queries with
     continuation positions (sliced back), keys with position -1 (masked).
-    Returns y (B, S, D).
+    Returns y (B, S, D); with ``return_kv`` also the post-rope (B, S, KV,
+    hd) keys and values, what ``decode_attention`` would have written
+    into its cache one position at a time.
     """
     b, s = x.shape[:2]
     q, k, v = _qkv(p, x, num_heads, num_kv_heads, head_dim)
@@ -150,6 +157,7 @@ def attention(p: dict, x, positions, *, num_heads, num_kv_heads, head_dim,
     pos_b = positions[None, :].expand(b, s)
     q = rope(q, pos_b, rope_theta)
     k = rope(k, pos_b, rope_theta)
+    k_cache, v_cache = k, v  # before padding: the decode cache's payload
     qb, kb = min(q_block, s), min(kv_block, s)
     pad_q, pad_k = (-s) % qb, (-s) % kb
     q_pos, kv_pos = positions, positions
@@ -165,4 +173,78 @@ def attention(p: dict, x, positions, *, num_heads, num_kv_heads, head_dim,
     out = chunked_attention(q, k, v, q_pos, kv_pos, num_heads=num_heads,
                             num_kv_heads=num_kv_heads, head_dim=head_dim,
                             causal=causal, q_block=qb, kv_block=kb)[:, :s]
-    return out.reshape(b, s, num_heads * head_dim) @ p["wo"].to(x.dtype)
+    y = out.reshape(b, s, num_heads * head_dim) @ p["wo"].to(x.dtype)
+    if return_kv:
+        return y, k_cache, v_cache
+    return y
+
+
+def init_attn_cache(batch: int, cache_len: int, num_kv_heads: int, head_dim: int,
+                    dtype: torch.dtype, device) -> dict:
+    """Dense KV cache: ``k``, ``v`` (B, S, KV, hd) and ``pos`` (S,) int32,
+    the absolute position each entry holds (-1 = empty)."""
+    shape = (batch, cache_len, num_kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((cache_len,), -1, dtype=torch.int32, device=device)}
+
+
+def _attend_cache(p: dict, q, k, v, valid, num_heads, num_kv_heads, head_dim):
+    """One query per row over a dense cache. q: (B, 1, H, hd); k, v: (B, S,
+    KV, hd); valid: (B, S). Scores in q's dtype then f32, masked entries
+    at -1e30, the softmax weights cast to v's dtype, as the reference."""
+    b = q.shape[0]
+    qr = q.reshape(b, num_kv_heads, num_heads // num_kv_heads, head_dim)
+    sc = torch.einsum("bkgh,bskh->bkgs", qr, k).float() * (1.0 / math.sqrt(head_dim))
+    sc = sc.masked_fill(~valid[:, None, None, :], NEG_INF)
+    w = torch.softmax(sc, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgs,bskh->bkgh", w, v).reshape(b, 1, num_heads * head_dim)
+    return out @ p["wo"].to(q.dtype)
+
+
+def _project_rope(p: dict, x, positions, num_heads, num_kv_heads, head_dim, rope_theta):
+    """q, k, v of one new token per row, rope'd at ``positions`` (B, 1)."""
+    q, k_new, v_new = _qkv(p, x, num_heads, num_kv_heads, head_dim)
+    q, k_new = _maybe_qk_norm(p, q, k_new)
+    return rope(q, positions, rope_theta), rope(k_new, positions, rope_theta), v_new
+
+
+def decode_attention(p: dict, x, cache: dict, pos: int, *, num_heads, num_kv_heads,
+                     head_dim, rope_theta=10_000.0):
+    """Single-token decode at one position for the whole batch, in place.
+
+    x: (B, 1, D); cache: ``init_attn_cache``'s (this layer's views);
+    pos: int. Writes the new K/V and ``pos`` at entry ``pos % S``, then
+    attends every entry holding a position in [0, pos]. Returns y (B, 1, D).
+    """
+    b = x.shape[0]
+    pp = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_rope(p, x, pp, num_heads, num_kv_heads, head_dim,
+                                    rope_theta)
+    slot = pos % cache["k"].shape[1]
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    cache["pos"][slot] = pos
+    valid = (cache["pos"] >= 0) & (cache["pos"] <= pos)
+    return _attend_cache(p, q, cache["k"], cache["v"], valid[None, :].expand(b, -1),
+                         num_heads, num_kv_heads, head_dim)
+
+
+def decode_attention_slots(p: dict, x, cache: dict, pos_map, pos, slot, *, num_heads,
+                           num_kv_heads, head_dim, rope_theta=10_000.0):
+    """Per-slot decode: every row at its own position, in place.
+
+    x: (B, 1, D); cache: ``{"k", "v"}`` (B, S, KV, hd) of this layer;
+    pos_map: (B, S) the position each entry holds after this step's write
+    (-1 = empty; one map shared by every layer); pos: (B,) int32 write
+    positions; slot: (B,) the entries to write (``pos % S``). Returns y.
+    """
+    b = x.shape[0]
+    q, k_new, v_new = _project_rope(p, x, pos[:, None], num_heads, num_kv_heads,
+                                    head_dim, rope_theta)
+    rows = torch.arange(b, device=x.device)
+    cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
+    valid = (pos_map >= 0) & (pos_map <= pos[:, None])
+    return _attend_cache(p, q, cache["k"], cache["v"], valid, num_heads, num_kv_heads,
+                         head_dim)

@@ -12,7 +12,12 @@ seeded init on its device at any width.
 
 The paged KV cache is ``{"k", "v"}`` of shape (L, NB+1, BL, KV, hd);
 both paged entry points update it in place and return it (under
-``torch.no_grad``). The parameters are trainable: ``hidden`` runs the
+``torch.no_grad``). The dense caches are ``{"k", "v"}`` of shape
+(L, B, S, KV, hd) plus ``pos``: (L, S) for ``decode_step`` (one position
+for the whole batch, ``init_cache``), (B, S) for ``decode_step_slots``
+(a position per row, ``init_slot_cache``); ``prefill`` is one batched
+forward that returns every layer's post-rope prompt K/V for a splice.
+They too are updated in place. The parameters are trainable: ``hidden`` runs the
 training forward (causal chunked attention, each layer under
 ``torch.utils.checkpoint`` when ``config.remat``, as the reference's
 ``jax.checkpoint``), and ``loss_fn`` takes the cross entropy through the
@@ -34,7 +39,9 @@ from repro_torch.models import layers as L
 from repro_torch.kernels.fused_ce.ops import fused_ce
 from repro_torch.models.attention import (
     attention,
+    decode_attention,
     decode_attention_paged,
+    decode_attention_slots,
     prefill_attention_paged,
 )
 
@@ -208,7 +215,106 @@ class Model(nn.Module):
         acc = ((am == labels) & mask).sum() / mask.sum().clamp_min(1)
         return loss, {"loss": loss, "accuracy": acc}
 
-    # ------------------------------------------------------------- cache
+    # ------------------------------------------------------- dense cache
+    def _check_slot_support(self) -> None:
+        """The dense cache paths cover the attention-cache families.
+
+        The reference also refuses int8 KV and sliding windows here; the
+        port's ``ModelConfig`` has neither field, so only the family is
+        checked (``__init__`` already refuses any other).
+        """
+        if self.config.family != "dense":
+            raise NotImplementedError(
+                f"dense-cache decode supports the dense family, not "
+                f"{self.config.family!r}"
+            )
+
+    def _dense_kv(self, batch: int, cache_len: int) -> dict:
+        c = self.config
+        shape = (c.num_layers, batch, cache_len, c.num_kv_heads, c.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=c.cdtype, device=self.device),
+                "v": torch.zeros(shape, dtype=c.cdtype, device=self.device)}
+
+    def init_cache(self, batch: int, cache_len: int) -> dict:
+        """Decode state of ``decode_step``: K/V and a (L, S) position map."""
+        self._check_slot_support()
+        return {**self._dense_kv(batch, cache_len),
+                "pos": torch.full((self.config.num_layers, cache_len), -1,
+                                  dtype=torch.int32, device=self.device)}
+
+    def init_slot_cache(self, batch: int, cache_len: int) -> dict:
+        """Decode state of ``decode_step_slots``: K/V and a (B, S) position
+        map, shared by every layer (each layer writes the same positions)."""
+        self._check_slot_support()
+        return {**self._dense_kv(batch, cache_len),
+                "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+                                  device=self.device)}
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens, pos: int):
+        """One new token for every row at one position (``init_cache``).
+
+        tokens: (B,) int; pos: int. Returns (logits (B, V_padded), cache).
+        """
+        c = self.config
+        x = L.embed(self.embed, tokens[:, None], c.cdtype)
+        for i in range(c.num_layers):
+            layer = {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"][i]}
+            h = x + decode_attention(self._layer(i), L.rmsnorm(self.ln1[i], x), layer,
+                                     pos, **self._attn_kw())
+            x = h + self._mlp(i, h)
+        return self._logits(x), cache
+
+    @torch.no_grad()
+    def prefill(self, tokens, length):
+        """Batched prefill: one forward -> (last logits, per-layer K/V).
+
+        tokens: (B, S0) int, right-padded; length: (B,) prompt lengths.
+        Returns the logits at each row's last real position (B, V_padded)
+        and the post-rope K/V, (L, B, S0, KV, hd) each. Padded positions
+        produce K/V that sit causally after every real query; the splice
+        masks them with position -1.
+        """
+        self._check_slot_support()
+        c = self.config
+        b, s = tokens.shape
+        x = L.embed(self.embed, tokens, c.cdtype)
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)
+        ks, vs = [], []
+        for i in range(c.num_layers):
+            y, k, v = attention(self._layer(i), L.rmsnorm(self.ln1[i], x), positions,
+                                **self._attn_kw(), q_block=c.attn_q_block,
+                                kv_block=c.attn_kv_block, return_kv=True)
+            h = x + y
+            x = h + self._mlp(i, h)
+            ks.append(k)
+            vs.append(v)
+        last = torch.clamp(torch.as_tensor(length, device=x.device).long() - 1, 0, s - 1)
+        x_last = x[torch.arange(b, device=x.device), last][:, None]
+        return self._logits(x_last), torch.stack(ks), torch.stack(vs)
+
+    @torch.no_grad()
+    def decode_step_slots(self, cache: dict, tokens, pos):
+        """One token per row, each at its own position (``init_slot_cache``).
+
+        tokens: (B,) int; pos: (B,) int32 write positions (a frozen row
+        rewrites its entry, which is idempotent). Returns (logits, cache).
+        """
+        self._check_slot_support()
+        c = self.config
+        x = L.embed(self.embed, tokens[:, None], c.cdtype)
+        b, cache_len = cache["pos"].shape
+        pos = pos.to(torch.int32)
+        slot = (pos % cache_len).long()
+        cache["pos"][torch.arange(b, device=x.device), slot] = pos
+        for i in range(c.num_layers):
+            layer = {"k": cache["k"][i], "v": cache["v"][i]}
+            h = x + decode_attention_slots(self._layer(i), L.rmsnorm(self.ln1[i], x), layer,
+                                           cache["pos"], pos, slot, **self._attn_kw())
+            x = h + self._mlp(i, h)
+        return self._logits(x), cache
+
+    # ------------------------------------------------------- paged cache
     def init_paged_cache(self, num_blocks: int, block_len: int) -> dict:
         """KV block pool: ``num_blocks + 1`` blocks per layer (last = sink)."""
         c = self.config

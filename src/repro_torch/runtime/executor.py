@@ -6,8 +6,9 @@ Counterpart of ``repro/runtime/executor.py`` without bucket mode:
   registered scheme; Monte Carlo on the integer loads when integerization
   inflates a load past ``INTEGERIZATION_SLACK``;
 * **erasure-mask sampling** — ``finish_mask`` draws per-worker round
-  times under the scheme's own latency model from a ``torch.Generator``
-  on the executor's device;
+  times under the scheme's own latency model (the comm-delay schemes'
+  per-worker transfer shifts included) from a ``torch.Generator`` on the
+  executor's device;
 * **worker -> slot scatter map** — ``slot_owner[i]`` is the worker that
   holds coded slot ``i``, so a (W,) finish mask gathers to an (n,)
   slot-erasure mask in one device op (``slot_mask``).
@@ -19,7 +20,12 @@ import torch
 
 from repro_torch.core.engine import CodedComputeEngine, plan_deadline
 from repro_torch.core.planner import DeploymentPlan
-from repro_torch.core.runtime_model import ClusterSpec, sample_worker_times
+from repro_torch.core.runtime_model import (
+    ClusterSpec,
+    LatencyModel,
+    comm_terms,
+    sample_worker_times,
+)
 from repro_torch.core.schemes import AllocationScheme
 from repro_torch.device import resolve_device
 
@@ -58,23 +64,32 @@ class CodedRoundExecutor:
         self.slot_owner = torch.from_numpy(owner).to(self.device)
         self._loads_w = torch.as_tensor(plan.loads_per_worker,
                                         dtype=torch.float32, device=self.device)
-        self._mus_w, self._alphas_w = self.worker_param_arrays()
+        self._mus_w, self._alphas_w, self._shift_w = self.worker_param_arrays()
 
     def worker_param_arrays(self):
-        """(mus_w, alphas_w) float32 tensors for the plan's workers.
+        """(mus_w, alphas_w, shift_w) float32 tensors for the plan's workers.
 
-        The schemes of this slice pay no transfer terms, so there is no
-        per-worker shift (the comm-delay schemes are not ported yet).
+        A comm-delay scheme adds ``download / b_j`` to each worker's alpha
+        and shifts its time by ``upload / b_j`` (``comm_terms``); every
+        other scheme has zero shifts.
         """
-        groups = [self.plan.cluster.groups[j] for j in self.plan.group_of_worker]
+        plan, sch = self.plan, self.engine.scheme
+        ng = plan.cluster.num_groups
+        if sch.latency_model is LatencyModel.COMM_DELAY:
+            shift_g, dal_g = comm_terms(plan.cluster, sch.upload, sch.download)
+        else:
+            shift_g, dal_g = np.zeros(ng), np.zeros(ng)
+        gid = np.asarray(plan.group_of_worker, np.int64)
+        mus = np.asarray([g.mu for g in plan.cluster.groups])[gid]
+        alphas = np.asarray([g.alpha for g in plan.cluster.groups])[gid] + dal_g[gid]
         as_t = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa: E731
                                          device=self.device)
-        return as_t([g.mu for g in groups]), as_t([g.alpha for g in groups])
+        return as_t(mus), as_t(alphas), as_t(shift_g[gid])
 
     @property
     def worker_params(self):
-        """(mus_w, alphas_w) the finish-mask sampler draws with."""
-        return self._mus_w, self._alphas_w
+        """(mus_w, alphas_w, shift_w) the finish-mask sampler draws with."""
+        return self._mus_w, self._alphas_w, self._shift_w
 
     @property
     def scheme(self) -> AllocationScheme:
@@ -128,7 +143,7 @@ class CodedRoundExecutor:
         """(W,) per-worker round times under the scheme's own latency model."""
         return sample_worker_times(
             generator, self._loads_w, self._mus_w, self._alphas_w, self.k, 1,
-            model=self.engine.scheme.latency_model,
+            model=self.engine.scheme.latency_model, shift_per_worker=self._shift_w,
         )[0]
 
     def finish_mask(self, generator: torch.Generator, deadline=None) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Paged continuous-batching server with the paper's coded matvec as LM head.
+"""Serving with the paper's coded matvec as LM head: batched greedy
+generation and continuous batching over a paged or a dense KV cache.
 
-Counterpart of ``repro/runtime/serve_loop.py`` (paged serving only).
+Counterpart of ``repro/runtime/serve_loop.py``.
 Decode-time logits are the paper's workload: ``logits = E h`` with the
 tied embedding ``E`` padded into ``kb`` row-blocks of ``R`` rows. An
 ``(nb, kb)`` MDS code over the blocks gives coded blocks
@@ -13,9 +14,15 @@ Per decode step the coded round runs on the device with no host sync:
 the block mix ``G X`` (B1 ``coded_matvec`` kernel), a finish mask drawn
 from a ``torch.Generator``, the fixed-shape erasure decode, and the
 argmax. The coded blocks are built once per plan by the B3
-``mds_encode`` kernel, and the model's decode attend is the B2 paged
-kernel. The reference's one compiled program per chunk size becomes an
-eager Python step here (no retrace counter is needed: nothing traces).
+``mds_encode`` kernel, and the paged decode attend is the B2 kernel.
+
+Three entry points: ``Server.generate`` (one batched prefill into a
+dense cache, then a greedy decode in which every sampled token, the
+first included, goes through the coded head), and ``Server.serve`` with
+``paged=True`` (the block pool with chunked prefill) or ``paged=False``
+(a dense per-slot cache with a batched admit splice). The reference's
+one compiled program per generation or chunk size becomes an eager
+Python loop here (no retrace counter is needed: nothing traces).
 """
 from __future__ import annotations
 
@@ -53,7 +60,11 @@ def set_full_fp32() -> None:
 class ServeConfig:
     block_rows: int = 256  # R: vocab rows per MDS block
     deadline_safety: float = 3.0
+    max_decode_steps: int = 32  # generate's default max_new
     scheme: str | AllocationScheme = "optimal"  # registry name or object
+    # ``serve`` runs on the paged block pool with chunked prefill;
+    # ``paged=False`` keeps the dense per-slot cache
+    paged: bool = True
     block_len: int = 16  # tokens per physical KV block
     num_blocks: int | None = None  # pool size; None = dense-equivalent auto
     prefill_chunk: int | None = None  # admission chunk; None = prompt_cap
@@ -97,8 +108,10 @@ class CodedLMHead:
 
     def finish_mask(self, generator: torch.Generator, deadline=None
                     ) -> torch.Tensor:
-        """(W,) bool straggler mask at ``deadline`` (default planned)."""
-        return self.executor.finish_mask(generator, deadline)
+        """(W,) bool straggler mask at ``deadline`` (default: the head's
+        ``deadline``, the planned one unless a caller moved it)."""
+        return self.executor.finish_mask(
+            generator, self.deadline if deadline is None else deadline)
 
     def encode_logits(self, logits: torch.Tensor) -> torch.Tensor:
         """Mix plain logit BLOCKS with G: (B, V) -> (nb, B, R) products.
@@ -176,7 +189,8 @@ class ServeReport:
 
 
 class Server:
-    """Paged continuous batching with an optional coded LM head."""
+    """Greedy generation and continuous batching (paged or dense KV) with an
+    optional coded LM head (``cluster=None``: the plain head)."""
 
     def __init__(self, model: Model, cluster: ClusterSpec | None = None,
                  cfg: ServeConfig | None = None):
@@ -210,8 +224,112 @@ class Server:
         dec = torch.where(keep, dec[:, : lf.shape[-1]], NEG_INF)
         return torch.where(ok, dec, lf), ok, mask
 
-    def _serve_step(self, cache, logits, pos, chunk, table, active, generator,
-                    stats, *, steps):
+    # ------------------------------------------------------------ generate
+    def _prefill_into_cache(self, cache: dict, prompts: torch.Tensor):
+        """One batched ``Model.prefill`` spliced into an ``init_cache`` state:
+        the prompt K/V land in positions [0, S0). Returns (logits, cache)."""
+        b, s0 = prompts.shape
+        lengths = torch.full((b,), s0, dtype=torch.int32, device=prompts.device)
+        logits, ks, vs = self.model.prefill(prompts, lengths)
+        cache["k"][:, :, :s0] = ks
+        cache["v"][:, :, :s0] = vs
+        cache["pos"][:, :s0] = torch.arange(s0, dtype=torch.int32, device=prompts.device)
+        return logits, cache
+
+    @torch.no_grad()
+    def generate(self, prompts, max_new: int | None = None, *, seed: int = 0,
+                 cache_len: int | None = None, observe=None) -> torch.Tensor:
+        """Greedy decode. prompts: (B, S0) int (a tensor or numpy); returns
+        (B, S0 + max_new) int32 on the server's device.
+
+        One batched prefill fills a dense cache, then ``max_new - 1``
+        decode steps. With a coded head every sampled token goes through
+        it, the first post-prefill one included; finish masks draw from a
+        ``torch.Generator`` seeded with ``seed``. ``observe``, if given, is
+        called once per sampled token as ``observe(step, logits, selected,
+        ok, mask)``: the model's logits, those the token was taken from,
+        and the round's decode-ok flag and (W,) finish mask (None without
+        a coded head), all on the device.
+        """
+        set_full_fp32()
+        dev = self.device
+        max_new = int(self.cfg.max_decode_steps if max_new is None else max_new)
+        prompts = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+        if max_new == 0:
+            return prompts
+        b, s0 = prompts.shape
+        cache = self.model.init_cache(b, cache_len or s0 + max_new)
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        logits, cache = self._prefill_into_cache(cache, prompts)
+
+        def sample(step: int, logits: torch.Tensor) -> torch.Tensor:
+            sel, ok, mask = logits, None, None
+            if self.coded_head is not None:
+                sel, ok, mask = self.coded_select(logits, generator)
+            if observe is not None:
+                observe(step, logits, sel, ok, mask)
+            return torch.argmax(sel, -1).to(torch.int32)
+
+        tok = sample(0, logits)
+        out = [prompts, tok[:, None]]
+        for t in range(max_new - 1):
+            logits, cache = self.model.decode_step(cache, tok, s0 + t)
+            tok = sample(t + 1, logits)
+            out.append(tok[:, None])
+        return torch.cat(out, dim=1)
+
+    # -------------------------------------------------- continuous batching
+    def _decode_chunk(self, step_fn, cache, logits, pos, active, generator, stats,
+                      steps: int):
+        """``steps`` decode rounds: each samples every slot's next token
+        from its pending logits (one coded round across the batch) and
+        advances the model with ``step_fn(cache, tokens, pos)``; inactive
+        slots keep their logits and pos."""
+        toks = []
+        for _ in range(steps):
+            sel = logits
+            if self.coded_head is not None:
+                sel, ok, mask = self.coded_select(logits, generator)
+                stats[0] += ok.to(torch.int64)
+                stats[1] += (~mask.all()).to(torch.int64)
+            tok = torch.argmax(sel, -1).to(torch.int32)
+            nlog, cache = step_fn(cache, tok, pos)
+            logits = torch.where(active[:, None], nlog.float(), logits)
+            pos = torch.where(active, pos + 1, pos)
+            toks.append(tok)
+        return cache, logits, pos, toks
+
+    def _serve_step_dense(self, cache, logits, pos, admit, active, generator, stats,
+                          *, steps):
+        """One dense serve iteration: the admit splice, then ``steps`` decodes.
+
+        ``admit`` is None or (prompts (A, P), lengths (A,), slots): this
+        round's A admissions, right-padded to the prompt capacity P, and
+        the slot each goes to. One ``Model.prefill`` pass over them; each
+        admitted slot's cache row is reset to its prompt K/V (positions
+        past its length at -1), its pending logits become the prefill's
+        and ``pos`` jumps to the prompt length. No token is sampled at
+        admission: the decode chunk samples from the pending logits.
+        """
+        if admit is not None:
+            prompts, lengths, slot_idx = admit
+            plog, ks, vs = self.model.prefill(prompts, lengths)
+            p = prompts.shape[1]
+            cache["k"][:, slot_idx] = 0
+            cache["v"][:, slot_idx] = 0
+            cache["k"][:, slot_idx, :p] = ks
+            cache["v"][:, slot_idx, :p] = vs
+            seq = torch.arange(p, dtype=torch.int32, device=prompts.device)
+            cache["pos"][slot_idx] = -1
+            cache["pos"][slot_idx, :p] = torch.where(seq[None, :] < lengths[:, None],
+                                                     seq[None, :], -1)
+            logits[slot_idx] = plog.float()
+            pos[slot_idx] = lengths
+        return self._decode_chunk(self.model.decode_step_slots, cache, logits, pos,
+                                  active, generator, stats, steps)
+
+    def _serve_step_paged(self, cache, logits, pos, chunk, table, active, generator,
+                          stats, *, steps):
         """One paged serve iteration: prefill chunk, then ``steps`` decodes.
 
         ``chunk`` is None or (tokens (S, C), start, lens, finishing): the
@@ -226,43 +344,164 @@ class Server:
             plog, cache = self.model.prefill_paged(cache, tokens, start, lens, table)
             logits = torch.where(finishing[:, None], plog.float(), logits)
             pos = torch.where(finishing, start + lens, pos)
-        toks = []
-        for _ in range(steps):
-            sel = logits
-            if self.coded_head is not None:
-                sel, ok, mask = self.coded_select(logits, generator)
-                stats[0] += ok.to(torch.int64)
-                stats[1] += (~mask.all()).to(torch.int64)
-            tok = torch.argmax(sel, -1).to(torch.int32)
-            nlog, cache = self.model.decode_step_paged(cache, tok, pos, table, active)
-            logits = torch.where(active[:, None], nlog.float(), logits)
-            pos = torch.where(active, pos + 1, pos)
-            toks.append(tok)
-        return cache, logits, pos, toks
+        return self._decode_chunk(
+            lambda c, tok, p: self.model.decode_step_paged(c, tok, p, table, active),
+            cache, logits, pos, active, generator, stats, steps)
 
     def serve(self, trace, *, slots: int = 4, prompt_cap: int | None = None,
-              decode_block: int = 4, queue_cap: int = 64,
+              max_out: int | None = None, decode_block: int = 4, queue_cap: int = 64,
               admission_threshold: float = 1.0, telemetry=None, seed: int = 0,
-              block_len: int | None = None,
+              paged: bool | None = None, block_len: int | None = None,
               num_blocks: int | None = None,
               prefill_chunk: int | None = None) -> ServeReport:
         """Continuous batching: serve a request trace through S slots.
 
-        The scheduler (host) decides placements; each round runs one
-        prefill chunk for every slot still mid-prompt and a decode chunk
-        of ``min(decode_block, min remaining)`` steps, so a slot frees
-        the round its stream completes. Physical KV lives in a shared
-        ``BlockPool``: full reservation at admission, freed at retirement.
-        ``num_blocks=None`` sizes the pool so the trace never exhausts it.
-        Finish masks draw from a ``torch.Generator`` seeded with ``seed``.
-        Only paged serving is ported: there is no dense option yet.
+        The scheduler (host) decides placements; each round runs the
+        round's prefill work and then a decode chunk of
+        ``min(decode_block, min remaining)`` steps, so a slot frees the
+        round its stream completes. Finish masks draw from a
+        ``torch.Generator`` seeded with ``seed``.
+
+        ``paged`` (default ``ServeConfig.paged``): the KV cache is a
+        shared ``BlockPool`` (full reservation at admission, freed at
+        retirement) and prompts prefill in ``prefill_chunk``-token pieces
+        across rounds; ``num_blocks=None`` sizes the pool so the trace
+        never exhausts it. ``paged=False``: every slot owns a dense cache
+        row of ``prompt_cap + max_out + 1`` positions and a whole prompt
+        is spliced in at admission, so a prompt longer than ``prompt_cap``
+        is refused.
         """
         set_full_fp32()
+        paged = self.cfg.paged if paged is None else paged
         trace = sorted(trace, key=lambda r: (r.arrival, r.rid))
         if not trace:
             raise ValueError("serve needs a non-empty request trace")
         prompt_cap = int(prompt_cap if prompt_cap is not None
                          else max(r.prompt_len for r in trace))
+        if paged:
+            return self._serve_paged(
+                trace, slots=slots, prompt_cap=prompt_cap, decode_block=decode_block,
+                queue_cap=queue_cap, admission_threshold=admission_threshold,
+                telemetry=telemetry, seed=seed, block_len=block_len,
+                num_blocks=num_blocks, prefill_chunk=prefill_chunk)
+        too_long = [r.rid for r in trace if r.prompt_len > prompt_cap]
+        if too_long:
+            raise ValueError(f"requests {too_long} exceed prompt_cap={prompt_cap}")
+        max_out = int(max_out if max_out is not None else max(r.out_len for r in trace))
+        return self._serve_dense(
+            trace, slots=slots, prompt_cap=prompt_cap, max_out=max_out,
+            decode_block=decode_block, queue_cap=queue_cap,
+            admission_threshold=admission_threshold, telemetry=telemetry, seed=seed)
+
+    def _loop_state(self, slots: int, seed: int):
+        """Pending logits, positions, (ok, erased) counters and the
+        finish-mask generator of one serve run."""
+        dev = self.device
+        vp = padded_vocab(self.model.config.vocab_size)
+        return (torch.zeros((slots, vp), dtype=torch.float32, device=dev),
+                torch.zeros((slots,), dtype=torch.int32, device=dev),
+                torch.zeros((2,), dtype=torch.int64, device=dev),
+                torch.Generator(device=dev).manual_seed(seed))
+
+    def _report(self, sched, metrics, telemetry, emitted, stats, *, now, t0,
+                decode_rounds, prefill_rounds, kv_bytes) -> ServeReport:
+        """Synchronise, then the run's ``ServeReport``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - t0
+        streams: dict[int, list[int]] = {}
+        for toks, owners in emitted:
+            arr = torch.stack(toks).cpu().numpy()  # (steps, S)
+            for si, rid in owners:
+                streams.setdefault(rid, []).extend(int(t) for t in arr[:, si])
+        ok, erased = (int(v) for v in stats.cpu())
+        metrics.emit(telemetry, phase="serve", rounds=float(now))
+        return ServeReport(
+            finished=tuple(sched.finished),
+            tokens=sum(f.tokens for f in sched.finished if f.outcome == "done"),
+            rounds=now,
+            decode_rounds=decode_rounds,
+            prefill_rounds=prefill_rounds,
+            admitted=sched.admitted,
+            shed=sched.shed,
+            wall_s=wall,
+            streams={rid: tuple(v) for rid, v in streams.items()},
+            decode_ok=ok,
+            erased_rounds=erased,
+            kv_bytes=kv_bytes,
+        )
+
+    def _serve_dense(self, trace, *, slots, prompt_cap, max_out, decode_block,
+                     queue_cap, admission_threshold, telemetry, seed) -> ServeReport:
+        """The dense slot-cache loop behind ``serve(paged=False)``.
+
+        A round with admissions runs one batched prefill of the admitted
+        prompts (the admit splice, one round) and then the decode chunk
+        over every busy slot, as the reference's dense program does.
+        """
+        dev = self.device
+        # +1: a finished slot would rewrite the entry one past its last token
+        cache = self.model.init_slot_cache(slots, prompt_cap + max_out + 1)
+        kv_bytes = sum(cache[n].numel() * cache[n].element_size() for n in ("k", "v"))
+        metrics = MetricsRegistry()
+        sched = SlotScheduler(slots, queue_cap=queue_cap,
+                              admission_threshold=admission_threshold,
+                              telemetry=telemetry, metrics=metrics)
+        logits, pos, stats, generator = self._loop_state(slots, seed)
+        emitted = []
+        to_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+
+        now, i = 0.0, 0
+        prefill_rounds = decode_rounds = 0
+        t0 = time.perf_counter()
+        while i < len(trace) or not sched.idle:
+            while i < len(trace) and trace[i].arrival <= now + 1e-9:
+                sched.offer(trace[i], now)
+                i += 1
+            placed = sched.fill_slots(now)
+            admit = None
+            if placed:
+                prompts_np = np.zeros((len(placed), prompt_cap), np.int32)
+                for r, (_si, req) in enumerate(placed):
+                    prompts_np[r, : req.prompt_len] = req.prompt
+                admit = (to_dev(prompts_np),
+                         to_dev(np.asarray([req.prompt_len for _, req in placed], np.int32)),
+                         to_dev(np.asarray([si for si, _ in placed], np.int64)))
+            active = [s.busy and not s.done for s in sched.slots]
+            if any(active):
+                steps = min(decode_block, min(
+                    s.request.out_len - s.generated
+                    for si, s in enumerate(sched.slots) if active[si]))
+                owners = [(si, s.request.rid) for si, s in enumerate(sched.slots)
+                          if active[si]]
+                cache, logits, pos, toks = self._serve_step_dense(
+                    cache, logits, pos, admit, to_dev(np.asarray(active)), generator,
+                    stats, steps=steps)
+                emitted.append((toks, owners))
+                if placed:  # the admit splice costs its own round
+                    now += 1.0
+                    prefill_rounds += 1
+                now += float(steps)
+                decode_rounds += steps
+                sched.advance(steps)
+                sched.retire_done(now)
+            elif i < len(trace):
+                now = max(now, trace[i].arrival)  # idle: jump to next arrival
+            else:
+                break
+        return self._report(sched, metrics, telemetry, emitted, stats, now=now, t0=t0,
+                            decode_rounds=decode_rounds, prefill_rounds=prefill_rounds,
+                            kv_bytes=kv_bytes)
+
+    def _serve_paged(self, trace, *, slots, prompt_cap, decode_block, queue_cap,
+                     admission_threshold, telemetry, seed, block_len, num_blocks,
+                     prefill_chunk) -> ServeReport:
+        """The paged-KV loop behind ``serve(paged=True)``.
+
+        Each round runs one prefill chunk for every slot still mid-prompt
+        and then the decode chunk; physical KV lives in a shared
+        ``BlockPool``, reserved in full at admission.
+        """
         cfg, dev = self.cfg, self.device
         chunk = int(prefill_chunk if prefill_chunk is not None
                     else cfg.prefill_chunk if cfg.prefill_chunk is not None
@@ -282,14 +521,11 @@ class Server:
             slots, queue_cap=queue_cap, admission_threshold=admission_threshold,
             telemetry=telemetry, pool=pool, chunk=chunk, metrics=metrics,
         )
-        generator = torch.Generator(device=dev).manual_seed(seed)
-        vp = padded_vocab(self.model.config.vocab_size)
-        logits = torch.zeros((slots, vp), dtype=torch.float32, device=dev)
-        pos = torch.zeros((slots,), dtype=torch.int32, device=dev)
-        stats = torch.zeros((2,), dtype=torch.int64, device=dev)  # ok, erased
+        logits, pos, stats, generator = self._loop_state(slots, seed)
         # host mirror of the block tables, width = pool size
         table_np = np.full((slots, nb), -1, np.int32)
         emitted = []  # (per-step token tensors, [(slot, rid)]) per dispatch
+        to_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
 
         now, i = 0.0, 0
         prefill_rounds = decode_rounds = 0
@@ -335,14 +571,13 @@ class Server:
                     for si, s in enumerate(sched.slots) if active[si]
                 ))
             if prefilling or steps > 0:
-                to_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
                 step_chunk = (
                     (to_dev(chunk_np), to_dev(start_np), to_dev(lens_np), to_dev(fin_np))
                     if prefilling else None
                 )
                 owners = [(si, s.request.rid) for si, s in enumerate(sched.slots)
                           if active[si]]
-                cache, logits, pos, toks = self._serve_step(
+                cache, logits, pos, toks = self._serve_step_paged(
                     cache, logits, pos, step_chunk, to_dev(table_np),
                     to_dev(np.asarray(active)), generator, stats, steps=steps,
                 )
@@ -363,27 +598,6 @@ class Server:
                 now = max(now, trace[i].arrival)  # idle: jump to next arrival
             else:
                 break
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-        streams: dict[int, list[int]] = {}
-        for toks, owners in emitted:
-            arr = torch.stack(toks).cpu().numpy()  # (steps, S)
-            for si, rid in owners:
-                streams.setdefault(rid, []).extend(int(t) for t in arr[:, si])
-        ok, erased = (int(v) for v in stats.cpu())
-        metrics.emit(telemetry, phase="serve", rounds=float(now))
-        return ServeReport(
-            finished=tuple(sched.finished),
-            tokens=sum(f.tokens for f in sched.finished if f.outcome == "done"),
-            rounds=now,
-            decode_rounds=decode_rounds,
-            prefill_rounds=prefill_rounds,
-            admitted=sched.admitted,
-            shed=sched.shed,
-            wall_s=wall,
-            streams={rid: tuple(v) for rid, v in streams.items()},
-            decode_ok=ok,
-            erased_rounds=erased,
-            kv_bytes=kv_bytes,
-        )
+        return self._report(sched, metrics, telemetry, emitted, stats, now=now, t0=t0,
+                            decode_rounds=decode_rounds, prefill_rounds=prefill_rounds,
+                            kv_bytes=kv_bytes)

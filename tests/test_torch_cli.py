@@ -1,0 +1,60 @@
+"""The port's serving CLI (``repro_torch.launch.serve``) on the CPU.
+
+Reduced qwen3-0.6b with ``--device cpu``: the coded generate under three
+schemes prints the reference's coded-head line (scheme tag, (n, k),
+loads, deadline) and the ``generated ... tok/s`` line, and returns
+(batch, prompt + max_new) tokens below the vocab; ``--trace`` serves a
+workload on the paged pool and on dense caches. Without ``--device`` the
+CLI runs on CUDA, and raises where there is none
+(``tests/test_torch_plan.py``).
+"""
+import re
+
+import pytest
+import torch
+
+from repro_torch.launch import serve as launch_serve
+
+# one intra-op thread: the suite runs test files in parallel worker
+# processes, beside the reference's wall-clock tests
+torch.set_num_threads(1)
+
+BASE = ["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu", "--batch", "2",
+        "--prompt-len", "5", "--max-new", "3"]
+HEAD = re.compile(r"coded LM head \[(\w+)\]: kb=(\d+) blocks x 256 rows, "
+                  r"\(n,k\)=\((\d+),(\d+)\) rate=[\d.]+, loads/worker=\[[\d, ]+\], "
+                  r"deadline=[\d.]+")
+
+
+@pytest.mark.parametrize("flags,tag", [
+    ([], "optimal"),
+    (["--scheme", "uniform_r", "--scheme-r", "5"], "uniform_r_group_code"),
+    (["--scheme", "comm_aware", "--groups", "6:2.0:4.0,6:0.5:1.0",
+      "--comm-upload", "0.01", "--comm-download", "0.001"], "comm_aware"),
+])
+def test_cli_coded_generate_prints_the_coded_head(capsys, flags, tag):
+    out = launch_serve.main(BASE + ["--coded"] + flags)
+    text = capsys.readouterr().out
+    head = HEAD.search(text)
+    assert head is not None and head[1] == tag, text
+    assert int(head[3]) >= int(head[4]) == 2  # kb = 512 / 256; n >= k
+    assert re.search(r"generated \(2, 8\) in [\d.]+s \([\d.]+ tok/s\)", text), text
+    assert out.shape == (2, 8) and int(out.max()) < 512
+
+
+@pytest.mark.parametrize("dense", [False, True])
+def test_cli_trace_serves_every_request(capsys, dense):
+    rep = launch_serve.main(BASE + ["--coded", "--trace", "poisson", "--num-requests",
+                                    "3", "--slots", "2"] + (["--dense-kv"] if dense else []))
+    text = capsys.readouterr().out
+    assert "served 3 (0 shed)" in text, text
+    assert rep.tokens == sum(len(s) for s in rep.streams.values()) > 0
+
+
+def test_cli_refuses_flags_of_modules_not_ported(capsys):
+    for flag in (["--scenario", "churn"], ["--bucket-quantum", "4"], ["--use-kernel"],
+                 ["--slots", "auto"]):
+        with pytest.raises(SystemExit):
+            launch_serve.main(BASE + flag)
+    with pytest.raises(SystemExit):  # not a registered scheme
+        launch_serve.main(BASE + ["--scheme", "nope"])

@@ -260,6 +260,33 @@ def test_paged_decode_unaligned_pool(dev):
     assert _decode_close(got, want, torch.bfloat16)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [120, 72])
+def test_paged_decode_head_dims_off_32(dev, dtype, hd):
+    """head_dim 120 (h2o-danube-3-4b: KV 8, G 4) and 72: whole 16-byte
+    vectors that do not fill a power-of-two team, so the tail lanes idle.
+    Serve-like widths: 16-token blocks, a hole, a slot with no entry, NaN
+    in the sink; a second launch bit-identical."""
+    gen = torch.Generator(device=dev).manual_seed(hd)
+    s, kv, g, bl, nblk = 4, 8, 4, 16, 20
+    k_pool = torch.randn((nblk + 1, bl, kv, hd), generator=gen, device=dev).to(dtype)
+    v_pool = torch.randn((nblk + 1, bl, kv, hd), generator=gen, device=dev).to(dtype)
+    k_pool[nblk] = float("nan")
+    v_pool[nblk] = float("nan")
+    q = torch.randn((s, kv, g, hd), generator=gen, device=dev).to(dtype)
+    table = torch.full((s, nblk), -1, dtype=torch.int32, device=dev)
+    perm = torch.randperm(nblk, generator=gen, device=dev).to(torch.int32)
+    table[0, :8], table[1, :3], table[2, :1] = perm[:8], perm[8:11], perm[11:12]
+    table[0, 3] = -1
+    pos = torch.tensor([8 * bl - 1, 2 * bl + 5, 0, 7], dtype=torch.int32, device=dev)
+    got = pa.paged_decode_attend(q, k_pool, v_pool, table, pos)
+    want = pa.paged_decode_attend_plain(q, k_pool, v_pool, table, pos)
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[3] == 0).all())
+    assert _decode_close(got, want, dtype)
+    assert torch.equal(got, pa.paged_decode_attend(q, k_pool, v_pool, table, pos))
+
+
 def test_paged_decode_refusals(dev):
     q = torch.randn((1, 1, 9, 32), device=dev)  # G = 9 > MAX_G
     pool = torch.randn((2, 4, 1, 32), device=dev)
@@ -269,6 +296,11 @@ def test_paged_decode_refusals(dev):
         pa.paged_decode_attend(q, pool, pool, table, pos)
     with pytest.raises(TypeError, match="int32"):
         pa.paged_decode_attend(q[:, :, :2], pool, pool, table.long(), pos)
+    # head_dim not a whole number of 16-byte vectors: 12 bf16 (24 bytes)
+    qb = torch.randn((1, 1, 2, 12), device=dev).to(torch.bfloat16)
+    pb = torch.randn((2, 4, 1, 12), device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.paged_decode_attend(qb, pb, pb, table, pos)
 
 
 def _ce_case(dev, dtype, t, v, d, seed):
@@ -300,6 +332,12 @@ _CE_CASES = [
     (torch.bfloat16, 200, 1000, 1024, 256),
     (torch.bfloat16, 200, 1000, 128, 256),
     (torch.bfloat16, 300, 5000, 128, 1024),
+    # bf16 above the f32 kernels' 1024: granite-3-2b, h2o-danube-3-4b and
+    # yi-9b widths (the tensor-core K loop and the f32 (T, D) dH sum across
+    # several vocab chunks; a ragged last vocab tile)
+    (torch.bfloat16, 300, 1000, 2048, 256),
+    (torch.bfloat16, 256, 3000, 3840, None),
+    (torch.bfloat16, 257, 2000, 4096, 512),
 ]
 
 
@@ -405,6 +443,20 @@ def test_fused_ce_argmax_first_index_on_ties(dev):
     _, ll, am = ce.fused_ce(h, e, labels)
     assert bool((am == 0).all())
     assert bool(torch.allclose(ll, h.sum(1), rtol=1e-5, atol=1e-5))
+
+
+def test_fused_ce_f32_refuses_widths_past_its_limit(dev):
+    """f32 (the parity dtype) keeps the SIMT kernels' limit, D <= 1024, and
+    says so; bf16 runs just past it (D = 1032, a multiple of 8)."""
+    h, e, labels = _ce_case(dev, torch.float32, 16, 64, 1028, 0)
+    with pytest.raises(ValueError, match="at most 1024"):
+        ce.fused_ce(h, e, labels)
+    hb, eb, lb = _ce_case(dev, torch.bfloat16, 16, 64, 1032, 0)
+    lse, ll, _ = ce.fused_ce(hb, eb, lb)
+    lse_p, ll_p, _ = ce.fused_ce_plain(hb, eb, lb)
+    tol_logit, tol_lse = _ce_tolerances(hb, eb)
+    assert (lse - lse_p).abs().max().item() <= tol_lse + 2.0**-23 * lse_p.abs().max().item()
+    assert (ll - ll_p).abs().max().item() <= tol_logit
 
 
 def test_fused_ce_refusals(dev):

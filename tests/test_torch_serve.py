@@ -1,5 +1,5 @@
 """Port parity, serving: the coded LM head, the slot scheduler and
-``Server.serve(paged=True)`` on reduced qwen3-0.6b.
+``Server.serve`` (paged and dense) on reduced qwen3-0.6b.
 
 * the head, with the reference's generator and finish masks injected as
   numpy, against ``CodedLMHead`` of the reference (float32 block mix and
@@ -9,7 +9,8 @@
   deadline): the same token streams and the same event sequence as the
   reference;
 * in the port alone, with erasures: the coded serve emits the tokens of
-  the uncoded serve.
+  the uncoded serve;
+* the port's dense and paged serves of one trace: the same streams.
 """
 import dataclasses
 
@@ -181,7 +182,8 @@ def _ref_serve(ref, params, trace, monkeypatch, **kw):
     server = RefServer(ref, params, RefCluster.make(*FLEET),
                        RefServeConfig(block_rows=64, deadline_safety=50.0))
     toks, owners = [], []
-    step_fn = server._serve_step_paged_fn
+    attr = "_serve_step_paged_fn" if kw["paged"] else "_serve_step_fn"
+    step_fn = getattr(server, attr)
 
     def recording_step(*args, steps):
         out = step_fn(*args, steps=steps)
@@ -196,7 +198,7 @@ def _ref_serve(ref, params, trace, monkeypatch, **kw):
             super().advance(emitted, now)
 
     monkeypatch.setattr(ref_sched_mod, "SlotScheduler", RecordingScheduler)
-    server._serve_step_paged_fn = recording_step
+    setattr(server, attr, recording_step)
     sink = _Sink()
     rep = server.serve(trace, telemetry=sink, key=KEY, **kw)
     streams = {}
@@ -207,17 +209,29 @@ def _ref_serve(ref, params, trace, monkeypatch, **kw):
 
 
 def test_serve_matches_reference_when_every_worker_finishes(models, monkeypatch):
+    """The paged serve (chunked prefill)."""
+    _check_serve_against_reference(models, monkeypatch, paged=True)
+
+
+def test_dense_serve_matches_reference_when_every_worker_finishes(models, monkeypatch):
+    """The dense serve (admit splice into per-slot caches)."""
+    _check_serve_against_reference(models, monkeypatch, paged=False)
+
+
+def _check_serve_against_reference(models, monkeypatch, *, paged):
     ref, params, ours = models
     trace_kw = dict(num_requests=5, prompt_len=(4, 20), out_len=(2, 5), vocab=512)
-    serve_kw = dict(slots=2, decode_block=2, prefill_chunk=8)
+    serve_kw = dict(slots=2, decode_block=2)
+    if paged:
+        serve_kw["prefill_chunk"] = 8
     ref_rep, ref_streams, ref_sink = _ref_serve(
         ref, params, ref_wl.make_workload("poisson", **trace_kw).trace(seed=0),
-        monkeypatch, paged=True, **serve_kw)
+        monkeypatch, paged=paged, **serve_kw)
     server = Server(ours, ClusterSpec.make(*FLEET),
                     ServeConfig(block_rows=64, deadline_safety=50.0))
     sink = _Sink()
     rep = server.serve(wl.make_workload("poisson", **trace_kw).trace(seed=0),
-                       telemetry=sink, **serve_kw)
+                       telemetry=sink, paged=paged, **serve_kw)
     assert rep.streams == ref_streams
     for f in ("tokens", "rounds", "decode_rounds", "prefill_rounds", "admitted", "shed"):
         assert getattr(rep, f) == getattr(ref_rep, f), f
@@ -248,10 +262,38 @@ def test_coded_serve_emits_uncoded_tokens_through_erasures(models):
 
 
 def test_serve_rejects_what_the_port_does_not_serve(models):
+    """A dense slot cache cannot hold a prompt past ``prompt_cap`` (the
+    paged pool prefills it in chunks instead); an empty trace; a family
+    other than dense."""
     _, _, ours = models
     server = Server(ours)
-    trace = wl.make_workload("poisson", num_requests=1, vocab=512).trace(seed=0)
-    with pytest.raises(TypeError, match="paged"):  # no dense serve in the port
-        server.serve(trace, paged=False)
+    trace = wl.make_workload("poisson", num_requests=2, prompt_len=12,
+                             vocab=512).trace(seed=0)
+    with pytest.raises(ValueError, match="prompt_cap"):
+        server.serve(trace, paged=False, prompt_cap=8)
+    assert server.serve(trace, paged=True, prompt_cap=8, slots=1).tokens == sum(
+        r.out_len for r in trace)
     with pytest.raises(ValueError, match="non-empty"):
         server.serve([])
+    with pytest.raises(NotImplementedError, match="dense"):
+        Model(dataclasses.replace(ARCHS["qwen3-0.6b"].reduced(), family="moe"),
+              device="cpu")
+
+
+def test_dense_and_paged_serves_give_equal_streams(models):
+    """One trace, erasures included (the same finish-mask seed): the dense
+    slot cache and the paged pool emit the same streams and rounds."""
+    _, _, ours = models
+    trace = wl.make_workload("poisson", num_requests=6, prompt_len=(4, 20),
+                             out_len=(2, 6), vocab=512).trace(seed=4)
+    server = Server(ours, ClusterSpec.make(*FLEET),
+                    ServeConfig(block_rows=64, deadline_safety=1.2))
+    kw = dict(slots=2, decode_block=3, seed=2)
+    dense = server.serve(trace, paged=False, **kw)
+    paged = server.serve(trace, paged=True, **kw)
+    assert dense.streams == paged.streams
+    for f in ("tokens", "rounds", "decode_rounds", "prefill_rounds", "decode_ok",
+              "erased_rounds"):
+        assert getattr(dense, f) == getattr(paged, f), f
+    assert dense.tokens == sum(r.out_len for r in trace)
+    assert dense.erased_rounds > 0
