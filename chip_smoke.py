@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one H100: build, check and time its kernels,
-serve full-width qwen3-0.6b through the coded server (paged and dense),
-generate with it under every baseline allocation scheme, run the serving
-CLI, then train it with gradient coding.
+run the paper's coded matvec at full width, serve full-width qwen3-0.6b
+through the coded server (paged and dense), generate with it under every
+baseline allocation scheme and under a drifting fleet with closed-loop
+replanning, run the serving CLI, then train it with gradient coding.
 
 Run from the repository root with no arguments:
 
@@ -24,23 +25,40 @@ Phases (any failure raises, and the script exits non-zero):
    bit-identical, their launch plans, registers and blocks in flight are
    printed, B2 is held once more at head_dim 120 (h2o-danube-3-4b's), and
    timed over 28 pools in turn with the L2 flushed before each call;
-3. serve    — launch counters reset, then ``Server`` + ``serve`` of a
+3. matvec   — Path M, the paper's coded matvec: counters reset, then
+   ``end_to_end_coded_matvec`` of a seeded A (20,000 x 4,096) and x on the
+   quickstart's 200-worker fleet (B3 encode, B1's narrow branch over the
+   workers as a batch, the erasure decode), the finish mask at the plan's
+   deadline with two slowest-group workers forced out; counters read
+   after; the result held against A x in float64 within its error model,
+   an insufficient mask flagged; B1's narrow branch and B3 at these shapes
+   held against their plain versions and timed (B1 beside ``torch.mv``);
+4. serve    — launch counters reset, then ``Server`` + ``serve`` of a
    seeded 8-request trace on full-width qwen3-0.6b (random seeded
    weights) with the coded LM head on a 12-worker cluster; counters read
    right after; then a few coded rounds on real logits held against the
    uncoded logits;
-4. serve-dense — the same trace through ``serve(paged=False)`` (dense
+5. serve-dense — the same trace through ``serve(paged=False)`` (dense
    per-slot caches, no B2), counters reset before and read after; the
    first-round logits of the dense and the paged prefill held together;
-5. generate — ``Server.generate`` of 4 x 128-token prompts: uncoded (16
-   new tokens), coded under ``optimal`` (16), then under ``uniform_r``,
+6. generate — ``Server.generate`` of 4 x 128-token prompts: uncoded (8
+   new tokens), coded under ``optimal`` (8), then under ``uniform_r``,
    ``uniform_r_group_code``, ``reisizadeh``, ``uncoded``, ``comm_aware``
-   and ``comm_uniform`` (8 each; the comm pair behind finite links),
+   and ``comm_uniform`` (4 each; the comm pair behind finite links),
    counters reset before each and read after; every coded run's tokens
    held against the uncoded run's where the margin is clear;
-6. cli      — ``python -m repro_torch.launch.serve --coded --scheme
-   uniform_r`` as a subprocess: exit 0 and its coded-head line;
-7. train    — launch counters reset, then ``Trainer.run`` of 6 gradient-
+7. adapt    — Path R, closed-loop replanning: for ``mu_step`` and
+   ``churn`` (12 rounds, trace seed 0), counters reset, then one coded
+   ``generate`` a round (4 x 16-token prompts, 4 new) under the
+   scenario's true fleet with an ``AdaptiveController`` replanning the
+   head (every 2 rounds, threshold 0.05); counters read after; each
+   replan's B3 re-encode held against its plain version, tokens against
+   the uncoded ones, ``churn``'s membership replans at rounds 3 and 9;
+8. cli      — ``python -m repro_torch.launch.serve --coded`` as two
+   subprocesses started together: ``--scheme uniform_r`` (exit 0, its
+   coded-head line) and ``--scenario churn --adapt-every 2 --rounds 12``
+   (exit 0, its replan lines and the controller line);
+9. train    — launch counters reset, then ``Trainer.run`` of 4 gradient-
    coded steps of full-width qwen3-0.6b (seeded init, batch 16 x 512) on
    the same fleet; counters read right after; then one more steady step
    under ``torch.profiler`` (device time by kernel); then a decodable round
@@ -49,7 +67,8 @@ Phases (any failure raises, and the script exits non-zero):
    optimizer state bit-unchanged.
 
 The last three stdout lines are the card (``nvidia-smi``), the kernels
-JSON and ``{"ok": true, "device": {...}}``.
+JSON (each kernel's launches on every path beside its main path's, and
+B1 and B3 also at Path M's shapes) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -71,7 +90,7 @@ HBM_BYTES_PER_S = 3.35e12
 
 CLUSTER = ([6, 6], [8.0, 0.7])  # the serve benchmark's fleet
 SLOTS, BLOCK_LEN, CHUNK, DECODE_BLOCK, SAFETY = 4, 16, 64, 4, 1.2
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, PARTITIONS = 16, 512, 6, 16
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, PARTITIONS = 16, 512, 4, 16
 U32 = 2.0**-24  # float32 unit roundoff
 
 
@@ -565,6 +584,166 @@ def fused_ce_phase(t: int = TRAIN_BATCH * TRAIN_SEQ, v: int = 151_936,
     return rows
 
 
+#: Path M: the quickstart's fleet and k (examples/quickstart.py:26-29), at
+#: the widest dense config's width (yi-9b, d 4096)
+MATVEC_FLEET, MATVEC_K, MATVEC_D = ([40, 60, 100], [8.0, 2.0, 0.5]), 20_000, 4_096
+
+
+def power_norm2(m, iters: int = 30) -> float:
+    """||M||_2 of a float64 matrix by power iteration on M^T M."""
+    import torch
+
+    v = torch.ones(m.shape[1], dtype=m.dtype, device=m.device)
+    v /= v.norm()
+    for _ in range(iters):
+        w = m.T @ (m @ v)
+        v = w / w.norm()
+    return float((m @ v).norm())
+
+
+def matvec_phase(device: str = "cuda") -> dict:
+    """The paper's coded matvec at full width: ``end_to_end_coded_matvec``
+    of A (20,000 x 4,096) and x on the quickstart's 200-worker fleet, the
+    finish mask drawn at the plan's deadline with two slowest-group workers
+    forced out; counters reset before and read after. The decode is held
+    against A x in float64 within the error model, an insufficient mask
+    must flag; then B1's narrow branch and B3 at this path's shapes are
+    checked against their plain versions and timed. Returns the path's
+    launch counts and the two kernels' rows."""
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.core.coded_matvec import (
+        DecodePipeline,
+        coded_matvec,
+        end_to_end_coded_matvec,
+        masked_decode,
+        pack_coded_matrix,
+    )
+    from repro_torch.core.coding import make_generator
+    from repro_torch.core.runtime_model import ClusterSpec
+    from repro_torch.kernels.coded_matvec import ops as cmv
+    from repro_torch.kernels.mds_encode import ops as mds
+    from repro_torch.runtime.executor import CodedRoundExecutor
+
+    dev, k, d = torch.device(device), MATVEC_K, MATVEC_D
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    exe = CodedRoundExecutor(ClusterSpec.make(*MATVEC_FLEET, 1.0), k, "optimal", device=dev)
+    plan = exe.plan
+    w, ml = plan.num_workers, plan.max_load
+    print(f"[matvec] plan: k {k}, n {plan.n}, {w} workers, loads "
+          f"{sorted(set(plan.loads_per_worker.tolist()), reverse=True)}, max_load {ml}, "
+          f"deadline {exe.deadline:.6f} (3 T*); A {k} x {d} f32")
+    check((plan.n, w, ml) == (26_980, 200, 203), "the quickstart plan: n 26,980, 200 workers")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    a = torch.randn((k, d), generator=gen, device=dev)
+    x = torch.randn(d, generator=gen, device=dev)
+    mask = exe.finish_mask(torch.Generator(device=dev).manual_seed(5))
+    mask[-2:] = False  # two slowest-group workers miss the deadline
+
+    kernels.reset_launch_counts()
+    sync()
+    t = time.perf_counter()
+    z, ok = end_to_end_coded_matvec(a, x, plan, mask, seed=0, device=dev)
+    sync()
+    wall = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    alive = exe.slot_mask(mask)
+    print(f"[matvec] end_to_end_coded_matvec: wall {wall:.3f} s (generator, B3 encode, "
+          f"pack, B1 products, decode); {int((~mask).sum())} workers erased, "
+          f"{int((~alive).sum())} coded rows, {int((~alive[:k]).sum())} systematic; "
+          f"ok {bool(ok)}; launches {counts}")
+    check(bool(ok) and tuple(z.shape) == (k,) and bool(torch.isfinite(z).all()),
+          "the coded matvec decodes a finite (k,) result")
+    check(counts["mds_encode"] == 1 and counts["coded_matvec"] == 1
+          and counts["paged_decode"] == 0, "Path M: one B3 and one B1 launch")
+
+    # error model (written down before the first run): the float32 products
+    # and LU solve, against A x in float64, in the 2-norm:
+    #   ||z - A x||_2 <= cond_2(G_S) u sqrt(k) ||A x||_2
+    # cond_2 from the float64 G_S and its float64 inverse (power iteration),
+    # u = 2^-24, sqrt(k) the random-walk growth of a k-term float32 sum
+    g = make_generator(plan.n, k, seed=0, device=dev)
+    order = torch.argsort((~alive).to(torch.int8), stable=True)[:k]
+    g_s = g[order].double()
+    inv = torch.linalg.inv(g_s)
+    cond2 = power_norm2(g_s) * power_norm2(inv)
+    cond_inf = float(g_s.abs().sum(1).max() * inv.abs().sum(1).max())
+    del g_s, inv
+    want = a.double() @ x.double()
+    err2, err_inf = float((z.double() - want).norm()), float((z.double() - want).abs().max())
+    tol = cond2 * U32 * math.sqrt(k) * float(want.norm())
+    print(f"[matvec] ||z - A x||_2 {err2:.3e} <= tol {tol:.3e} (cond_2(G_S) u sqrt(k) "
+          f"||A x||_2; cond_2 {cond2:.3e}, tol / ||A x||_2 {tol / float(want.norm()):.2e}); "
+          f"max|z - A x| {err_inf:.3e} of max|A x| {float(want.abs().max()):.3e}; "
+          f"cond_inf(G_S) {cond_inf:.3e}")
+    check(err2 <= tol, "the decoded A x within its error model")
+
+    # the pieces: pack once more (B3), the insufficient case, and the times
+    packed, row_of = pack_coded_matrix(g, a, plan)
+    # only the slow group finishes: 9,800 rows < k
+    bad = torch.from_numpy(plan.group_of_worker == 2).to(dev)
+    zb, okb = DecodePipeline(g, row_of)(packed, x, bad)
+    print(f"[matvec] insufficient mask ({int(bad.sum())} workers, "
+          f"{int(exe.slot_mask(bad).sum())} rows < k): ok {bool(okb)}, "
+          f"all zeros {bool((zb == 0).all())}")
+    check(not bool(okb) and bool((zb == 0).all()), "fewer than k rows must flag and zero")
+    partials = coded_matvec(packed, x)
+    decode_ms = cuda_ms(lambda: masked_decode(g, row_of, partials, mask), 3, 1)
+
+    flat = packed.reshape(w * ml, d)
+    got, plain = cmv.blocked_matvec_batch(packed, x), cmv.blocked_matvec_plain(flat, x)
+    err, btol = float((got.reshape(-1) - plain).abs().max()), gemm_tolerance(flat, x[:, None])
+    same = torch.equal(cmv.blocked_matvec_batch(packed, x), got)
+    print(f"[matvec] coded_matvec narrow ({w * ml},{d})x({d},): max_abs_err {err:.3e} <= tol "
+          f"{btol:.3e} (2 K u max|A||x|); a second launch bit-identical: {same}; ptxas: "
+          f"{ptxas_facts(cmv.KERNEL.log, 'narrow_matvec_kernel', 'ILi1ELb1E')}")
+    check(err <= btol and same, "coded_matvec's narrow branch disagrees or is not deterministic")
+    narrow = dict(
+        shape=[w * ml, d, 1], err=err,
+        ms=cuda_ms(lambda: cmv.blocked_matvec_batch(packed, x), 50),
+        plain_ms=cuda_ms(lambda: cmv.blocked_matvec_plain(flat, x), 50),
+        library_ms=cuda_ms(lambda: torch.mv(flat, x), 50),
+        device_ms=device_ms(lambda: cmv.blocked_matvec_batch(packed, x), calls=20,
+                            match="narrow"),
+        library_device_ms=device_ms(lambda: torch.mv(flat, x), calls=20),
+        bound=bound_ms(4 * (w * ml * d + d + w * ml), 2 * w * ml * d, "float32"),
+    )
+    r = narrow
+    dm = r["device_ms"]
+    print(f"[matvec] coded_matvec narrow device time {fmt_ms(dm)}, torch.mv (cuBLAS GEMV) "
+          f"{fmt_ms(r['library_device_ms'])}, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})"
+          + ("" if dm is None else f": {r['bound'][0] / dm:.2f} of the bound, "
+             f"{4 * w * ml * d / dm / 1e6:.0f} GB/s")
+          + f"; host-paced means: kernel {r['ms']:.4f} ms, torch.mv {r['library_ms']:.4f} "
+          f"ms, plain {r['plain_ms']:.4f} ms")
+    del flat, got, plain, packed, partials
+
+    got, plain = mds.mds_encode(g, a), mds.mds_encode_plain(g, a)
+    err, etol = float((got - plain).abs().max()), gemm_tolerance(g, a)
+    del got, plain
+    print(f"[matvec] mds_encode ({plan.n},{k})x({k},{d}): max_abs_err {err:.3e} <= tol "
+          f"{etol:.3e} (2 K u max|G||A|)")
+    check(err <= etol, "mds_encode disagrees with its plain version at Path M's shape")
+    m, kk, n = plan.n, k, d
+    encode = dict(
+        shape=[m, kk, n], err=err, ms=cuda_ms(lambda: mds.mds_encode(g, a), 3, 1),
+        plain_ms=cuda_ms(lambda: mds.mds_encode_plain(g, a), 3, 1),
+        library_ms=cuda_ms(lambda: torch.matmul(g, a), 3, 1),
+        bound=bound_ms(4 * (m * kk + kk * n + m * n), 2 * m * n * kk, "float32"),
+    )
+    r = encode
+    print(f"[matvec] mds_encode: {r['ms']:.3f} ms ({2 * m * n * kk / r['ms'] / 1e9:.1f} "
+          f"TFLOP/s, {r['ms'] / r['bound'][0]:.2f}x bound, {r['ms'] / r['library_ms']:.2f}x "
+          f"cuBLAS), plain {r['plain_ms']:.3f} ms, cuBLAS SGEMM {r['library_ms']:.3f} ms, "
+          f"bound {r['bound'][0]:.3f} ms ({r['bound'][1]}); decode (library LU, one "
+          f"refinement) {decode_ms:.3f} ms")
+    del g, a
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return counts, {"narrow": narrow, "encode": encode}
+
+
 def make_model(cfg, device: str = "cuda"):
     """The seeded model every serving phase shares."""
     import torch
@@ -768,9 +947,55 @@ def serve_dense_phase(model, paged_rep) -> dict:
     return counts
 
 
+def round_cond(head, ok, mask) -> float:
+    """cond(G_S) of the generator rows a coded round decoded from; 0 for a
+    failed round (it returns the plain logits)."""
+    import torch
+
+    if not bool(ok):
+        return 0.0
+    alive = head.executor.slot_mask(mask)
+    order = torch.argsort((~alive).to(torch.int8), stable=True)[: head.kb]
+    return float(torch.linalg.cond(head.generator[order].double()))
+
+
+def held_tokens(name, new, plain_new, margins, scales, conds) -> tuple[int, int]:
+    """Coded tokens (B, T) against the uncoded ones, row by row up to the
+    first difference: a difference where the uncoded top-2 margin exceeds
+    2 cond(G_S) 2^-22 max|logits| (each of two logits may move by that)
+    fails. Returns (tokens equal before any difference, those checked)."""
+    covered = equal = 0
+    for r in range(new.shape[0]):
+        for t in range(new.shape[1]):
+            tol = conds[t] * 2.0**-22 * scales[t]
+            clear = float(margins[t][r]) > 2 * tol
+            if int(new[r, t]) != int(plain_new[r, t]):
+                check(not clear, f"{name}: token {t} of row {r} differs from the "
+                                 f"uncoded one with a clear margin")
+                break  # the contexts differ from here on
+            equal += 1
+            covered += clear
+    return equal, covered
+
+
+def uncoded_reference(model, prompts, max_new):
+    """The uncoded generate's tokens (after the prompt, on the host) and,
+    per step, each row's top-2 margin and max|logits|."""
+    from repro_torch.runtime.serve_loop import Server
+
+    v = model.config.vocab_size
+    logits = []
+    out = Server(model).generate(prompts, max_new, observe=lambda step, lg, sel, ok, mask:
+                                 logits.append(lg[:, :v].float()))
+    tops = [lg.topk(2, dim=1).values for lg in logits]
+    margins = [(m[:, 0] - m[:, 1]).cpu() for m in tops]
+    scales = [float(lg.abs().max()) for lg in logits]
+    return out, out[:, prompts.shape[1]:].cpu(), margins, scales
+
+
 #: the comm-delay schemes' fleet: the serve fleet behind finite links
 COMM_BANDWIDTHS, COMM_COSTS = [4.0, 1.0], {"upload": 0.05, "download": 0.05}
-GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_NEW_SCHEMES = 4, 128, 16, 8
+GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_NEW_SCHEMES = 4, 128, 8, 4
 
 
 def generate_phase(model, card: str) -> dict:
@@ -797,10 +1022,12 @@ def generate_phase(model, card: str) -> dict:
         sync()
         return out, time.perf_counter() - t
 
-    plain_logits = []
     kernels.reset_launch_counts()
-    plain, wall = run(Server(model), GEN_NEW, 0,
-                      lambda step, lg, sel, ok, mask: plain_logits.append(lg[:, :v].float()))
+    sync()
+    t = time.perf_counter()
+    plain, plain_new, margins, scales = uncoded_reference(model, prompts, GEN_NEW)
+    sync()
+    wall = time.perf_counter() - t
     counts = kernels.launch_counts()
     print(f"[generate] uncoded: batch {GEN_BATCH} x prompt {GEN_PROMPT}, {GEN_NEW} new: "
           f"wall {wall:.3f} s, {GEN_BATCH * GEN_NEW / wall:.1f} tokens/s ({card}); "
@@ -810,11 +1037,6 @@ def generate_phase(model, card: str) -> dict:
     check(counts["coded_matvec"] == 0 and counts["paged_decode"] == 0,
           "uncoded generate launches no head or paged kernel")
     check(torch.equal(plain[:, :GEN_PROMPT].cpu(), prompts), "the prompt heads the output")
-    # each step's top-2 margin of the uncoded logits (per row)
-    margins = [lg.topk(2, dim=1).values for lg in plain_logits]
-    margins = [(m[:, 0] - m[:, 1]).cpu() for m in margins]
-    scales = [float(lg.abs().max()) for lg in plain_logits]
-    plain_new = plain[:, GEN_PROMPT:].cpu()
 
     fleet = ClusterSpec.make(*CLUSTER)
     comm_fleet = ClusterSpec.make(*CLUSTER, 1.0, COMM_BANDWIDTHS)
@@ -838,24 +1060,9 @@ def generate_phase(model, card: str) -> dict:
         ok_n = sum(int(ok) for ok, _ in rounds)
         erased = sum(int(not bool(mask.all())) for _, mask in rounds)
         # per round: cond of the generator rows the decode used
-        conds = []
-        for ok, mask in rounds:
-            alive = head.executor.slot_mask(mask)
-            order = torch.argsort((~alive).to(torch.int8), stable=True)[: head.kb]
-            conds.append(float(torch.linalg.cond(head.generator[order].double()))
-                         if bool(ok) else 0.0)  # a failed round returns the plain logits
-        new = out[:, GEN_PROMPT:].cpu()
-        covered = equal = 0
-        for r in range(GEN_BATCH):
-            for t in range(max_new):
-                tol = conds[t] * 2.0**-22 * scales[t]
-                clear = float(margins[t][r]) > 2 * tol  # each logit may move by tol
-                if int(new[r, t]) != int(plain_new[r, t]):
-                    check(not clear, f"{name}: token {t} of row {r} differs from the "
-                                     f"uncoded one with a clear margin")
-                    break  # the contexts differ from here on
-                equal += 1
-                covered += clear
+        conds = [round_cond(head, ok, mask) for ok, mask in rounds]
+        equal, covered = held_tokens(name, out[:, GEN_PROMPT:].cpu(), plain_new, margins,
+                                     scales, conds)
         print(f"[generate] {name} [{head.plan.scheme}]: kb {head.kb}, nb {head.nb}, loads "
               f"{head.plan.loads_per_worker.tolist()}, deadline {head.deadline:.6f}")
         print(f"[generate] {name}: {max_new} new, wall {wall:.3f} s, "
@@ -876,28 +1083,152 @@ def generate_phase(model, card: str) -> dict:
     return optimal_counts
 
 
-def cli_phase() -> None:
-    """The serving CLI as a user runs it, in a process of its own."""
+#: Path R: the serve fleet under a drifting truth, the CLI's round
+ADAPT_SCENARIOS, ADAPT_ROUNDS, ADAPT_PROMPT, ADAPT_NEW = ("mu_step", "churn"), 12, 16, 4
+
+
+def adapt_phase(model, card: str) -> dict:
+    """Closed-loop replanning at full width: per scenario, ``Server.generate``
+    rounds (4 x 16-token prompts, 4 new, the CLI's defaults) with the coded
+    head under the scenario's true fleet, an ``AdaptiveController`` (every
+    2, threshold 0.05) observing each round and replanning; each replan
+    re-encodes the head through B3, held against ``mds_encode_plain``.
+    Counters reset before each scenario and read after. Returns the launch
+    counts by scenario."""
+    import torch
+    import torch.nn.functional as F
+
+    import repro_torch.kernels as kernels
+    from repro_torch.core.runtime_model import ClusterSpec
+    from repro_torch.kernels.mds_encode import ops as mds
+    from repro_torch.obs.trace import SpanTracer
+    from repro_torch.runtime.control import AdaptConfig, AdaptiveController
+    from repro_torch.runtime.serve_loop import ServeConfig, Server
+    from repro_torch.sim import make_scenario
+
+    v = model.config.vocab_size
+    sync = torch.cuda.synchronize if model.device.type == "cuda" else (lambda: None)
+    prompts = torch.randint(0, v, (4, ADAPT_PROMPT), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(1))
+    _, plain_new, margins, scales = uncoded_reference(model, prompts, ADAPT_NEW)
+    fleet = ClusterSpec.make(*CLUSTER)
+    out_counts = {}
+    for name in ADAPT_SCENARIOS:
+        trace = make_scenario(name, horizon=ADAPT_ROUNDS).trace(fleet, seed=0)
+        kernels.reset_launch_counts()
+        server = Server(model, fleet, ServeConfig(block_rows=256, scheme="optimal"))
+        head = server.coded_head
+        tracer = SpanTracer()
+        head.executor.tracer = tracer
+        replans = []
+
+        def on_replan():
+            sync()
+            t = time.perf_counter()
+            server.refresh_coded_head()
+            sync()
+            encode_s = time.perf_counter() - t
+            vp, dm = head.table.shape
+            blocks = F.pad(head.table, (0, 0, 0, head.kb * head.block_rows - vp))
+            blocks = blocks.reshape(head.kb, head.block_rows * dm)
+            got = head.coded.reshape(head.nb, -1)
+            err = float((got - mds.mds_encode_plain(head.generator, blocks)).abs().max())
+            replans.append(dict(encode_s=encode_s, err=err,
+                                tol=gemm_tolerance(head.generator, blocks),
+                                alloc_s=tracer.spans[-1].dur_s))
+
+        ctl = AdaptiveController(head.executor, AdaptConfig(every=2, threshold=0.05),
+                                 on_replan=on_replan)
+        observe = torch.Generator().manual_seed(7)
+        walls, oks, held, membership, replanned_at = [], 0, [0, 0], [], []
+        print(f"[adapt] {name}: kb {head.kb}, nb {head.nb}, deadline {head.deadline:.6f}, "
+              f"trace changes at rounds {list(trace.change_rounds())}")
+        for t in range(ADAPT_ROUNDS):
+            truth = trace.at(t)
+            server.set_true_cluster(truth)
+            rounds = []
+            sync()
+            t0 = time.perf_counter()
+            out = server.generate(prompts, ADAPT_NEW, seed=t, observe=lambda step, lg, sel, ok,
+                                  mask: rounds.append((ok, mask)))
+            sync()
+            walls.append(time.perf_counter() - t0)
+            oks += sum(int(ok) for ok, _ in rounds)
+            conds = [round_cond(head, ok, mask) for ok, mask in rounds]
+            eq, cov = held_tokens(f"{name} round {t}", out[:, ADAPT_PROMPT:].cpu(), plain_new,
+                                  margins, scales, conds)
+            held[0] += eq
+            held[1] += cov
+            d = ctl.observe_truth(observe, truth)
+            if d is None:
+                continue
+            line = (f"[adapt] {name} round {t}: decision {d.reason}, gain {d.gain:.4f}, "
+                    f"truth {[g.num_workers for g in truth.groups]} workers")
+            if d.replanned:
+                replanned_at.append(t)
+                rp = replans[-1]
+                line += (f"; replanned: n {head.nb}, workers {head.executor.num_workers}, "
+                         f"loads {head.plan.loads_per_worker.tolist()}, deadline "
+                         f"{head.deadline:.6f}; allocation {1e3 * rp['alloc_s']:.2f} ms, B3 "
+                         f"re-encode {1e3 * rp['encode_s']:.2f} ms, max_abs_err vs plain "
+                         f"{rp['err']:.3e} <= tol {rp['tol']:.3e}")
+                check(rp["err"] <= rp["tol"], f"{name}: a B3 re-encode disagrees with plain")
+                if d.reason == "membership":
+                    membership.append((t, head.executor.num_workers))
+            print(line)
+        counts = kernels.launch_counts()
+        out_counts[name] = counts
+        n_rep = len(replanned_at)
+        print(f"[adapt] {name}: {ADAPT_ROUNDS} rounds, walls {min(walls):.3f}-{max(walls):.3f} "
+              f"s (mean {sum(walls) / len(walls):.3f} s, {ADAPT_NEW} tokens a round, {card}); "
+              f"decode ok {oks}/{ADAPT_ROUNDS * ADAPT_NEW}; {n_rep} replans, after rounds "
+              f"{replanned_at}; {held[0]} tokens equal "
+              f"the uncoded run's before any difference, {held[1]} checked; launches {counts}")
+        check(counts["mds_encode"] == 1 + n_rep, f"{name}: mds_encode == 1 + replans")
+        check(counts["coded_matvec"] == ADAPT_ROUNDS * ADAPT_NEW,
+              f"{name}: coded_matvec == rounds x tokens")
+        check(counts["paged_decode"] == 0, f"{name}: paged_decode never launched")
+        check(len(replans) == n_rep, f"{name}: every replan re-encoded the head")
+        if name == "churn":
+            check(membership == [(3, 9), (9, 12)],
+                  f"churn: membership replans at rounds 3 (9 workers) and 9 (12), got "
+                  f"{membership}")
+        del server, head, ctl
+    return out_counts
+
+
+def cli_phase(runs: list[tuple[list[str], list[str]]]) -> None:
+    """The serving CLI as a user runs it, each run ``(flags, expect)`` in a
+    process of its own, all started together (most of a run is the
+    process's start): exit 0 and a line starting with each of ``expect``."""
     import os
 
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen3-0.6b",
-           "--coded", "--scheme", "uniform_r", "--scheme-r", "10", "--max-new", "4"]
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     t = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
-                          timeout=600)
-    lines = proc.stdout.strip().splitlines()
-    print(f"[cli] {' '.join(cmd[1:])}: exit {proc.returncode} in "
-          f"{time.perf_counter() - t:.1f} s")
-    for line in lines:
-        print(f"[cli]   {line}")
-    if proc.returncode != 0:
-        print(proc.stderr[-4000:], file=sys.stderr)
-    check(proc.returncode == 0, "the serving CLI exits 0")
-    check(any(line.startswith("coded LM head [uniform_r_group_code]: kb=594")
-              for line in lines), "the CLI prints its coded-head line")
-    check(any(line.startswith("generated (4, 20)") for line in lines),
-          "the CLI prints its generated line")
+    procs = []
+    for flags, expect in runs:
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen3-0.6b",
+               "--coded", *flags]
+        procs.append((cmd, expect, subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                                    stdout=subprocess.PIPE,
+                                                    stderr=subprocess.PIPE)))
+    for cmd, expect, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for _, _, p in procs:
+                p.kill()
+            raise
+        lines = out.strip().splitlines()
+        print(f"[cli] {' '.join(cmd[1:])}: exit {proc.returncode}, done "
+              f"{time.perf_counter() - t:.1f} s after the {len(runs)} runs started")
+        for line in lines:
+            print(f"[cli]   {line}")
+        if proc.returncode != 0:
+            print(err[-4000:], file=sys.stderr)
+        check(proc.returncode == 0, "the serving CLI exits 0")
+        for head in expect:
+            check(any(line.startswith(head) for line in lines), f"the CLI prints {head!r}")
 
 
 def profile_step(trainer, opt_state, top: int = 16):
@@ -1068,23 +1399,47 @@ def main() -> int:
     set_full_fp32()
     card = card_line()
     print(f"[setup] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t_setup = time.perf_counter()
     setup()
     kb = -(-151_936 // 256)
     plan = deploy(make_scheme("optimal"), ClusterSpec.make(*CLUSTER), kb)
     rows = kernel_phase(plan.n, kb)
     rows.update(fused_ce_phase())
     torch.cuda.empty_cache()
+    paths = {}  # path -> launch counts, each reset just before it and read after
+    clock = [t_setup]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] {name}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
+    lap("set-up and kernels")
+    paths["matvec"], path_m = matvec_phase()
+    lap("matvec")
     model = make_model(get_arch("qwen3-0.6b"))
-    counts, paged_rep = serve_phase(model)
-    serve_dense_phase(model, paged_rep)
-    generate_phase(model, card)
+    paths["serve"], paged_rep = serve_phase(model)
+    lap("serve")
+    paths["serve_dense"] = serve_dense_phase(model, paged_rep)
+    lap("serve-dense")
+    paths["generate"] = generate_phase(model, card)
+    lap("generate")
+    for name, c in adapt_phase(model, card).items():
+        paths[f"adapt_{name}"] = c
+    lap("adapt")
     del model
     torch.cuda.empty_cache()
-    cli_phase()
-    train_counts = train_phase(get_arch("qwen3-0.6b"))
-    for name in rows:
-        if name.startswith("fused_ce"):
-            counts[name] = train_counts[name]
+    cli_phase([
+        (["--scheme", "uniform_r", "--scheme-r", "10", "--max-new", "4"],
+         ["coded LM head [uniform_r_group_code]: kb=594", "generated (4, 20)"]),
+        (["--scenario", "churn", "--adapt-every", "2", "--rounds", "12", "--max-new", "4"],
+         ["coded LM head [optimal]: kb=594", "[round 3] replanned (membership)",
+          "[round 9] replanned (membership)", "scenario 'churn': 12 rounds",
+          "controller: 6 decisions"]),
+    ])
+    lap("cli")
+    paths["train"] = train_phase(get_arch("qwen3-0.6b"))
+    lap("train")
 
     import repro_torch.kernels as kernels
 
@@ -1095,23 +1450,26 @@ def main() -> int:
         **dict.fromkeys(("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_de"),
                         "src/repro/kernels/fused_ce/kernel.py:77"),
     }
-    line = {"kernels": [
-        {
-            "name": k.name, "route": "cuda",
-            "source": str(k.source.relative_to(ROOT)),
-            "replaces": replaces[k.name],
-            "launches": counts[k.name],
-            "max_abs_err": rows[k.name]["err"],
-            "ms": rows[k.name]["ms"],
-            "plain_ms": rows[k.name]["plain_ms"],
-            "bound_ms": rows[k.name]["bound"][0],
-            "bound_by": rows[k.name]["bound"][1],
-            "library_ms": rows[k.name]["library_ms"],
-            "device_ms": rows[k.name].get("device_ms"),
-            "library_device_ms": rows[k.name].get("library_device_ms"),
-        }
-        for k in kernels.KERNELS
-    ]}
+
+    def timing(r: dict) -> dict:
+        return {"max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": r["library_ms"], "device_ms": r.get("device_ms"),
+                "library_device_ms": r.get("library_device_ms")}
+
+    # each kernel's main-path launches: serving (B1-B3) or training (B4);
+    # every path's beside them; B1 and B3 also at Path M's shapes
+    line = {"kernels": []}
+    for k in kernels.KERNELS:
+        main_path = "train" if k.name.startswith("fused_ce") else "serve"
+        entry = {"name": k.name, "route": "cuda", "source": str(k.source.relative_to(ROOT)),
+                 "replaces": replaces[k.name], "launches": paths[main_path][k.name],
+                 **timing(rows[k.name]),
+                 "launches_by_path": {p: c[k.name] for p, c in paths.items()}}
+        extra = {"coded_matvec": "narrow", "mds_encode": "encode"}.get(k.name)
+        if extra is not None:
+            entry["path_m"] = {"shape": path_m[extra]["shape"], **timing(path_m[extra])}
+        line["kernels"].append(entry)
     print(card)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ master recovers ``A x`` from any k coded products by solving
   (the parity tests hand over the reference's);
 * ``encode``         — ``A~ = G A`` through the B3 ``mds_encode`` kernel;
 * ``decode_systematic`` — the torch twin of the reference's
-  ``decode_systematic_jit``: fixed shape, no host branch on the data.
+  ``decode_systematic_jit``: fixed shape, no host branch on the data;
+* ``decode_from_rows`` — least-squares recovery from any >= k surviving
+  rows (the reference's host-side oracle).
 """
 from __future__ import annotations
 
@@ -41,12 +43,21 @@ def make_generator(n: int, k: int, *, seed: int = 0, g: np.ndarray | None = None
         return torch.from_numpy(g.copy()).to(device)
     gen = torch.Generator().manual_seed(seed)
     p = torch.randn((n - k, k), generator=gen, dtype=torch.float32) / math.sqrt(k)
-    return torch.cat([torch.eye(k, dtype=torch.float32), p]).to(device)
+    return torch.cat([torch.eye(k, dtype=torch.float32, device=device), p.to(device)])
 
 
 def encode(generator: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """A~ = G A (rows of A are coded; columns untouched), via ``mds_encode``."""
     return mds_encode(generator, a)
+
+
+def decode_from_rows(generator_rows: torch.Tensor, coded_values: torch.Tensor
+                     ) -> torch.Tensor:
+    """Recover A x from >= k coded products: the least-squares solution of
+    ``generator_rows (m, k) z = coded_values (m,) or (m, c)``."""
+    rhs = coded_values if coded_values.dim() == 2 else coded_values[:, None]
+    z = torch.linalg.lstsq(generator_rows, rhs.to(generator_rows.dtype)).solution
+    return z if coded_values.dim() == 2 else z[:, 0]
 
 
 def decode_systematic(generator: torch.Tensor, coded_values: torch.Tensor,

@@ -1,7 +1,10 @@
 """CodedComputeEngine: cluster -> scheme -> deployment plan -> generator.
 
-Counterpart of ``repro/core/engine.py``. The per-round deadline policy
-``plan_deadline`` is shared with the round executor.
+Counterpart of ``repro/core/engine.py``: the deployed plan, its
+generator, Monte-Carlo latency under the scheme's own semantics, the
+per-round deadline and the elastic ``replan`` (scheme parameters ride on
+the typed scheme object). ``plan_deadline`` is shared with the round
+executor and the fault-tolerance layer.
 """
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ import torch
 from repro_torch.core import planner
 from repro_torch.core.allocation import AllocationPlan
 from repro_torch.core.coding import make_generator
-from repro_torch.core.runtime_model import ClusterSpec
+from repro_torch.core.runtime_model import ClusterSpec, LatencyModel
 from repro_torch.core.schemes import AllocationScheme, make_scheme, scheme_for_plan
 
 
@@ -56,8 +59,12 @@ class CodedComputeEngine:
             raise ValueError("scheme_params only apply to string scheme names")
         self.scheme = scheme
         self.k = int(k)
+        self.replans = 0
+        self._plan_for(cluster)
+
+    def _plan_for(self, cluster: ClusterSpec) -> None:
         self.cluster = cluster
-        self.plan: planner.DeploymentPlan = planner.deploy(scheme, cluster, self.k)
+        self.plan: planner.DeploymentPlan = planner.deploy(self.scheme, cluster, self.k)
 
     @property
     def allocation(self) -> AllocationPlan:
@@ -72,3 +79,26 @@ class CodedComputeEngine:
                   device: str | torch.device = "cuda") -> torch.Tensor:
         """(n, k) MDS generator sized to the deployed plan (seed 0, or ``g``)."""
         return make_generator(self.plan.n, self.k, g=g, device=device)
+
+    def simulate(self, generator: torch.Generator, num_trials: int = 10_000, *,
+                 model: LatencyModel | None = None,
+                 use_integer_loads: bool = False) -> torch.Tensor:
+        """Monte-Carlo latency samples under the scheme's own semantics."""
+        return self.scheme.simulate(generator, self.cluster, self.allocation, num_trials,
+                                    model=model, use_integer_loads=use_integer_loads)
+
+    def expected_latency(self, generator: torch.Generator, num_trials: int = 10_000,
+                         **kwargs) -> float:
+        return float(torch.mean(self.simulate(generator, num_trials, **kwargs)))
+
+    def deadline(self, safety: float = 3.0, *, generator: torch.Generator | None = None,
+                 num_trials: int = 2_048) -> float:
+        """Per-round cutoff: expected latency x safety (``plan_deadline``)."""
+        return plan_deadline(self.plan, safety, generator=generator,
+                             num_trials=num_trials)
+
+    def replan(self, new_cluster: ClusterSpec) -> planner.DeploymentPlan:
+        """Re-plan on a membership or estimate change; scheme params preserved."""
+        self._plan_for(new_cluster)
+        self.replans += 1
+        return self.plan

@@ -2,7 +2,9 @@
 
 Counterpart of ``repro/core/planner.py``: integer per-worker row
 counts, the worker -> coded-row ranges, and the scheme object carried
-along so a later replan keeps its parameters.
+along so a later replan keeps its parameters
+(``replan_on_membership_change``); ``estimate_mu_online`` is the
+shifted-exponential MLE of a group's (mu, alpha) from observed times.
 """
 from __future__ import annotations
 
@@ -12,8 +14,8 @@ from typing import Sequence
 import numpy as np
 
 from repro_torch.core.allocation import AllocationPlan
-from repro_torch.core.runtime_model import ClusterSpec
-from repro_torch.core.schemes import AllocationScheme
+from repro_torch.core.runtime_model import ClusterSpec, LatencyModel
+from repro_torch.core.schemes import AllocationScheme, make_scheme, scheme_for_plan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,3 +77,40 @@ def deploy(scheme: AllocationScheme, cluster: ClusterSpec, k: int
            ) -> DeploymentPlan:
     """Allocate with a typed scheme and integerize for deployment."""
     return integerize(cluster, scheme.allocate(cluster, k))
+
+
+def plan_deployment(
+    cluster: ClusterSpec,
+    k: int,
+    *,
+    scheme: str | AllocationScheme = "optimal",
+    per_row: bool | None = None,
+    model: LatencyModel | None = None,
+    n: float | None = None,
+    r: int | None = None,
+) -> DeploymentPlan:
+    """``deploy`` with a scheme given by registry name (and its params) or object."""
+    if not isinstance(scheme, AllocationScheme):
+        scheme = make_scheme(scheme, per_row=per_row, model=model, n=n, r=r)
+    return deploy(scheme, cluster, k)
+
+
+def replan_on_membership_change(plan: DeploymentPlan, new_cluster: ClusterSpec
+                                ) -> DeploymentPlan:
+    """The plan's own scheme (parameters included) on a new membership."""
+    return deploy(scheme_for_plan(plan), new_cluster, plan.k)
+
+
+def estimate_mu_online(samples_per_group: Sequence[np.ndarray], k: int, loads):
+    """MLE of (mu_j, alpha_j) from observed per-worker round-trip times.
+
+    Shifted exponential on times scaled to the full task (``t k / l``):
+    ``alpha_hat = min``, ``mu_hat = 1 / (mean - min)``.
+    """
+    mus, alphas = [], []
+    for t, l in zip(samples_per_group, loads):
+        t = np.asarray(t, dtype=np.float64) * (k / float(l))
+        t0 = float(t.min())
+        alphas.append(t0)
+        mus.append(1.0 / max(float(t.mean() - t0), 1e-12))
+    return np.asarray(mus), np.asarray(alphas)

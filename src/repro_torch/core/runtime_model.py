@@ -179,6 +179,17 @@ class ClusterSpec:
         al = np.asarray([g.alpha for g in self.groups], np.float64)
         return n, mu, al
 
+    def with_bandwidths(self, bandwidths: Sequence[float] | float) -> "ClusterSpec":
+        """Same cluster with per-group (or one shared) link bandwidths."""
+        if not hasattr(bandwidths, "__len__"):
+            bandwidths = [float(bandwidths)] * self.num_groups
+        if len(bandwidths) != self.num_groups:
+            raise ValueError(f"{len(bandwidths)} bandwidths for {self.num_groups} groups")
+        return ClusterSpec(tuple(
+            GroupSpec(g.num_workers, g.mu, g.alpha, float(b))
+            for g, b in zip(self.groups, bandwidths)
+        ))
+
     @property
     def bandwidths(self) -> np.ndarray:
         """Per-group link bandwidths b_(j) (inf = free)."""

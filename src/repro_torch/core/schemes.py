@@ -34,11 +34,20 @@ from repro_torch.core.runtime_model import (
 #: are frozen dataclasses, so equality covers every input of the solve.
 _ALLOC_CACHE: dict = {}
 _ALLOC_CACHE_CAP = 512
+#: memo hits and misses since the last clear (the adaptive controller's
+#: ``alloc_cache_hit`` event reads them)
+_ALLOC_COUNTS = {"hits": 0, "misses": 0}
 
 
 def allocate_cache_clear() -> None:
-    """Drop all memoized allocations."""
+    """Drop all memoized allocations and zero the hit/miss counts."""
     _ALLOC_CACHE.clear()
+    _ALLOC_COUNTS.update(hits=0, misses=0)
+
+
+def allocate_cache_info() -> dict:
+    """Memo stats: entries, cap, hits and misses."""
+    return {"size": len(_ALLOC_CACHE), "cap": _ALLOC_CACHE_CAP, **_ALLOC_COUNTS}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,10 +80,13 @@ class AllocationScheme:
         cache_key = (self, cluster, int(k))
         plan = _ALLOC_CACHE.get(cache_key)
         if plan is None:
+            _ALLOC_COUNTS["misses"] += 1
             plan = self._allocate(cluster, k)
             if len(_ALLOC_CACHE) >= _ALLOC_CACHE_CAP:
                 _ALLOC_CACHE.pop(next(iter(_ALLOC_CACHE)))
             _ALLOC_CACHE[cache_key] = plan
+        else:
+            _ALLOC_COUNTS["hits"] += 1
         return dataclasses.replace(
             plan, loads=plan.loads.copy(), loads_int=plan.loads_int.copy(),
             r=plan.r.copy(), scheme_obj=self, scheme=self.tag,

@@ -1,11 +1,16 @@
 """B1 coded matvec ``Y = A X``: CUDA kernel on the card, plain torch on the CPU.
 
 Counterpart of ``repro/kernels/coded_matvec/ops.py``. The reference vmaps
-its Pallas matvec over the columns of X; here the column batch is a
-kernel dimension, so the coded head's whole block mix is one GEMM launch
-(source note in ``csrc/coded_matvec.cu``). ``gemm_plan`` splits K so that
-the card fills; with more than one split a second launch sums the
-partials in split order.
+its Pallas matvec over the columns of X and over the workers; here both
+are kernel dimensions (source note in ``csrc/coded_matvec.cu``):
+
+* N > 8 columns (the coded head's block mix) is one GEMM launch;
+  ``gemm_plan`` splits K so that the card fills, and with more than one
+  split a second launch sums the partials in split order;
+* N <= 8 (``NARROW_N``; the paper's matvec) is one launch of the narrow
+  branch, which streams A with 16-byte loads against X staged in shared
+  memory; ``blocked_matvec_batch`` runs the workers' (W, L, D) blocks as
+  one such launch on the (W*L, D) view.
 """
 from __future__ import annotations
 
@@ -22,8 +27,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = CudaKernel(
     "coded_matvec",
     Path(__file__).parent / "csrc" / "coded_matvec.cu",
-    {"repro_coded_matvec_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _P]},
+    {"repro_coded_matvec_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _P],
+     "repro_coded_matvec_narrow_f32": [_P, _P, _P, _I, _I, _I, _I, _P]},
 )
+
+NARROW_N = 8       # widest X the narrow (matvec) branch takes
 
 BK = 16            # K slice depth of the mainloop (csrc/pipe_sgemm.cuh)
 TILE = (128, 256)  # the block tile of csrc/coded_matvec.cu, one block an SM
@@ -71,7 +79,8 @@ def blocked_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """A (M, K) times x (K,) or X (K, N) -> (M,) or (M, N).
 
     A CUDA ``a`` launches the kernel (float32, contiguous, same device;
-    anything else raises) split as ``gemm_plan`` says; a CPU ``a`` runs
+    anything else raises): the narrow branch for N <= ``NARROW_N``, else
+    the GEMM split as ``gemm_plan`` says. A CPU ``a`` runs
     ``blocked_matvec_plain``.
     """
     if a.device.type == "cpu":
@@ -87,7 +96,10 @@ def blocked_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError("blocked_matvec kernel takes contiguous operands on one device")
     (m, k), n = a.shape, x2.shape[1]
     y = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    if y.numel():
+    if y.numel() and n <= NARROW_N and k > 0:
+        KERNEL.launch("repro_coded_matvec_narrow_f32", a.device, a.data_ptr(),
+                      x2.data_ptr(), y.data_ptr(), m, n, k)
+    elif y.numel():
         index = a.device.index if a.device.index is not None else torch.cuda.current_device()
         plan = gemm_plan(m, n, k, sm_count(index))
         stride = partial_stride(m, n)
@@ -97,3 +109,15 @@ def blocked_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                       y.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
                       m, n, k, plan.per_split, plan.splits, stride)
     return y[:, 0] if x.dim() == 1 else y
+
+
+def blocked_matvec_batch(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per-worker products: a (W, L, D) times x (D,) -> (W, L).
+
+    One ``blocked_matvec`` on the (W*L, D) view: on the card one launch of
+    the narrow branch, on the CPU ``blocked_matvec_plain``.
+    """
+    if a.dim() != 3 or x.dim() != 1:
+        raise ValueError(f"blocked_matvec_batch: shapes {tuple(a.shape)} x {tuple(x.shape)}")
+    w, l, d = a.shape
+    return blocked_matvec(a.reshape(w * l, d), x).reshape(w, l)

@@ -8,10 +8,15 @@ allocation scheme (``--scheme``); workers that miss the deadline are
 erasures and the logits are decoded from the survivors. ``--trace``
 replays a seeded request workload through the continuous-batching
 server instead, on the paged KV pool or, with ``--dense-kv``, on dense
-per-slot caches.
+per-slot caches. ``--scenario`` serves ``--rounds`` rounds of one
+generate each against a drifting true fleet (a registered cluster
+scenario); with ``--adapt-every`` an ``AdaptiveController`` observes
+every round and replans the coded head (re-encoded through B3) when its
+hysteresis rule fires.
 
-Not ported (argparse refuses them): the scenario and adaptive-control
-flags, plan bucketing, measured timing, telemetry and Chrome traces,
+Not ported (argparse refuses them): plan bucketing
+(``--bucket-quantum``), measured timing (``--measure-times``),
+telemetry and Chrome traces (``--telemetry``, ``--chrome-trace``),
 ``--slots auto``, the reference's numpy host loop (``--legacy-decode``)
 and ``--use-kernel`` (on the card the head always runs its kernel).
 """
@@ -29,6 +34,7 @@ from repro_torch.core.schemes import make_scheme, scheme_names
 from repro_torch.models.model import Model
 from repro_torch.runtime.serve_loop import ServeConfig, Server
 from repro_torch.serve.workload import make_workload, workload_names
+from repro_torch.sim import make_scenario, scenario_names
 
 
 def main(argv=None):
@@ -59,6 +65,17 @@ def main(argv=None):
     ap.add_argument("--comm-download", type=float, default=None,
                     help="per-row transfer cost for --scheme comm_aware / "
                          "comm_uniform (divided by bandwidth)")
+    ap.add_argument("--scenario", default=None, choices=scenario_names(),
+                    help="cluster-dynamics scenario: serve rounds against a "
+                         "drifting true fleet (requires --coded)")
+    ap.add_argument("--adapt-every", type=int, default=None,
+                    help="closed loop: fold straggler estimates and maybe replan "
+                         "the coded head every R rounds (requires --scenario)")
+    ap.add_argument("--adapt-threshold", type=float, default=None,
+                    help="hysteresis: replan only when the estimated latency "
+                         "improves by this fraction (default 0.05)")
+    ap.add_argument("--rounds", type=int, default=None,
+                    help="rounds to serve under --scenario (default 24)")
     ap.add_argument("--trace", default=None, choices=workload_names(),
                     help="continuous-batching mode: replay this seeded request "
                          "workload through Server.serve instead of one generate")
@@ -87,6 +104,13 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain paths)")
     args = ap.parse_args(argv)
+    if args.trace is not None and args.scenario is not None:
+        raise SystemExit("--trace and --scenario are separate serving modes; pick one")
+    if args.scenario is not None and not args.coded:
+        raise SystemExit("--scenario requires --coded (a fleet to perturb)")
+    if args.adapt_every is not None and args.scenario is None:
+        raise SystemExit("--adapt-every requires --scenario (closed-loop serving is "
+                         "driven by a scenario trace)")
 
     config = get_arch(args.arch)
     if args.reduced:
@@ -111,6 +135,8 @@ def main(argv=None):
                             dtype=torch.int32)
     sync = (lambda: torch.cuda.synchronize(model.device)) \
         if model.device.type == "cuda" else (lambda: None)
+    if args.scenario is not None:
+        return _serve_scenario(server, prompts, args, cluster, sync)
     sync()
     t0 = time.perf_counter()
     out = server.generate(prompts, args.max_new)
@@ -146,6 +172,56 @@ def _serve_trace(server: Server, args, config):
         print(f"latency rounds: p50={np.percentile(lat, 50):.1f} "
               f"p99={np.percentile(lat, 99):.1f}")
     return rep
+
+
+def _serve_scenario(server: Server, prompts, args, cluster, sync):
+    """Serve rounds against a drifting true fleet, optionally closed-loop.
+
+    Each round sets the scenario's cluster of that round as the truth the
+    finish masks draw from, runs one ``generate`` (seed = the round), and
+    with ``--adapt-every`` lets the ``AdaptiveController`` observe one
+    round of true times (its own generator, seed 7) and maybe replan.
+    Returns the controller (None without ``--adapt-every``).
+    """
+    from repro_torch.runtime.control import AdaptConfig, AdaptiveController
+
+    # the scenario is built at the round budget, so its events land inside it
+    rounds = args.rounds if args.rounds is not None else 24
+    spec = make_scenario(args.scenario, horizon=max(rounds, 1))
+    trace = spec.trace(cluster, seed=0)
+    head = server.coded_head
+    controller = None
+    if args.adapt_every is not None:
+        controller = AdaptiveController(
+            head.executor,
+            AdaptConfig(every=args.adapt_every,
+                        threshold=0.05 if args.adapt_threshold is None
+                        else args.adapt_threshold),
+            on_replan=server.refresh_coded_head,
+        )
+    observe = torch.Generator().manual_seed(7)
+    sync()
+    t0 = time.perf_counter()
+    toks = 0
+    for t in range(rounds):
+        truth = trace.at(t)
+        server.set_true_cluster(truth)
+        out = server.generate(prompts, args.max_new, seed=t)
+        toks += out.shape[0] * args.max_new
+        d = controller.observe_truth(observe, truth) if controller is not None else None
+        if d is not None and d.replanned:
+            print(f"[round {t}] replanned ({d.reason}): "
+                  f"deadline -> {head.deadline:.4f}, "
+                  f"loads {head.plan.loads_per_worker.tolist()}")
+    sync()
+    dt = time.perf_counter() - t0
+    print(f"scenario {spec.name!r}: {rounds} rounds, {toks} tokens in "
+          f"{dt:.2f}s ({toks / dt:.1f} tok/s)")
+    if controller is not None:
+        replans = [d for d in controller.decisions if d.replanned]
+        print(f"controller: {len(controller.decisions)} decisions, "
+              f"{len(replans)} replans at rounds {[d.round for d in replans]}")
+    return controller
 
 
 if __name__ == "__main__":

@@ -1,0 +1,204 @@
+"""Span tracing: nested, low-overhead wall-clock spans.
+
+The port's own copy of ``repro/obs/trace.py``. ``SpanTracer`` records
+host-side phases: the round executor wraps each ``replan`` and the
+adaptive controller each ``adapt_update`` decision, so a replan nests
+inside the decision that caused it when both share one tracer. Every
+span is
+
+* kept **in memory** (``tracer.spans``, a bounded ring),
+* mirrored to a ``Telemetry`` JSONL stream (when the tracer owns one)
+  as a ``span`` event with ``perf_counter`` stamps (``t0_s`` start,
+  ``dur_s`` duration), and
+* exportable to **Chrome ``trace_event`` JSON** (``export_chrome``),
+  loadable in Perfetto or ``chrome://tracing``.
+
+A span costs two ``perf_counter`` calls and one append (plus one JSONL
+line with telemetry). Code that may run untraced holds ``NULL_TRACER``,
+whose ``span()`` returns one shared no-op context manager.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+from collections import deque
+
+__all__ = ["Span", "SpanTracer", "NullTracer", "NULL_TRACER",
+           "spans_to_chrome"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Span:
+    """One finished span: name + wall stamps + nesting + attributes."""
+
+    name: str
+    t0_s: float  # perf_counter at entry
+    dur_s: float
+    depth: int  # 0 = top-level
+    parent: str | None  # enclosing span's name (None at depth 0)
+    attrs: dict
+
+
+class _NullSpan:
+    """Shared no-op context manager: the disabled-tracing fast path."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def set(self, **attrs) -> None:
+        """Attribute setter, ignored (parity with ``_ActiveSpan.set``)."""
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class NullTracer:
+    """Tracing disabled: every ``span()`` is the same shared no-op."""
+
+    enabled = False
+    spans: tuple = ()
+
+    def span(self, name: str, **attrs) -> _NullSpan:
+        return _NULL_SPAN
+
+
+NULL_TRACER = NullTracer()
+
+
+class _ActiveSpan:
+    """Context manager recording one span into its tracer on exit."""
+
+    __slots__ = ("_tracer", "name", "attrs", "_t0")
+
+    def __init__(self, tracer: "SpanTracer", name: str, attrs: dict):
+        self._tracer = tracer
+        self.name = name
+        self.attrs = attrs
+
+    def set(self, **attrs) -> None:
+        """Attach attributes discovered mid-span (e.g. placed count)."""
+        self.attrs.update(attrs)
+
+    def __enter__(self) -> "_ActiveSpan":
+        self._tracer._stack.append(self.name)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1 = time.perf_counter()
+        tracer = self._tracer
+        stack = tracer._stack
+        stack.pop()
+        span = Span(
+            name=self.name,
+            t0_s=self._t0,
+            dur_s=t1 - self._t0,
+            depth=len(stack),
+            parent=stack[-1] if stack else None,
+            attrs=self.attrs,
+        )
+        tracer.spans.append(span)
+        tel = tracer.telemetry
+        if tel is not None:
+            tel.event(
+                "span",
+                span=span.name,
+                t0_s=span.t0_s,
+                dur_s=span.dur_s,
+                depth=span.depth,
+                parent=span.parent,
+                attrs=span.attrs,
+            )
+        return False  # never swallow exceptions
+
+    # exceptions propagate; the span still records its wall time, so a
+    # crashing dispatch leaves a trace of where the run died
+
+
+class SpanTracer:
+    """Nested wall-clock spans over an optional ``Telemetry`` sink.
+
+    One tracer per control loop (serve run, trainer); sharing it with
+    the loop's executor/controller puts their replan/decision spans on
+    the same nesting stack. Not thread-safe — the loops it instruments
+    are single-threaded host code.
+    """
+
+    enabled = True
+
+    def __init__(self, telemetry=None, *, max_spans: int = 100_000):
+        if max_spans <= 0:
+            raise ValueError(f"max_spans must be > 0, got {max_spans}")
+        self.telemetry = telemetry
+        #: finished spans, oldest dropped past ``max_spans`` (the JSONL
+        #: sink, when present, keeps every span regardless)
+        self.spans: deque[Span] = deque(maxlen=max_spans)
+        self._stack: list[str] = []
+
+    def span(self, name: str, **attrs) -> _ActiveSpan:
+        """``with tracer.span("decode_chunk", steps=4): ...``"""
+        return _ActiveSpan(self, name, attrs)
+
+    # ------------------------------------------------------------- export
+    def summary(self) -> dict:
+        """Per-name aggregate: count, total/mean/max seconds."""
+        agg: dict[str, dict] = {}
+        for s in self.spans:
+            a = agg.setdefault(
+                s.name, {"count": 0, "total_s": 0.0, "max_s": 0.0}
+            )
+            a["count"] += 1
+            a["total_s"] += s.dur_s
+            a["max_s"] = max(a["max_s"], s.dur_s)
+        for a in agg.values():
+            a["mean_s"] = a["total_s"] / a["count"]
+        return agg
+
+    def export_chrome(self, path: str) -> str:
+        """Write the recorded spans as Chrome ``trace_event`` JSON."""
+        recs = [
+            {"span": s.name, "t0_s": s.t0_s, "dur_s": s.dur_s,
+             "depth": s.depth, "parent": s.parent, "attrs": s.attrs}
+            for s in self.spans
+        ]
+        return spans_to_chrome(recs, path)
+
+
+def spans_to_chrome(span_records, path: str) -> str:
+    """Render ``span`` records (tracer spans OR telemetry JSONL rows)
+    into a Perfetto-loadable Chrome ``trace_event`` JSON file.
+
+    Timestamps are microseconds relative to the earliest span, all on
+    one pid/tid — nesting renders from the containment of the complete
+    (``ph == "X"``) events.
+    """
+    recs = [r for r in span_records if "t0_s" in r and "dur_s" in r]
+    t0 = min((r["t0_s"] for r in recs), default=0.0)
+    events = [
+        {
+            "name": r.get("span", r.get("name", "span")),
+            "cat": "repro",
+            "ph": "X",
+            "ts": (r["t0_s"] - t0) * 1e6,
+            "dur": r["dur_s"] * 1e6,
+            "pid": 0,
+            "tid": 0,
+            "args": {
+                **(r.get("attrs") or {}),
+                "depth": r.get("depth"),
+                "parent": r.get("parent"),
+            },
+        }
+        for r in recs
+    ]
+    with open(path, "w") as f:
+        json.dump(
+            {"traceEvents": events, "displayTimeUnit": "ms"}, f
+        )
+    return path

@@ -23,6 +23,13 @@ first included, goes through the coded head), and ``Server.serve`` with
 (a dense per-slot cache with a batched admit splice). The reference's
 one compiled program per generation or chunk size becomes an eager
 Python loop here (no retrace counter is needed: nothing traces).
+
+Closed loop: ``set_true_cluster`` makes the finish masks draw from a
+scenario's true fleet while the head keeps the plan the controller last
+chose; ``refresh_coded_head`` (an ``AdaptiveController``'s ``on_replan``)
+re-encodes the head for the executor's new plan through B3; and
+``serve(controller=...)`` scales admission control by the controller's
+``coverage_latency``.
 """
 from __future__ import annotations
 
@@ -89,14 +96,15 @@ class CodedLMHead:
             cluster, self.kb, scheme, deadline_safety=deadline_safety,
             device=self.table.device,
         )
-        self._g = g
-        self.refresh()
+        self.refresh(g)
 
-    def refresh(self) -> None:
-        """(Re)bind the plan-derived state: nb, G, coded blocks, deadline."""
+    def refresh(self, g: np.ndarray | None = None) -> None:
+        """(Re)bind the plan-derived state: nb, G (the seeded one of the
+        plan's size, or the injected (nb, kb) ``g``), coded blocks (one B3
+        launch), deadline."""
         self.plan: DeploymentPlan = self.executor.plan
         self.nb = self.plan.n
-        self.generator = self.executor.generator(g=self._g)
+        self.generator = self.executor.generator(g=g)
         vp, d = self.table.shape
         blocks = F.pad(self.table, (0, 0, 0, self.kb * self.block_rows - vp))
         self.coded = encode(
@@ -106,12 +114,23 @@ class CodedLMHead:
         #: (nb,) worker holding each coded block
         self.block_owner = self.executor.slot_owner
 
-    def finish_mask(self, generator: torch.Generator, deadline=None
-                    ) -> torch.Tensor:
+    def replan(self, new_cluster: ClusterSpec, *, g: np.ndarray | None = None
+               ) -> DeploymentPlan:
+        """Elastic replan (scheme params kept), then ``refresh(g)``."""
+        plan = self.executor.replan(new_cluster)
+        self.refresh(g)
+        return plan
+
+    def finish_mask(self, generator: torch.Generator, deadline=None, *,
+                    true_params=None) -> torch.Tensor:
         """(W,) bool straggler mask at ``deadline`` (default: the head's
-        ``deadline``, the planned one unless a caller moved it)."""
+        ``deadline``, the planned one unless a caller moved it).
+        ``true_params`` (mus, alphas, shifts) per worker replace the
+        plan's (``executor.worker_param_arrays(true_cluster)``)."""
+        mus, alphas, shifts = (None, None, None) if true_params is None else true_params
         return self.executor.finish_mask(
-            generator, self.deadline if deadline is None else deadline)
+            generator, self.deadline if deadline is None else deadline,
+            mus=mus, alphas=alphas, shifts=shifts)
 
     def encode_logits(self, logits: torch.Tensor) -> torch.Tensor:
         """Mix plain logit BLOCKS with G: (B, V) -> (nb, B, R) products.
@@ -203,6 +222,29 @@ class Server:
                         deadline_safety=self.cfg.deadline_safety)
             if cluster is not None else None
         )
+        #: the true fleet's per-worker (mus, alphas, shifts) the finish
+        #: masks draw from (``set_true_cluster``); None: the plan's own
+        self._true_params = None
+
+    def set_true_cluster(self, cluster: ClusterSpec | None) -> None:
+        """Draw the finish masks from ``cluster`` (a scenario's truth):
+        the head keeps planning against what the controller believes, but
+        leavers never respond and drift shows up as missed deadlines.
+        ``None`` draws from the plan's own cluster again."""
+        if self.coded_head is None:
+            raise ValueError("set_true_cluster requires a coded head")
+        self._true_params = (None if cluster is None
+                             else self.coded_head.executor.worker_param_arrays(cluster))
+
+    def refresh_coded_head(self) -> None:
+        """Rebind the head to its executor's current plan: the new (nb, kb)
+        code is re-encoded through B3. The ``on_replan`` hook of an
+        ``AdaptiveController``; the true fleet is cleared (its per-worker
+        arrays had the old plan's shape), so set it again."""
+        if self.coded_head is None:
+            raise ValueError("refresh_coded_head requires a coded head")
+        self.coded_head.refresh()
+        self._true_params = None
 
     def coded_select(self, logits: torch.Tensor, generator: torch.Generator,
                      deadline=None):
@@ -219,7 +261,7 @@ class Server:
         lf = logits.float()
         keep = torch.arange(lf.shape[-1], device=lf.device)[None, :] < vocab
         products = head.encode_logits(torch.where(keep, lf, 0.0))
-        mask = head.finish_mask(generator, deadline)
+        mask = head.finish_mask(generator, deadline, true_params=self._true_params)
         dec, ok = head.decode_logits(products, mask)
         dec = torch.where(keep, dec[:, : lf.shape[-1]], NEG_INF)
         return torch.where(ok, dec, lf), ok, mask
@@ -350,9 +392,9 @@ class Server:
 
     def serve(self, trace, *, slots: int = 4, prompt_cap: int | None = None,
               max_out: int | None = None, decode_block: int = 4, queue_cap: int = 64,
-              admission_threshold: float = 1.0, telemetry=None, seed: int = 0,
-              paged: bool | None = None, block_len: int | None = None,
-              num_blocks: int | None = None,
+              admission_threshold: float = 1.0, controller=None, round_latency=None,
+              telemetry=None, seed: int = 0, paged: bool | None = None,
+              block_len: int | None = None, num_blocks: int | None = None,
               prefill_chunk: int | None = None) -> ServeReport:
         """Continuous batching: serve a request trace through S slots.
 
@@ -370,6 +412,12 @@ class Server:
         row of ``prompt_cap + max_out + 1`` positions and a whole prompt
         is spliced in at admission, so a prompt longer than ``prompt_cap``
         is refused.
+
+        Admission control scales each request's projected completion by
+        ``round_latency() / reference`` (a callable in round units; by
+        default ``controller.coverage_latency`` of an
+        ``AdaptiveController``), the reference sampled once at the start,
+        so the scheduler sheds when rounds are estimated to run slow.
         """
         set_full_fp32()
         paged = self.cfg.paged if paged is None else paged
@@ -378,20 +426,27 @@ class Server:
             raise ValueError("serve needs a non-empty request trace")
         prompt_cap = int(prompt_cap if prompt_cap is not None
                          else max(r.prompt_len for r in trace))
+        if round_latency is None and controller is not None:
+            round_latency = controller.coverage_latency
+        reference = 1.0
+        if round_latency is not None:
+            reference = float(round_latency())
+            if not np.isfinite(reference) or reference <= 0:
+                reference = 1.0
+        admission = dict(queue_cap=queue_cap, admission_threshold=admission_threshold,
+                         round_latency=round_latency, reference_latency=reference)
         if paged:
             return self._serve_paged(
                 trace, slots=slots, prompt_cap=prompt_cap, decode_block=decode_block,
-                queue_cap=queue_cap, admission_threshold=admission_threshold,
-                telemetry=telemetry, seed=seed, block_len=block_len,
-                num_blocks=num_blocks, prefill_chunk=prefill_chunk)
+                admission=admission, telemetry=telemetry, seed=seed,
+                block_len=block_len, num_blocks=num_blocks, prefill_chunk=prefill_chunk)
         too_long = [r.rid for r in trace if r.prompt_len > prompt_cap]
         if too_long:
             raise ValueError(f"requests {too_long} exceed prompt_cap={prompt_cap}")
         max_out = int(max_out if max_out is not None else max(r.out_len for r in trace))
         return self._serve_dense(
             trace, slots=slots, prompt_cap=prompt_cap, max_out=max_out,
-            decode_block=decode_block, queue_cap=queue_cap,
-            admission_threshold=admission_threshold, telemetry=telemetry, seed=seed)
+            decode_block=decode_block, admission=admission, telemetry=telemetry, seed=seed)
 
     def _loop_state(self, slots: int, seed: int):
         """Pending logits, positions, (ok, erased) counters and the
@@ -432,7 +487,7 @@ class Server:
         )
 
     def _serve_dense(self, trace, *, slots, prompt_cap, max_out, decode_block,
-                     queue_cap, admission_threshold, telemetry, seed) -> ServeReport:
+                     admission, telemetry, seed) -> ServeReport:
         """The dense slot-cache loop behind ``serve(paged=False)``.
 
         A round with admissions runs one batched prefill of the admitted
@@ -444,9 +499,7 @@ class Server:
         cache = self.model.init_slot_cache(slots, prompt_cap + max_out + 1)
         kv_bytes = sum(cache[n].numel() * cache[n].element_size() for n in ("k", "v"))
         metrics = MetricsRegistry()
-        sched = SlotScheduler(slots, queue_cap=queue_cap,
-                              admission_threshold=admission_threshold,
-                              telemetry=telemetry, metrics=metrics)
+        sched = SlotScheduler(slots, telemetry=telemetry, metrics=metrics, **admission)
         logits, pos, stats, generator = self._loop_state(slots, seed)
         emitted = []
         to_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
@@ -493,9 +546,9 @@ class Server:
                             decode_rounds=decode_rounds, prefill_rounds=prefill_rounds,
                             kv_bytes=kv_bytes)
 
-    def _serve_paged(self, trace, *, slots, prompt_cap, decode_block, queue_cap,
-                     admission_threshold, telemetry, seed, block_len, num_blocks,
-                     prefill_chunk) -> ServeReport:
+    def _serve_paged(self, trace, *, slots, prompt_cap, decode_block, admission,
+                     telemetry, seed, block_len, num_blocks, prefill_chunk
+                     ) -> ServeReport:
         """The paged-KV loop behind ``serve(paged=True)``.
 
         Each round runs one prefill chunk for every slot still mid-prompt
@@ -517,10 +570,8 @@ class Server:
         metrics = MetricsRegistry()
         pool = BlockPool(nb, bl, bytes_per_block=kv_bytes // (nb + 1),
                          telemetry=telemetry, metrics=metrics)
-        sched = SlotScheduler(
-            slots, queue_cap=queue_cap, admission_threshold=admission_threshold,
-            telemetry=telemetry, pool=pool, chunk=chunk, metrics=metrics,
-        )
+        sched = SlotScheduler(slots, telemetry=telemetry, pool=pool, chunk=chunk,
+                              metrics=metrics, **admission)
         logits, pos, stats, generator = self._loop_state(slots, seed)
         # host mirror of the block tables, width = pool size
         table_np = np.full((slots, nb), -1, np.int32)

@@ -53,8 +53,46 @@ def test_cli_trace_serves_every_request(capsys, dense):
 
 def test_cli_refuses_flags_of_modules_not_ported(capsys):
     for flag in (["--scenario", "churn"], ["--bucket-quantum", "4"], ["--use-kernel"],
-                 ["--slots", "auto"]):
+                 ["--slots", "auto"], ["--measure-times"], ["--telemetry", "x.jsonl"],
+                 ["--chrome-trace", "x.json"], ["--legacy-decode"]):
         with pytest.raises(SystemExit):
             launch_serve.main(BASE + flag)
     with pytest.raises(SystemExit):  # not a registered scheme
         launch_serve.main(BASE + ["--scheme", "nope"])
+
+
+def test_cli_scenario_closed_loop(capsys):
+    """``--scenario churn --adapt-every 2``: membership replans at rounds 3
+    and 9 of 12 (printed with the new deadline and loads), and the
+    controller's summary line."""
+    ctl = launch_serve.main(BASE + ["--coded", "--scenario", "churn", "--adapt-every", "2",
+                                    "--rounds", "12", "--max-new", "2"])
+    text = capsys.readouterr().out
+    assert re.search(r"\[round 3\] replanned \(membership\): deadline -> [\d.]+, "
+                     r"loads \[(1, ){8}1\]", text), text
+    assert "[round 9] replanned (membership)" in text, text
+    assert re.search(r"scenario 'churn': 12 rounds, 48 tokens in [\d.]+s", text), text
+    line = re.search(r"controller: 6 decisions, (\d+) replans at rounds \[([\d, ]+)\]",
+                     text)
+    assert line is not None, text
+    assert int(line[1]) == ctl.replans and {4, 10} <= {int(r) for r in line[2].split(",")}
+
+
+def test_cli_scenario_rounds_default_and_open_loop(capsys):
+    """Without ``--adapt-every`` the fleet drifts and nothing replans; the
+    round count is the reduced budget given."""
+    assert launch_serve.main(BASE + ["--coded", "--scenario", "mu_step", "--rounds",
+                                     "3"]) is None
+    text = capsys.readouterr().out
+    assert "scenario 'mu_step': 3 rounds, 18 tokens" in text and "controller" not in text
+
+
+@pytest.mark.parametrize("flags", [
+    ["--scenario", "churn"],                                    # needs --coded
+    ["--coded", "--adapt-every", "2"],                          # needs --scenario
+    ["--coded", "--scenario", "churn", "--trace", "poisson"],   # two modes
+    ["--coded", "--scenario", "nope"],                          # not registered
+])
+def test_cli_scenario_refusals(flags):
+    with pytest.raises(SystemExit):
+        launch_serve.main(BASE + flags)

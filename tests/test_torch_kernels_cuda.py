@@ -160,6 +160,64 @@ def test_matvec_vector_and_refusals(dev):
         mds.mds_encode(a.half(), torch.randn((70, 3), device=dev).half())
 
 
+# the narrow (matvec) branch, N <= 8: K % 4 == 0 (16-byte loads) and not,
+# one K tile and several (N K floats past 8,192), rows off a warp's pair
+@pytest.mark.parametrize("n", [1, 3, 8])
+@pytest.mark.parametrize("m,k", [(1, 1), (37, 4096), (203, 4099), (1001, 9000),
+                                 (64, 2052)])
+def test_coded_matvec_narrow_matches_plain(dev, m, k, n):
+    gen = torch.Generator(device=dev).manual_seed(m * 10 + k + n)
+    a = torch.randn((m, k), generator=gen, device=dev)
+    x = torch.randn((k, n), generator=gen, device=dev)
+    before = kernels.launch_counts()["coded_matvec"]
+    got = cmv.blocked_matvec(a, x)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["coded_matvec"] == before + 1
+    assert got.shape == (m, n)
+    assert (got - cmv.blocked_matvec_plain(a, x)).abs().max().item() <= _gemm_tol(a, x)
+
+
+def test_coded_matvec_narrow_unaligned_operands(dev):
+    """A and x off 16-byte alignment (A's 4-byte loads; x is staged with
+    4-byte loads either way), K % 4 == 0 and not."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for m, k in ((300, 512), (300, 513)):
+        a = torch.randn(m * k + 1, generator=gen, device=dev)[1:].view(m, k)
+        x = torch.randn(k + 1, generator=gen, device=dev)[1:]
+        assert a.is_contiguous() and a.data_ptr() % 16 and x.data_ptr() % 16
+        got = cmv.blocked_matvec(a, x)
+        assert got.shape == (m,)
+        assert (got - cmv.blocked_matvec_plain(a, x)).abs().max().item() <= _gemm_tol(
+            a, x[:, None])
+
+
+def test_coded_matvec_narrow_path_m_shape_and_relaunch(dev):
+    """The paper's matvec at full width: the quickstart fleet's 200 workers
+    x 203 packed rows, D = 4,096, through ``blocked_matvec_batch`` (one
+    launch), held against the plain version; a relaunch is bit-identical."""
+    w, l, d = 200, 203, 4096
+    gen = torch.Generator(device=dev).manual_seed(17)
+    a = torch.randn((w, l, d), generator=gen, device=dev)
+    x = torch.randn(d, generator=gen, device=dev)
+    before = kernels.launch_counts()["coded_matvec"]
+    got = cmv.blocked_matvec_batch(a, x)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["coded_matvec"] == before + 1
+    assert got.shape == (w, l)
+    flat = a.reshape(w * l, d)
+    want = cmv.blocked_matvec_plain(flat, x).reshape(w, l)
+    assert (got - want).abs().max().item() <= _gemm_tol(flat, x[:, None])
+    assert torch.equal(cmv.blocked_matvec_batch(a, x), got)
+
+
+def test_coded_matvec_batch_refusals(dev):
+    with pytest.raises(ValueError, match="shapes"):
+        cmv.blocked_matvec_batch(torch.randn((3, 4), device=dev), torch.randn(4, device=dev))
+    with pytest.raises(TypeError):
+        cmv.blocked_matvec_batch(torch.randn((2, 3, 4), device=dev).double(),
+                                 torch.randn(4, device=dev).double())
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("g,hd,bl", [(1, 32, 4), (2, 128, 16), (4, 64, 8), (8, 128, 16),
                                      (3, 96, 5), (8, 1024, 16), (2, 256, 64)])
