@@ -3,7 +3,9 @@
 run the paper's coded matvec at full width, serve full-width qwen3-0.6b
 through the coded server (paged and dense), generate with it under every
 baseline allocation scheme and under a drifting fleet with closed-loop
-replanning, run the serving CLI, then train it with gradient coding.
+replanning (simulated, then measured by a round clock with plan buckets),
+run the serving CLI, then train it with gradient coding, plain and then
+adaptive under measured round times.
 
 Run from the repository root with no arguments:
 
@@ -54,17 +56,35 @@ Phases (any failure raises, and the script exits non-zero):
    head (every 2 rounds, threshold 0.05); counters read after; each
    replan's B3 re-encode held against its plain version, tokens against
    the uncoded ones, ``churn``'s membership replans at rounds 3 and 9;
-8. cli      — ``python -m repro_torch.launch.serve --coded`` as two
+8. adapt-measured — (c) ``mu_step`` as in ``adapt`` but each round timed
+   by a ``RoundClock`` (until the device is done) and fed to the
+   controller through ``observe_timing``, the head bucketed (quantum 4):
+   B3 == 1 + structural replans, the tokens held as in ``adapt``; (d)
+   the serve phase's trace through ``serve(clock=)`` with no controller:
+   the streams equal the serve phase's, fed == dispatches - 1; and one
+   replan's allocation timed on the fused torch cores and on the numpy
+   eager oracle; counters reset before (c) and (d) and read after;
+9. cli      — ``python -m repro_torch.launch.serve --coded`` as two
    subprocesses started together: ``--scheme uniform_r`` (exit 0, its
    coded-head line) and ``--scenario churn --adapt-every 2 --rounds 12``
    (exit 0, its replan lines and the controller line);
-9. train    — launch counters reset, then ``Trainer.run`` of 4 gradient-
+10. train   — launch counters reset, then ``Trainer.run`` of 4 gradient-
    coded steps of full-width qwen3-0.6b (seeded init, batch 16 x 512) on
    the same fleet; counters read right after; then one more steady step
    under ``torch.profiler`` (device time by kernel); then a decodable round
    with two workers erased held against the plain full-batch gradient,
    and a round at deadline 0 that must leave every parameter and the
-   optimizer state bit-unchanged.
+   optimizer state bit-unchanged;
+11. train-adapt — the same model size, batch and fleet with a
+   ``RoundClock`` feeding an ``AdaptiveController`` every 2 steps: (a)
+   12 steps of ``churn`` with plan buckets (quantum 4): each decision,
+   bucket hit or miss and structural flag, the round after each replan
+   beside the smoothed round, the clock's counts and the step builds;
+   the membership replans at steps 4 and 9 (to 9, then 12 workers); (b)
+   10 steps on the static fleet with a real sleep of 0.5 x unit_s x the
+   deadline on the fast group from fed round 5: a replan within two
+   cadences that gives that group fewer rows. B4 launches == steps
+   (forward) and steps not skipped (each backward), counted per run.
 
 The last three stdout lines are the card (``nvidia-smi``), the kernels
 JSON (each kernel's launches on every path beside its main path's, and
@@ -1197,6 +1217,359 @@ def adapt_phase(model, card: str) -> dict:
     return out_counts
 
 
+#: [adapt] (c): the bucket quantum of the measured mu_step pass
+ADAPT_QUANTUM = 4
+
+
+def allocation_ms(fleet, k: int, calls: int = 20) -> float:
+    """Median ms of one replan's allocation (``optimal`` onto a drifted
+    fleet, the memo cleared before each call) on this machine's host."""
+    import statistics
+
+    from repro_torch.core.runtime_model import ClusterSpec
+    from repro_torch.core.schemes import allocate_cache_clear, make_scheme
+
+    scheme = make_scheme("optimal")
+    drifted = ClusterSpec.make([g.num_workers for g in fleet.groups],
+                               [g.mu * 0.9 for g in fleet.groups])
+
+    out = []
+    for _ in range(calls):
+        allocate_cache_clear()
+        t = time.perf_counter()
+        scheme.allocate(drifted, k)
+        out.append(1e3 * (time.perf_counter() - t))
+    allocate_cache_clear()
+    return statistics.median(out)
+
+
+def adapt_measured_phase(model, card: str, paged_rep) -> dict:
+    """The measured and bucketed serving paths at full width: (c) ``mu_step``
+    rounds of ``generate`` under a ``RoundClock`` with the head bucketed
+    (quantum 4), driven as the serving CLI's ``--measure-times`` drives
+    them; (d) ``[serve]``'s trace through ``serve(clock=)`` with no
+    controller, whose streams must equal ``[serve]``'s; and one replan's
+    allocation time. Counters reset before (c) and (d) and read after. In
+    (c) the head's encode at ``n_cap`` is held against B3's plain version,
+    and after the count is read one round's block mix at ``n_cap`` against
+    B1's; B3 and B1 are timed at ``n_cap`` and at the unbucketed ``n`` to
+    net the re-encodes that buckets avoid against what the wider code
+    costs. Returns the counts by path."""
+    import torch
+    import torch.nn.functional as F
+
+    import repro_torch.kernels as kernels
+    from repro_torch.core.coding import make_generator
+    from repro_torch.core.runtime_model import ClusterSpec
+    from repro_torch.kernels.coded_matvec import ops as cmv
+    from repro_torch.kernels.mds_encode import ops as mds
+    from repro_torch.runtime.executor import CodedRoundExecutor
+    from repro_torch.runtime.control import AdaptConfig, AdaptiveController
+    from repro_torch.runtime.serve_loop import ServeConfig, Server
+    from repro_torch.runtime.timing import RoundClock
+    from repro_torch.sim import make_scenario
+
+    v = model.config.vocab_size
+    sync = torch.cuda.synchronize if model.device.type == "cuda" else (lambda: None)
+    prompts = torch.randint(0, v, (4, ADAPT_PROMPT), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(1))
+    _, plain_new, margins, scales = uncoded_reference(model, prompts, ADAPT_NEW)
+    fleet = ClusterSpec.make(*CLUSTER)
+    out = {}
+
+    # (c) mu_step, measured, bucketed
+    trace = make_scenario("mu_step", horizon=ADAPT_ROUNDS).trace(fleet, seed=0)
+    kernels.reset_launch_counts()
+    server = Server(model, fleet, ServeConfig(block_rows=256, scheme="optimal",
+                                              bucket_quantum=ADAPT_QUANTUM))
+    head = server.coded_head
+    exe = head.executor
+    vp, dm = head.table.shape
+    blocks = F.pad(head.table, (0, 0, 0, head.kb * head.block_rows - vp))
+    blocks = blocks.reshape(head.kb, head.block_rows * dm)
+    err = float((head.coded.reshape(head.nb, -1)
+                 - mds.mds_encode_plain(head.generator, blocks)).abs().max())
+    tol = gemm_tolerance(head.generator, blocks)
+    encodes = []
+
+    def on_replan():
+        sync()
+        t = time.perf_counter()
+        server.refresh_coded_head()
+        sync()
+        encodes.append(time.perf_counter() - t)
+
+    ctl = AdaptiveController(exe, AdaptConfig(every=2, threshold=0.05), on_replan=on_replan)
+    clock = RoundClock(exe)
+    observe = torch.Generator().manual_seed(7)
+    print(f"[adapt] mu_step measured, bucket quantum {ADAPT_QUANTUM}: kb {head.kb}, nb "
+          f"{head.nb} (n_cap), n {exe.n}, deadline {head.deadline:.6f}")
+    print(f"[adapt] mu_step measured: head encode at n_cap ({head.nb},{head.kb})x"
+          f"({head.kb},{blocks.shape[1]}) max_abs_err vs plain {err:.3e} <= tol {tol:.3e}")
+    check(err <= tol, "mu_step measured: the n_cap encode disagrees with B3's plain version")
+    held, oks, replans, first_logits = [0, 0], 0, [], []
+
+    def observe_round(step, lg, sel, ok, mask):
+        rounds.append((ok, mask))
+        if not first_logits:
+            first_logits.append(lg.float().clone())
+
+    for t in range(ADAPT_ROUNDS):
+        truth = trace.at(t)
+        server.set_true_cluster(truth)
+        rounds = []
+        timing = clock.measure(
+            lambda: server.generate(prompts, ADAPT_NEW, seed=t, observe=observe_round),
+            generator=observe, true_cluster=truth)
+        oks += sum(int(ok) for ok, _ in rounds)
+        conds = [round_cond(head, ok, mask) for ok, mask in rounds]
+        eq, cov = held_tokens(f"mu_step measured round {t}", timing.result[:, ADAPT_PROMPT:].cpu(),
+                              plain_new, margins, scales, conds)
+        held[0] += eq
+        held[1] += cov
+        d = ctl.observe_timing(timing)
+        line = (f"[adapt] mu_step measured round {t}: dispatch {timing.dispatch_s:.4f} s, "
+                f"{'fed' if timing.skipped is None else 'skipped (' + timing.skipped + ')'}")
+        if d is not None:
+            line += f"; decision {d.reason}, gain {d.gain:.4f}"
+            if d.replanned:
+                structural = exe.last_replan_structural
+                replans.append((t, structural, exe.last_bucket_hit))
+                line += (f"; replanned: bucket {'hit' if exe.last_bucket_hit else 'miss'}, "
+                         f"structural {structural}, n {exe.n}, active bucket "
+                         f"{exe.active_bucket} of {len(exe.buckets)}, head rebind "
+                         f"{1e3 * encodes[-1]:.2f} ms")
+                if structural:
+                    clock.discard_next()
+        print(line)
+    counts = kernels.launch_counts()
+    structural = sum(st for _, st, _ in replans)
+    print(f"[adapt] mu_step measured: clock {clock.fed}/{clock.rounds} rounds fed, unit_s "
+          f"{clock.unit_s:.4e}; {len(replans)} replans ({structural} structural, "
+          f"{sum(h for *_, h in replans)} bucket hits), B3 re-encodes avoided "
+          f"{len(replans) - structural}; decode ok {oks}/{ADAPT_ROUNDS * ADAPT_NEW}; "
+          f"{held[0]} tokens equal the uncoded run's, {held[1]} checked; launches {counts}")
+    check(counts["mds_encode"] == 1 + structural,
+          "mu_step measured: mds_encode == 1 + structural replans")
+    check(counts["coded_matvec"] == ADAPT_ROUNDS * ADAPT_NEW,
+          "mu_step measured: coded_matvec == rounds x tokens")
+    check(clock.rounds == ADAPT_ROUNDS and clock.fed == ADAPT_ROUNDS - 1 - structural,
+          "mu_step measured: every round timed, all but warmup and rebuilds fed")
+    out["adapt_mu_step_measured"] = counts
+
+    # B1 held against plain on round 0's logits at n_cap (after the count),
+    # then B3 and B1 timed at n_cap and at the unbucketed plan's n
+    lg = first_logits[0]
+    b, r = lg.shape[0], head.block_rows
+    keep = torch.arange(lg.shape[1], device=lg.device)[None, :] < v
+    lf = F.pad(torch.where(keep, lg, 0.0), (0, head.kb * r - lg.shape[1]))
+    cols = lf.reshape(b, head.kb, r).permute(1, 0, 2).reshape(head.kb, b * r).contiguous()
+    got = head.encode_logits(torch.where(keep, lg, 0.0)).reshape(head.nb, b * r)
+    err = float((got - cmv.blocked_matvec_plain(head.generator, cols)).abs().max())
+    tol = gemm_tolerance(head.generator, cols)
+    print(f"[adapt] mu_step measured: round 0's block mix at n_cap ({head.nb},{head.kb})x"
+          f"({head.kb},{b * r}) max_abs_err vs plain {err:.3e} <= tol {tol:.3e}")
+    check(err <= tol, "mu_step measured: B1 at n_cap disagrees with its plain version")
+    n0 = CodedRoundExecutor(fleet, head.kb, "optimal", device=model.device).n
+    g0 = make_generator(n0, head.kb, device=model.device)
+    cuda = model.device.type == "cuda"  # a CPU rehearsal times nothing
+    # B3 runs milliseconds: CUDA events time it as the kernels line does
+    enc = {nb: cuda_ms(lambda: mds.mds_encode(g, blocks), 5) if cuda else None
+           for nb, g in ((head.nb, head.generator), (n0, g0))}
+    mix = {nb: device_ms(lambda: cmv.blocked_matvec(g, cols)) if cuda else None
+           for nb, g in ((head.nb, head.generator), (n0, g0))}
+    tokens = ADAPT_ROUNDS * ADAPT_NEW
+    avoided = len(replans) - structural
+    line = (f"[adapt] bucket cost and saving (B3 event-timed, B1 device time): B3 encode "
+            f"at n_cap {head.nb} "
+            f"{fmt_ms(enc[head.nb])}, at unbucketed n {n0} {fmt_ms(enc[n0])}; B1 block mix "
+            f"at {head.nb} rows {fmt_ms(mix[head.nb])}, at {n0} {fmt_ms(mix[n0])}")
+    if None not in (*enc.values(), *mix.values()):
+        saved = avoided * enc[n0]
+        extra = (enc[head.nb] - enc[n0]) + tokens * (mix[head.nb] - mix[n0])
+        line += (f"; this run: {avoided} re-encodes avoided x {enc[n0]:.4f} ms = "
+                 f"{saved:.4f} ms saved, wider code costs {enc[head.nb] - enc[n0]:.4f} ms "
+                 f"(encode) + {tokens} tokens x {mix[head.nb] - mix[n0]:.4f} ms (B1) = "
+                 f"{extra:.4f} ms: net {saved - extra:.4f} ms")
+    print(line + f" ({card})")
+    del server, head, exe, ctl, blocks, g0
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (d) [serve]'s trace under a clock, no controller
+    kernels.reset_launch_counts()
+    server = Server(model, fleet, ServeConfig(block_rows=256, deadline_safety=SAFETY,
+                                              scheme="optimal"))
+    clock = RoundClock(server.coded_head.executor)
+    rep = server.serve(serve_trace(model.config), slots=SLOTS, block_len=BLOCK_LEN,
+                       prefill_chunk=CHUNK, decode_block=DECODE_BLOCK, seed=0, clock=clock)
+    counts = kernels.launch_counts()
+    same = sum(rep.streams[rid] == paged_rep.streams[rid] for rid in paged_rep.streams)
+    print(f"[adapt] measured serve of [serve]'s trace: {clock.rounds} dispatches timed, "
+          f"{clock.fed} fed, unit_s {clock.unit_s:.4e}, smoothed dispatch "
+          f"{clock.smoothed_s:.4f} s; wall {rep.wall_s:.3f} s ([serve]: "
+          f"{paged_rep.wall_s:.3f} s); {same}/{len(paged_rep.streams)} streams equal "
+          f"[serve]'s; launches {counts}")
+    check(rep.streams == paged_rep.streams, "a measured serve changed the streams")
+    check(clock.fed == clock.rounds - 1, "measured serve: fed == dispatches - 1")
+    check(counts["coded_matvec"] == rep.decode_rounds
+          and counts["paged_decode"] == model.config.num_layers * rep.decode_rounds,
+          "measured serve: B1 == decode steps, B2 == layers x decode steps")
+    out["serve_measured"] = counts
+    del server
+
+    print(f"[adapt] one replan's allocation (optimal, kb {-(-v // 256)}, 12 workers, median "
+          f"of 20, memo cleared): {allocation_ms(fleet, -(-v // 256)):.3f} ms ({card} host)")
+    return out
+
+
+#: [train-adapt]: (a) churn, measured, bucketed; (b) a static fleet padded
+#: from fed round 4 by TA_PAD x unit_s x the deadline on the fast group.
+#: The membership replans of (a) and the pad of (b) are fixed by
+#: tests/test_torch_train_adapt.py
+TA_STEPS, TA_EVERY, TA_QUANTUM = 12, 2, 4
+TA_MEMBERSHIP = [(4, 9), (9, 12)]  # (step, workers after)
+TA_PAD_STEPS, TA_PAD_AT, TA_PAD = 10, 4, 0.5
+
+
+def train_adapt_phase(cfg, device: str = "cuda") -> dict:
+    """Training's adaptive path at full width, measured by a ``RoundClock``:
+    (a) ``churn`` with buckets, (b) a static fleet with a really slept pad
+    on the fast group. Counters reset before each run and read after.
+    Returns the counts by path."""
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.runtime_model import ClusterSpec
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train_loop import TrainConfig, Trainer
+
+    shape = ShapeConfig("smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device, seed=0)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"[train-adapt] {cfg.name}: batch {TRAIN_BATCH} x {TRAIN_SEQ}, grad_coding k "
+          f"{PARTITIONS}, fleet {CLUSTER}, every {TA_EVERY}, measured (init "
+          f"{time.perf_counter() - t0:.1f} s)")
+
+    def trainer(steps, **kw):
+        return Trainer(model, SyntheticLMData(cfg, shape, seed=0, device=device),
+                       AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=steps),
+                       TrainConfig(steps=steps, log_every=1, cluster=ClusterSpec.make(*CLUSTER),
+                                   scheme="grad_coding", partitions=PARTITIONS,
+                                   deadline_safety=3.0, adapt_every=TA_EVERY,
+                                   measure_times=True, **kw))
+
+    def instrument(t, after=None):
+        """Log each round's timing, the smoothed round after it, and the
+        decision it fed."""
+        log = []
+        inner = t.controller.observe_timing
+
+        def observe(timing):
+            d = inner(timing)
+            exe = t.executor
+            rep = d is not None and d.replanned
+            log.append(dict(step=timing.round - 1, dispatch_s=timing.dispatch_s,
+                            pad_s=timing.pad_wall_s, skipped=timing.skipped,
+                            smoothed_s=t.clock.smoothed_s, decision=d,
+                            structural=rep and exe.last_replan_structural,
+                            hit=rep and exe.last_bucket_hit, workers=exe.num_workers,
+                            n=exe.n))
+            if after is not None:
+                after(t)
+            return d
+
+        t.controller.observe_timing = observe
+        return log
+
+    def report(name, t, log, hist, counts):
+        for e in log:
+            d = e["decision"]
+            line = (f"[train-adapt] {name} step {e['step']}: dispatch {e['dispatch_s']:.4f} s"
+                    + (f" + pad {e['pad_s']:.4f} s" if e["pad_s"] else "")
+                    + (f" (not fed: {e['skipped']})" if e["skipped"] else ""))
+            if d is not None:
+                line += f"; decision {d.reason}, gain {d.gain:.4f}"
+                if d.replanned:
+                    line += (f"; replanned: {'bucket hit' if e['hit'] else 'bucket miss'}"
+                             f"{'' if t.executor.buckets is not None else ' (no buckets)'}, "
+                             f"structural {e['structural']}, workers {e['workers']}, n {e['n']}")
+            print(line)
+        for i, e in enumerate(log[:-1]):
+            if e["decision"] is not None and e["decision"].replanned:
+                nxt = log[i + 1]
+                print(f"[train-adapt] {name}: the round after the replan at step {e['step']} "
+                      f"took {nxt['dispatch_s']:.4f} s against a smoothed round of "
+                      f"{e['smoothed_s']:.4f} s ({nxt['dispatch_s'] / e['smoothed_s']:.3f}x; "
+                      f"{'not fed' if nxt['skipped'] else 'fed'})")
+        skipped = int(sum(h["skipped"] for h in hist))
+        print(f"[train-adapt] {name}: clock {t.clock.fed}/{t.clock.rounds} rounds fed, unit_s "
+              f"{t.clock.unit_s:.4e}, step builds {t.step_builds}, skipped steps {skipped}, "
+              f"step walls {min(t.step_seconds):.3f}-{max(t.step_seconds):.3f} s; "
+              f"launches {counts}")
+        check(counts["fused_ce_fwd"] == len(hist), f"{name}: fused_ce_fwd == steps")
+        for k in ("fused_ce_bwd_dh", "fused_ce_bwd_de"):
+            check(counts[k] == len(hist) - skipped, f"{name}: {k} == steps not skipped")
+        check(all(math.isfinite(h["loss"]) for h in hist), f"{name}: finite losses")
+
+    # (a) churn, measured, bucketed
+    t = trainer(TA_STEPS, scenario="churn", bucket_quantum=TA_QUANTUM)
+    log = instrument(t)
+    kernels.reset_launch_counts()
+    _, _, hist = t.run()
+    counts_a = kernels.launch_counts()
+    report("churn", t, log, hist, counts_a)
+    replans = [e for e in log if e["decision"] is not None and e["decision"].replanned]
+    structural = sum(bool(e["structural"]) for e in replans)
+    membership = [(e["step"], e["workers"]) for e in replans
+                  if e["decision"].reason == "membership"]
+    print(f"[train-adapt] churn: membership replans (step, workers) {membership}; "
+          f"{len(replans)} replans, {structural} structural, "
+          f"{sum(bool(e['hit']) for e in replans)} bucket hits")
+    check(membership == TA_MEMBERSHIP, f"churn: membership replans at {TA_MEMBERSHIP}")
+    check(t.clock.rounds == TA_STEPS and t.clock.fed == TA_STEPS - 1 - structural,
+          "churn: every step timed, all but warmup and rebuilds fed")
+    check(t.step_builds == 1 + structural, "churn: one step build per structural replan")
+    del t
+
+    # (b) a static fleet, the fast group padded by a slept pad from fed round 4
+    t = trainer(TA_PAD_STEPS)
+    old = [float(x) for x in t.executor.plan.allocation.loads]
+
+    def pad_fast_group(tr):
+        if tr.clock.fed == TA_PAD_AT and tr.clock.pad_s is None:
+            pad = [0.0] * tr.executor.num_workers
+            pad[: CLUSTER[0][0]] = [TA_PAD * tr.clock.unit_s * float(tr.executor.deadline)] \
+                * CLUSTER[0][0]
+            tr.clock.pad_s = pad
+            print(f"[train-adapt] pad: {pad[0]:.4f} s on the fast group's "
+                  f"{CLUSTER[0][0]} workers from fed round {TA_PAD_AT + 1} ({TA_PAD} x "
+                  f"unit_s {tr.clock.unit_s:.4e} x deadline {tr.executor.deadline:.6f})")
+
+    log = instrument(t, pad_fast_group)
+    kernels.reset_launch_counts()
+    _, _, hist = t.run()
+    counts_b = kernels.launch_counts()
+    report("pad", t, log, hist, counts_b)
+    decisions = [e["decision"] for e in log if e["decision"] is not None]
+    first = next((d.round for d in decisions if d.replanned), None)
+    new = [float(x) for x in t.executor.plan.allocation.loads]
+    print(f"[train-adapt] pad: first replan at fed round {first} (the pad from fed round "
+          f"{TA_PAD_AT + 1}, cadence {TA_EVERY}); loads per group {old} -> {new}")
+    check(first is not None and TA_PAD_AT < first <= TA_PAD_AT + 2 * TA_EVERY,
+          "pad: a replan within two cadences of the pad")
+    check(new[0] < old[0], "pad: the padded group gets fewer rows")
+    del t, model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"train_adapt_churn": counts_a, "train_adapt_pad": counts_b}
+
+
 def cli_phase(runs: list[tuple[list[str], list[str]]]) -> None:
     """The serving CLI as a user runs it, each run ``(flags, expect)`` in a
     process of its own, all started together (most of a run is the
@@ -1427,6 +1800,8 @@ def main() -> int:
     for name, c in adapt_phase(model, card).items():
         paths[f"adapt_{name}"] = c
     lap("adapt")
+    paths.update(adapt_measured_phase(model, card, paged_rep))
+    lap("adapt-measured")
     del model
     torch.cuda.empty_cache()
     cli_phase([
@@ -1439,7 +1814,10 @@ def main() -> int:
     ])
     lap("cli")
     paths["train"] = train_phase(get_arch("qwen3-0.6b"))
+    torch.cuda.empty_cache()
     lap("train")
+    paths.update(train_adapt_phase(get_arch("qwen3-0.6b")))
+    lap("train-adapt")
 
     import repro_torch.kernels as kernels
 

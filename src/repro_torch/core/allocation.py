@@ -19,7 +19,10 @@ Counterpart of ``repro/core/allocation.py``, eager path only:
 
 The bisections stop early at a residual of ``BISECT_TOL`` and assert a
 final residual below ``BISECT_RESIDUAL_BOUND``, as the reference's eager
-path does.
+path does. The reference's fused fast path (``alloc_fastpath``, whose
+gain is jit fusion) has no counterpart: written as eager torch float64
+cores it solved a replan's allocation slower than these numpy solvers
+on the H100 machine's host (PERF.md).
 
 Every function works on per-group ``(N, mu, alpha)`` arrays from
 ``ClusterSpec.arrays`` and returns an ``AllocationPlan``.

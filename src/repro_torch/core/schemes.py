@@ -29,25 +29,31 @@ from repro_torch.core.runtime_model import (
     LatencyModel,
     resolve_latency_model,
 )
+from repro_torch.obs.metrics import REGISTRY as _METRICS
 
 #: allocate() memo: (scheme, cluster, k) -> plan. Schemes and ClusterSpec
 #: are frozen dataclasses, so equality covers every input of the solve.
 _ALLOC_CACHE: dict = {}
 _ALLOC_CACHE_CAP = 512
-#: memo hits and misses since the last clear (the adaptive controller's
-#: ``alloc_cache_hit`` event reads them)
-_ALLOC_COUNTS = {"hits": 0, "misses": 0}
+#: memo hits and misses since the last clear, in the process-global
+#: metrics registry (the memo is module state with no run to hang a
+#: registry on); the adaptive controller's ``alloc_cache_hit`` event reads
+#: them and a training run's final ``metrics_snapshot`` reports them
+_ALLOC_HITS = _METRICS.counter("alloc_cache_hits")
+_ALLOC_MISSES = _METRICS.counter("alloc_cache_misses")
 
 
 def allocate_cache_clear() -> None:
     """Drop all memoized allocations and zero the hit/miss counts."""
     _ALLOC_CACHE.clear()
-    _ALLOC_COUNTS.update(hits=0, misses=0)
+    _ALLOC_HITS.reset()
+    _ALLOC_MISSES.reset()
 
 
 def allocate_cache_info() -> dict:
     """Memo stats: entries, cap, hits and misses."""
-    return {"size": len(_ALLOC_CACHE), "cap": _ALLOC_CACHE_CAP, **_ALLOC_COUNTS}
+    return {"size": len(_ALLOC_CACHE), "cap": _ALLOC_CACHE_CAP,
+            "hits": _ALLOC_HITS.value, "misses": _ALLOC_MISSES.value}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,13 +86,13 @@ class AllocationScheme:
         cache_key = (self, cluster, int(k))
         plan = _ALLOC_CACHE.get(cache_key)
         if plan is None:
-            _ALLOC_COUNTS["misses"] += 1
+            _ALLOC_MISSES.inc()
             plan = self._allocate(cluster, k)
             if len(_ALLOC_CACHE) >= _ALLOC_CACHE_CAP:
                 _ALLOC_CACHE.pop(next(iter(_ALLOC_CACHE)))
             _ALLOC_CACHE[cache_key] = plan
         else:
-            _ALLOC_COUNTS["hits"] += 1
+            _ALLOC_HITS.inc()
         return dataclasses.replace(
             plan, loads=plan.loads.copy(), loads_int=plan.loads_int.copy(),
             r=plan.r.copy(), scheme_obj=self, scheme=self.tag,

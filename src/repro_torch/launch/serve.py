@@ -12,13 +12,18 @@ per-slot caches. ``--scenario`` serves ``--rounds`` rounds of one
 generate each against a drifting true fleet (a registered cluster
 scenario); with ``--adapt-every`` an ``AdaptiveController`` observes
 every round and replans the coded head (re-encoded through B3) when its
-hysteresis rule fires.
+hysteresis rule fires. ``--measure-times`` runs each dispatch (a
+``generate`` round, or a serve chunk of ``--trace``) under a
+``RoundClock`` and, with a controller, replans from the measured times;
+it prints ``measured: F/R rounds fed``. ``--bucket-quantum`` quantizes
+the head's loads so that a replan within the bucket capacity keeps the
+coded head (no B3 re-encode).
 
-Not ported (argparse refuses them): plan bucketing
-(``--bucket-quantum``), measured timing (``--measure-times``),
-telemetry and Chrome traces (``--telemetry``, ``--chrome-trace``),
-``--slots auto``, the reference's numpy host loop (``--legacy-decode``)
-and ``--use-kernel`` (on the card the head always runs its kernel).
+Not ported (argparse refuses them): telemetry and Chrome traces
+(``--telemetry``, ``--chrome-trace``; the measured rounds'
+``round_timing`` events stay in memory), ``--slots auto``, the
+reference's numpy host loop (``--legacy-decode``) and ``--use-kernel``
+(on the card the head always runs its kernel).
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ from repro_torch.core.runtime_model import ClusterSpec
 from repro_torch.core.schemes import make_scheme, scheme_names
 from repro_torch.models.model import Model
 from repro_torch.runtime.serve_loop import ServeConfig, Server
+from repro_torch.runtime.telemetry import Telemetry
+from repro_torch.runtime.timing import RoundClock
 from repro_torch.serve.workload import make_workload, workload_names
 from repro_torch.sim import make_scenario, scenario_names
 
@@ -74,6 +81,10 @@ def main(argv=None):
     ap.add_argument("--adapt-threshold", type=float, default=None,
                     help="hysteresis: replan only when the estimated latency "
                          "improves by this fraction (default 0.05)")
+    ap.add_argument("--bucket-quantum", type=int, default=None,
+                    help="quantize the coded head's integer loads to this multiple: "
+                         "replans within the admitted bucket capacity keep the coded "
+                         "head (no B3 re-encode)")
     ap.add_argument("--rounds", type=int, default=None,
                     help="rounds to serve under --scenario (default 24)")
     ap.add_argument("--trace", default=None, choices=workload_names(),
@@ -101,6 +112,10 @@ def main(argv=None):
                          "sheds earlier)")
     ap.add_argument("--trace-seed", type=int, default=0,
                     help="workload trace seed for --trace")
+    ap.add_argument("--measure-times", action="store_true",
+                    help="time each dispatch with a RoundClock and adapt from the "
+                         "measured wall times instead of simulated ones (requires "
+                         "--coded)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain paths)")
     args = ap.parse_args(argv)
@@ -111,6 +126,9 @@ def main(argv=None):
     if args.adapt_every is not None and args.scenario is None:
         raise SystemExit("--adapt-every requires --scenario (closed-loop serving is "
                          "driven by a scenario trace)")
+    if args.measure_times and not args.coded:
+        raise SystemExit("--measure-times requires --coded (round times are decomposed "
+                         "over the coded fleet)")
 
     config = get_arch(args.arch)
     if args.reduced:
@@ -120,7 +138,8 @@ def main(argv=None):
                          upload=args.comm_upload, download=args.comm_download)
     cluster = ClusterSpec.parse(args.groups, args.bandwidth) if args.coded else None
     server = Server(model, cluster,
-                    ServeConfig(max_decode_steps=args.max_new, scheme=scheme))
+                    ServeConfig(max_decode_steps=args.max_new, scheme=scheme,
+                                bucket_quantum=args.bucket_quantum))
     if server.coded_head is not None:
         h = server.coded_head
         print(f"coded LM head [{h.plan.scheme}]: "
@@ -157,10 +176,15 @@ def _serve_trace(server: Server, args, config):
     wl = make_workload(args.trace, arrival_rate=args.arrival_rate,
                        num_requests=args.num_requests, vocab=config.vocab_size)
     trace = wl.trace(seed=args.trace_seed)
+    # the round_timing events stay in memory (no --telemetry sink yet)
+    clock = RoundClock(server.coded_head.executor, telemetry=Telemetry(None)) \
+        if args.measure_times else None
     rep = server.serve(trace, slots=args.slots,
-                       admission_threshold=args.admission_threshold,
+                       admission_threshold=args.admission_threshold, clock=clock,
                        paged=not args.dense_kv, block_len=args.block_len,
                        num_blocks=args.num_blocks, prefill_chunk=args.prefill_chunk)
+    if clock is not None:
+        _print_measured(clock)
     lat = rep.latencies()
     print(f"workload {wl.name!r}: {len(trace)} requests "
           f"(rate={wl.arrival_rate}/round, seed={args.trace_seed})")
@@ -174,6 +198,11 @@ def _serve_trace(server: Server, args, config):
     return rep
 
 
+def _print_measured(clock) -> None:
+    unit = "-" if clock.unit_s is None else f"{clock.unit_s:.3e}"
+    print(f"measured: {clock.fed}/{clock.rounds} rounds fed, unit_s={unit}")
+
+
 def _serve_scenario(server: Server, prompts, args, cluster, sync):
     """Serve rounds against a drifting true fleet, optionally closed-loop.
 
@@ -181,7 +210,10 @@ def _serve_scenario(server: Server, prompts, args, cluster, sync):
     finish masks draw from, runs one ``generate`` (seed = the round), and
     with ``--adapt-every`` lets the ``AdaptiveController`` observe one
     round of true times (its own generator, seed 7) and maybe replan.
-    Returns the controller (None without ``--adapt-every``).
+    With ``--measure-times`` each round runs under a ``RoundClock`` that
+    decomposes its measured wall with that generator, and the controller
+    observes the timing instead. Returns the controller (None without
+    ``--adapt-every``).
     """
     from repro_torch.runtime.control import AdaptConfig, AdaptiveController
 
@@ -199,6 +231,8 @@ def _serve_scenario(server: Server, prompts, args, cluster, sync):
                         else args.adapt_threshold),
             on_replan=server.refresh_coded_head,
         )
+    clock = RoundClock(head.executor, telemetry=Telemetry(None)) \
+        if args.measure_times else None
     observe = torch.Generator().manual_seed(7)
     sync()
     t0 = time.perf_counter()
@@ -206,10 +240,21 @@ def _serve_scenario(server: Server, prompts, args, cluster, sync):
     for t in range(rounds):
         truth = trace.at(t)
         server.set_true_cluster(truth)
-        out = server.generate(prompts, args.max_new, seed=t)
+        d = None
+        if clock is not None:
+            timing = clock.measure(lambda: server.generate(prompts, args.max_new, seed=t),
+                                   generator=observe, true_cluster=truth)
+            out = timing.result
+            if controller is not None:
+                d = controller.observe_timing(timing)
+        else:
+            out = server.generate(prompts, args.max_new, seed=t)
+            if controller is not None:
+                d = controller.observe_truth(observe, truth)
         toks += out.shape[0] * args.max_new
-        d = controller.observe_truth(observe, truth) if controller is not None else None
         if d is not None and d.replanned:
+            if clock is not None and head.executor.last_replan_structural:
+                clock.discard_next()  # the next round pays the B3 re-encode
             print(f"[round {t}] replanned ({d.reason}): "
                   f"deadline -> {head.deadline:.4f}, "
                   f"loads {head.plan.loads_per_worker.tolist()}")
@@ -217,6 +262,8 @@ def _serve_scenario(server: Server, prompts, args, cluster, sync):
     dt = time.perf_counter() - t0
     print(f"scenario {spec.name!r}: {rounds} rounds, {toks} tokens in "
           f"{dt:.2f}s ({toks / dt:.1f} tok/s)")
+    if clock is not None:
+        _print_measured(clock)
     if controller is not None:
         replans = [d for d in controller.decisions if d.replanned]
         print(f"controller: {len(controller.decisions)} decisions, "

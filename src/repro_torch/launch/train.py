@@ -5,8 +5,12 @@ the synthetic pipeline, on the card unless ``--device cpu``. Supports
 checkpoint/restart (``--resume`` picks up the latest step) and coded
 execution: ``--hetero-groups`` plans a straggler fleet and runs
 gradient-coded training (``--scheme``, any registered allocation scheme,
-``grad_coding`` by default). The reference's scenario, adaptive-control,
-measured-time and plan-bucket flags are not ported yet.
+``grad_coding`` by default). ``--scenario`` drifts the true fleet over
+the run, ``--adapt-every`` replans against it with an
+``AdaptiveController`` (``--adapt-threshold`` its hysteresis),
+``--measure-times`` feeds the controller the steps' measured wall times
+through a ``RoundClock``, and ``--bucket-quantum`` quantizes the loads
+so that a replan within the bucket capacity keeps the coded step.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from repro_torch.data import SyntheticLMData
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime.train_loop import TrainConfig, Trainer, heterogeneous_batch_split
+from repro_torch.sim import scenario_names
 
 
 def main(argv=None):
@@ -47,6 +52,23 @@ def main(argv=None):
                          "default: one per batch row)")
     ap.add_argument("--deadline-safety", type=float, default=None,
                     help="per-round deadline = expected latency x this (default 3.0)")
+    ap.add_argument("--scenario", default=None, choices=scenario_names(),
+                    help="cluster-dynamics scenario perturbing the TRUE fleet over the "
+                         "run (requires --hetero-groups); pair with --adapt-every to "
+                         "close the loop")
+    ap.add_argument("--adapt-every", type=int, default=None,
+                    help="closed-loop control cadence: fold straggler estimates and "
+                         "maybe replan every R steps (requires --hetero-groups)")
+    ap.add_argument("--adapt-threshold", type=float, default=None,
+                    help="hysteresis: replan only when the estimated latency improves "
+                         "by this fraction (default 0.05)")
+    ap.add_argument("--bucket-quantum", type=int, default=None,
+                    help="quantize integer partition loads to this multiple: replans "
+                         "within the admitted bucket capacity keep the coded step")
+    ap.add_argument("--measure-times", action="store_true",
+                    help="time each coded step with a RoundClock and adapt from the "
+                         "measured wall times instead of simulated ones (requires "
+                         "--hetero-groups)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain paths)")
     args = ap.parse_args(argv)
@@ -54,7 +76,12 @@ def main(argv=None):
         coded_flags = [
             name for name, v in (("--scheme", args.scheme),
                                  ("--partitions", args.partitions),
-                                 ("--deadline-safety", args.deadline_safety))
+                                 ("--deadline-safety", args.deadline_safety),
+                                 ("--scenario", args.scenario),
+                                 ("--adapt-every", args.adapt_every),
+                                 ("--adapt-threshold", args.adapt_threshold),
+                                 ("--bucket-quantum", args.bucket_quantum),
+                                 ("--measure-times", args.measure_times or None))
             if v is not None
         ]
         if coded_flags:
@@ -92,6 +119,11 @@ def main(argv=None):
         scheme=args.scheme or "grad_coding",
         partitions=args.partitions,
         deadline_safety=3.0 if args.deadline_safety is None else args.deadline_safety,
+        scenario=args.scenario,
+        adapt_every=args.adapt_every,
+        adapt_threshold=0.05 if args.adapt_threshold is None else args.adapt_threshold,
+        bucket_quantum=args.bucket_quantum,
+        measure_times=args.measure_times,
     )
     print(f"training {config.name}: {model.param_count():,} params on {model.device}")
     trainer = Trainer(model, data, opt_cfg, cfg)
@@ -101,6 +133,10 @@ def main(argv=None):
               f"k={trainer.partitions} n={plan.n} "
               f"loads={plan.loads_per_worker.tolist()} "
               f"deadline={trainer.executor.deadline:.4f}")
+    if trainer.controller is not None:
+        print(f"adaptive control: every {cfg.adapt_every} steps, "
+              f"threshold {cfg.adapt_threshold:.0%}"
+              + (f", scenario={args.scenario}" if args.scenario else ""))
     _, _, history = trainer.run()
     if history:
         first, last = history[0], history[-1]
@@ -109,6 +145,16 @@ def main(argv=None):
             skipped = sum(h.get("skipped", 0.0) for h in history)
             print(f"coded rounds logged: {len(history)}, skipped steps "
                   f"among them: {int(skipped)}")
+    if trainer.clock is not None:
+        ck = trainer.clock
+        unit = "-" if ck.unit_s is None else f"{ck.unit_s:.3e}"
+        print(f"measured: {ck.fed}/{ck.rounds} rounds fed, unit_s={unit}")
+    if trainer.controller is not None:
+        ctl = trainer.controller
+        replanned = [d for d in ctl.decisions if d.replanned]
+        print(f"controller: {len(ctl.decisions)} decisions, {len(replanned)} replans "
+              f"(rounds {[d.round for d in replanned]}), "
+              f"final deadline {trainer.executor.deadline:.4f}")
     return model
 
 

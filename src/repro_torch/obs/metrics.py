@@ -4,13 +4,16 @@ Host-only copy of the part of ``repro/obs/metrics.py`` that the slot
 scheduler and the block pool use. Metrics are keyed ``(name, sorted
 labels)``; ``counter``/``gauge``/``histogram`` are get-or-create.
 ``snapshot()`` renders everything JSON-safe and ``emit()`` writes one
-``metrics_snapshot`` telemetry event.
+``metrics_snapshot`` telemetry event. ``REGISTRY`` is the process-global
+one: the allocation memo's hit and miss counters live there, and the
+trainer emits it at the end of a run.
 """
 from __future__ import annotations
 
 import bisect
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "LATENCY_BUCKETS"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "LATENCY_BUCKETS",
+           "REGISTRY"]
 
 #: default latency buckets (virtual rounds / seconds): geometric, wide
 #: enough for both sub-round erasure solves and hundred-round tails
@@ -182,3 +185,7 @@ class MetricsRegistry:
             "metrics_snapshot", metrics=snap, size=len(snap), **fields
         )
 
+
+#: process-global registry for module-level emitters; per-run loops
+#: construct their own for isolation
+REGISTRY = MetricsRegistry()

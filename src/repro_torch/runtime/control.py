@@ -1,8 +1,11 @@
 """AdaptiveController: the closed replan loop over one round executor.
 
-Counterpart of ``repro/runtime/control.py`` (host-side numpy) without
-the measured-time feed (``observe_timing``), which needs a round clock:
+Counterpart of ``repro/runtime/control.py`` (host-side numpy):
 
+* **observations** — ``observe_truth`` samples a scenario's true fleet
+  with the executor's own sampler (simulated times); ``observe_timing``
+  ingests a ``RoundTiming`` of ``runtime/timing.RoundClock`` (measured
+  wall-clock times, decomposed per worker);
 * **cadence** — fold ``StragglerTracker`` estimates every ``every``
   rounds (estimates between cadence points only accumulate);
 * **hysteresis** — replan only when the estimated-latency improvement
@@ -10,8 +13,10 @@ the measured-time feed (``observe_timing``), which needs a round clock:
   mean-field ``coverage_latency``, so decisions never flap on
   Monte-Carlo noise;
 * **replan cost** — the saving ``(t_cur - t_new) * horizon`` must also
-  pay for ``replan_cost`` (round-latency units; a replan re-encodes the
-  coded head through B3);
+  pay for ``replan_cost`` (round-latency units; a structural replan
+  re-encodes the coded head through B3 or rebuilds the train step). A
+  bucket-mode executor whose ``bucket_probe`` says the candidate lands
+  in an admitted bucket replans for free;
 * **membership changes always replan**;
 * **telemetry** — every decision is an ``adapt_decision`` event, and new
   allocation-memo hits an ``alloc_cache_hit`` event.
@@ -345,6 +350,21 @@ class AdaptiveController:
             payload=float(sch.upload) if comm else 1.0,
         )
 
+    def observe_timing(self, timing) -> Decision | None:
+        """Ingest one measured round (a ``RoundTiming`` of ``RoundClock``).
+
+        The wall-clock counterpart of ``observe_truth``: times and
+        transfer shares were measured and decomposed by the clock, the
+        membership comes with the timing. A timing the clock did not feed
+        (warmup, outlier, flagged rebuild: ``timing.times is None``) is a
+        no-op, so callers may feed every round.
+        """
+        if timing is None or timing.times is None:
+            return None
+        return self.observe_round(timing.times, membership=timing.membership,
+                                  transfer_times=timing.transfer_times,
+                                  payload=timing.payload)
+
     def estimated_cluster(self) -> ClusterSpec:
         """Tracker estimates + registration membership, as a ClusterSpec.
 
@@ -440,20 +460,23 @@ class AdaptiveController:
     def update(self) -> Decision:
         """Run one decision now (the cadence calls this automatically).
 
-        Every replan rebuilds the coded state (no bucket mode), so every
-        replan is charged ``cfg.replan_cost``. The decision's span shares
-        the executor's tracer, so the executor's ``replan`` span nests
-        inside it.
+        With a bucket-mode executor, ``bucket_probe`` asks whether the
+        candidate plan lands in an admitted bucket (a replan that keeps
+        every shape); only when it does not is ``cfg.replan_cost``
+        charged. Without bucket mode every replan is charged. The
+        decision's span shares the executor's tracer, so the executor's
+        ``replan`` span nests inside it.
         """
         tracer = getattr(self.executor, "tracer", NULL_TRACER)
         with tracer.span("adapt_update", round=self.round) as sp:
             est = self.estimated_cluster()
+            probe = self.executor.bucket_probe(est)
             d = replan_decision(
                 self.executor.scheme,
                 self.executor.plan,
                 est,
                 threshold=self.cfg.threshold,
-                replan_cost=self.cfg.replan_cost,
+                replan_cost=0.0 if probe else self.cfg.replan_cost,
                 horizon=self.cfg.horizon,
                 round=self.round,
             )

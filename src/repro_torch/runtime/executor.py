@@ -1,6 +1,6 @@
 """CodedRoundExecutor: the per-round coded-execution mechanics.
 
-Counterpart of ``repro/runtime/executor.py`` without bucket mode:
+Counterpart of ``repro/runtime/executor.py``:
 
 * **deadline** — the scheme's expected latency x safety, finite for every
   registered scheme; Monte Carlo on the integer loads when integerization
@@ -16,13 +16,24 @@ Counterpart of ``repro/runtime/executor.py`` without bucket mode:
 * **elastic replan** — ``replan`` / ``on_estimates_update`` rebuild the
   plan, deadline and scatter map on a membership or estimate change,
   inside a ``replan`` span of ``tracer``. Without bucket mode every
-  replan changes shapes, so ``last_replan_structural`` stays True.
+  replan changes shapes, so ``last_replan_structural`` stays True;
+* **bucket mode** (``bucket_config``) — integer loads are quantized onto
+  bucket shapes and the admitted buckets are held as stacked state on
+  the device (``bucket_args``: the ``(B, ...)`` tensors and a 0-d device
+  index, rewritten in place). ``round_times``, ``finish_mask`` and
+  ``slot_mask`` then read the active row on the device themselves, and
+  the slot mask spans the slot capacity ``n_slots`` (padding rows dead),
+  so callers use one API in both modes. A replan that keeps the worker
+  count and fits the slot capacity (``last_replan_structural`` False)
+  changes only tensor values; the ``plan_bucket_hit`` /
+  ``plan_bucket_miss`` events report each replan.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.coding import make_generator
 from repro_torch.core.engine import CodedComputeEngine, plan_deadline
 from repro_torch.core.planner import DeploymentPlan
 from repro_torch.core.runtime_model import (
@@ -34,6 +45,13 @@ from repro_torch.core.runtime_model import (
 from repro_torch.core.schemes import AllocationScheme
 from repro_torch.device import resolve_device
 from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.runtime.plan_bucket import (
+    BucketConfig,
+    PlanBucketSet,
+    bucket_signature,
+    quantize_loads_int,
+    quantize_plan,
+)
 
 
 class CodedRoundExecutor:
@@ -52,17 +70,76 @@ class CodedRoundExecutor:
         scheme_params: dict | None = None,
         deadline_safety: float = 3.0,
         device: str | torch.device = "cuda",
+        bucket_config: BucketConfig | None = None,
+        telemetry=None,
         tracer=None,
     ):
         self.engine = CodedComputeEngine(cluster, k, scheme,
                                          scheme_params=scheme_params)
         self.deadline_safety = float(deadline_safety)
         self.device = resolve_device(device)
+        self.bucket_config = bucket_config
+        self.telemetry = telemetry
         #: span tracer; the owning loop may share its own
         self.tracer = tracer if tracer is not None else NULL_TRACER
-        #: did the last (re)plan change shapes? Always, without bucket mode
+        #: admitted bucket branches (None: bucket mode off)
+        self.buckets: PlanBucketSet | None = None
+        #: the buckets' stacked device state and the 0-d device index of
+        #: the active one (``bucket_args``)
+        self._bucket_state: dict | None = None
+        self._bucket_index: torch.Tensor | None = None
+        #: row of ``buckets`` the current plan lives in
+        self.active_bucket = 0
+        #: did the last (re)plan change shapes (consumers must rebuild)?
         self.last_replan_structural = True
-        self._bind_plan(self.engine.plan)
+        #: did the last replan land in an already admitted bucket?
+        self.last_bucket_hit = False
+        self._refresh()
+
+    def _refresh(self) -> None:
+        """Structural (re)build from the engine's plan (quantized in
+        bucket mode, with a fresh bucket set)."""
+        plan = self.engine.plan
+        if self.bucket_config is not None:
+            plan = quantize_plan(plan, self.bucket_config.quantum)
+        self._bind_plan(plan)
+        if self.bucket_config is not None:
+            self._init_buckets()
+
+    def _init_buckets(self) -> None:
+        cfg, plan = self.bucket_config, self.plan
+        n_cap = int(np.ceil(plan.n * cfg.n_headroom))
+        self.buckets = PlanBucketSet(plan.num_workers, n_cap, cfg.capacity, self.device)
+        sig = bucket_signature(plan.cluster, plan.allocation.loads_int, self.k)
+        self.active_bucket, _ = self.buckets.admit(sig, plan, self.deadline,
+                                                   *self.worker_params)
+        self._bucket_state = self.buckets.device_state()
+        self._bucket_index = torch.tensor(self.active_bucket, dtype=torch.int64,
+                                          device=self.device)
+
+    def _publish_bucket(self) -> None:
+        """Copy the set's rows and the active index into the device state
+        in place, so every holder of ``bucket_args`` sees the switch."""
+        for key, value in self.buckets.device_state().items():
+            self._bucket_state[key].copy_(value)
+        self._bucket_index.fill_(self.active_bucket)
+
+    def _active(self, key: str) -> torch.Tensor:
+        """The active bucket's row of ``key``, gathered on the device."""
+        return self._bucket_state[key].index_select(0, self._bucket_index.reshape(1))[0]
+
+    def _emit_bucket_event(self, *, hit: bool, structural: bool) -> None:
+        if self.telemetry is None:
+            return
+        self.telemetry.event(
+            "plan_bucket_hit" if hit else "plan_bucket_miss",
+            structural=structural,
+            bucket=self.active_bucket,
+            buckets=len(self.buckets) if self.buckets is not None else 0,
+            n=self.plan.n,
+            n_cap=self.buckets.n_cap if self.buckets is not None else 0,
+            workers=self.plan.num_workers,
+        )
 
     def _bind_plan(self, plan: DeploymentPlan) -> None:
         """Recompute the deadline and device arrays for ``plan``."""
@@ -138,12 +215,20 @@ class CodedRoundExecutor:
         return self.plan.n
 
     @property
+    def n_slots(self) -> int:
+        """Rows of a slot mask and of the code that consumers build: the
+        slot capacity ``n_cap`` in bucket mode, else ``n``."""
+        return self.buckets.n_cap if self.buckets is not None else self.plan.n
+
+    @property
     def num_workers(self) -> int:
         return self.plan.num_workers
 
     def generator(self, *, g: np.ndarray | None = None) -> torch.Tensor:
-        """(n, k) MDS generator sized to the plan, on the executor's device."""
-        return self.engine.generator(g=g, device=self.device)
+        """(n_slots, k) MDS generator on the executor's device: sized to the
+        plan, or in bucket mode to the slot capacity (its first ``n`` rows
+        are the plan's code)."""
+        return make_generator(self.n_slots, self.k, g=g, device=self.device)
 
     def _integer_load_deadline(self, safety: float) -> float:
         """Deadline commensurate with the INTEGERIZED deployment.
@@ -175,28 +260,41 @@ class CodedRoundExecutor:
         ``mus``/``alphas``/``shifts`` (W,) override the plan's worker
         parameters: a closed loop samples the true fleet
         (``worker_param_arrays(true_cluster)``) while loads and deadline
-        stay those of the plan the controller last chose.
+        stay those of the plan the controller last chose. In bucket mode
+        the loads and default parameters are the active bucket's row.
         """
+        if self.buckets is None:
+            loads, mus0, alphas0, shifts0 = (self._loads_w, self._mus_w, self._alphas_w,
+                                             self._shift_w)
+        else:
+            loads, mus0, alphas0, shifts0 = (self._active(key) for key in
+                                             ("loads", "mus", "alphas", "shifts"))
         return sample_worker_times(
-            generator, self._loads_w,
-            self._mus_w if mus is None else mus,
-            self._alphas_w if alphas is None else alphas, self.k, 1,
+            generator, loads,
+            mus0 if mus is None else mus,
+            alphas0 if alphas is None else alphas, self.k, 1,
             model=self.engine.scheme.latency_model,
-            shift_per_worker=self._shift_w if shifts is None else shifts,
+            shift_per_worker=shifts0 if shifts is None else shifts,
         )[0]
 
     def finish_mask(self, generator: torch.Generator, deadline=None, *, mus=None,
                     alphas=None, shifts=None) -> torch.Tensor:
-        """(W,) bool: which workers finish by ``deadline`` (default planned);
-        the overrides are ``round_times``'s."""
+        """(W,) bool: which workers finish by ``deadline`` (default planned;
+        in bucket mode the active bucket's, on the device); the overrides
+        are ``round_times``'s."""
         if deadline is None:
-            deadline = self.deadline
+            deadline = self.deadline if self.buckets is None else self._active("deadline")
         return self.round_times(generator, mus=mus, alphas=alphas,
                                 shifts=shifts) <= deadline
 
     def slot_mask(self, worker_mask: torch.Tensor) -> torch.Tensor:
-        """Gather a (W,) worker finish mask to the (n,) slot-erasure mask."""
-        return worker_mask.to(torch.bool)[self.slot_owner]
+        """Gather a (W,) worker finish mask to the (n_slots,) slot-erasure
+        mask; in bucket mode through the active bucket's owner map, with
+        the capacity padding rows always dead."""
+        worker_mask = worker_mask.to(torch.bool)
+        if self.buckets is None:
+            return worker_mask[self.slot_owner]
+        return worker_mask[self._active("owner")] & self._active("alive")
 
     def sample_round_times(self, generator: torch.Generator,
                            cluster: ClusterSpec | None = None) -> np.ndarray:
@@ -219,14 +317,69 @@ class CodedRoundExecutor:
         times = self.round_times(generator, mus=mus, alphas=alphas, shifts=shifts)
         return times.cpu().numpy(), shifts.cpu().numpy()
 
+    # ------------------------------------------------------- bucket mode
+    def bucket_args(self) -> tuple[dict, torch.Tensor]:
+        """(stacked ``(B, ...)`` bucket state, 0-d device index of the active
+        bucket), the tensors the samplers read. A replan within capacity
+        rewrites them in place; a structural one replaces them."""
+        if self.buckets is None:
+            raise RuntimeError("bucket_args requires bucket_config")
+        return self._bucket_state, self._bucket_index
+
+    def bucket_probe(self, candidate_cluster: ClusterSpec) -> bool | None:
+        """Would replanning onto ``candidate_cluster`` keep every shape?
+
+        True iff the candidate's quantized signature is already admitted
+        (the controller charges ``replan_cost`` only when this is not
+        True); the set is left unchanged. None when bucket mode is off.
+        """
+        if self.buckets is None:
+            return None
+        if candidate_cluster.total_workers != self.buckets.num_workers:
+            return False
+        alloc = self.engine.scheme.allocate(candidate_cluster, self.k)
+        q = quantize_loads_int(alloc.loads_int, self.bucket_config.quantum)
+        n_w = np.asarray([g.num_workers for g in candidate_cluster.groups], np.int64)
+        if int(np.sum(n_w * q)) > self.buckets.n_cap:
+            return False
+        return bucket_signature(candidate_cluster, q, self.k) in self.buckets
+
     def replan(self, new_cluster: ClusterSpec) -> DeploymentPlan:
         """Re-plan on a membership or estimate change, scheme params kept;
-        rebuilds the deadline, scatter map and sampling arrays."""
+        rebuilds the deadline, scatter map and sampling arrays.
+
+        In bucket mode a replan that keeps the worker count and fits
+        ``n_cap`` only admits (or refreshes) its bucket and moves the
+        active index (``last_replan_structural`` False); otherwise the
+        bucket set is rebuilt around the new plan.
+        """
         with self.tracer.span("replan") as sp:
             self.engine.replan(new_cluster)
-            self._bind_plan(self.engine.plan)
-            self.last_replan_structural = True
-            sp.set(structural=True, workers=self.plan.num_workers)
+            if self.bucket_config is None:
+                self._refresh()
+                self.last_replan_structural = True
+                sp.set(structural=True, workers=self.plan.num_workers)
+                return self.plan
+            qplan = quantize_plan(self.engine.plan, self.bucket_config.quantum)
+            if (self.buckets is None or qplan.num_workers != self.buckets.num_workers
+                    or qplan.n > self.buckets.n_cap):
+                self._refresh()
+                self.last_replan_structural = True
+                self.last_bucket_hit = False
+                self._emit_bucket_event(hit=False, structural=True)
+                sp.set(structural=True, workers=self.plan.num_workers)
+                return self.plan
+            with self.tracer.span("bucket_switch") as bsp:
+                self._bind_plan(qplan)
+                sig = bucket_signature(qplan.cluster, qplan.allocation.loads_int, self.k)
+                self.active_bucket, hit = self.buckets.admit(
+                    sig, qplan, self.deadline, *self.worker_params)
+                self._publish_bucket()
+                self.last_replan_structural = False
+                self.last_bucket_hit = hit
+                self._emit_bucket_event(hit=hit, structural=False)
+                bsp.set(hit=hit, bucket=self.active_bucket)
+            sp.set(structural=False, hit=hit, workers=self.plan.num_workers)
         return self.plan
 
     def on_estimates_update(self, tracker) -> DeploymentPlan:

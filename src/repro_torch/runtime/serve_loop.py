@@ -29,7 +29,15 @@ scenario's true fleet while the head keeps the plan the controller last
 chose; ``refresh_coded_head`` (an ``AdaptiveController``'s ``on_replan``)
 re-encodes the head for the executor's new plan through B3; and
 ``serve(controller=...)`` scales admission control by the controller's
-``coverage_latency``.
+``coverage_latency``. ``serve(clock=...)`` runs every dispatch under a
+``RoundClock`` and, with a controller, replans from the measured times.
+
+Bucket mode (``ServeConfig.bucket_quantum``): the head is coded once at
+the bucket slot capacity ``n_cap`` (the first ``n`` rows of a systematic
+``(n_cap, kb)`` code are a valid ``(n, kb)`` code), the finish mask and
+the block-erasure mask come from the active bucket's row, and a replan
+that lands in the capacity only rebinds host views: B3 runs again only
+on a structural replan.
 """
 from __future__ import annotations
 
@@ -48,6 +56,7 @@ from repro_torch.kernels.coded_matvec.ops import blocked_matvec
 from repro_torch.models.model import Model, padded_vocab
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.runtime.executor import CodedRoundExecutor
+from repro_torch.runtime.plan_bucket import BucketConfig
 from repro_torch.serve.scheduler import BlockPool, SlotScheduler
 
 NEG_INF = -1e30  # pad-vocab sentinel (matches Model._mask_pad_logits)
@@ -75,6 +84,17 @@ class ServeConfig:
     block_len: int = 16  # tokens per physical KV block
     num_blocks: int | None = None  # pool size; None = dense-equivalent auto
     prefill_chunk: int | None = None  # admission chunk; None = prompt_cap
+    # plan bucketing: quantize integer loads onto bucket shapes; a replan
+    # within the bucket capacity then keeps the coded head
+    bucket_quantum: int | None = None
+    bucket_capacity: int = 8
+    bucket_headroom: float = 1.5
+
+    def bucket_config(self) -> BucketConfig | None:
+        if self.bucket_quantum is None:
+            return None
+        return BucketConfig(quantum=self.bucket_quantum, capacity=self.bucket_capacity,
+                            n_headroom=self.bucket_headroom)
 
 
 class CodedLMHead:
@@ -84,26 +104,32 @@ class CodedLMHead:
     map come from a ``CodedRoundExecutor`` on the table's device; the
     head adds the coded vocab blocks and the logits encode/decode.
     ``g`` injects a numpy (nb, kb) generator in place of the seeded one.
+    With ``bucket_config`` the head is coded at the bucket slot capacity.
     """
 
     def __init__(self, embed_table: torch.Tensor, cluster: ClusterSpec, *,
                  block_rows: int = 256, scheme: str | AllocationScheme = "optimal",
-                 deadline_safety: float = 3.0, g: np.ndarray | None = None):
+                 deadline_safety: float = 3.0, g: np.ndarray | None = None,
+                 bucket_config: BucketConfig | None = None, telemetry=None):
         self.table = embed_table.detach().float()  # (Vp, D)
         self.block_rows = block_rows
         self.kb = -(-self.table.shape[0] // block_rows)
         self.executor = CodedRoundExecutor(
             cluster, self.kb, scheme, deadline_safety=deadline_safety,
-            device=self.table.device,
+            device=self.table.device, bucket_config=bucket_config, telemetry=telemetry,
         )
         self.refresh(g)
 
     def refresh(self, g: np.ndarray | None = None) -> None:
-        """(Re)bind the plan-derived state: nb, G (the seeded one of the
-        plan's size, or the injected (nb, kb) ``g``), coded blocks (one B3
-        launch), deadline."""
+        """(Re)bind the plan-derived state: nb, G (the seeded one, or the
+        injected (nb, kb) ``g``), coded blocks (one B3 launch), deadline.
+
+        In bucket mode nb is the slot capacity ``n_cap``: one generator
+        and one coded table serve every admitted bucket (capacity rows
+        are never alive), rebuilt only on a structural replan.
+        """
         self.plan: DeploymentPlan = self.executor.plan
-        self.nb = self.plan.n
+        self.nb = self.executor.n_slots
         self.generator = self.executor.generator(g=g)
         vp, d = self.table.shape
         blocks = F.pad(self.table, (0, 0, 0, self.kb * self.block_rows - vp))
@@ -114,11 +140,23 @@ class CodedLMHead:
         #: (nb,) worker holding each coded block
         self.block_owner = self.executor.slot_owner
 
+    def rebind_soft(self) -> None:
+        """Rebind after a bucket switch (not structural): generator and
+        coded blocks stay; the plan, deadline and scatter map views move,
+        and the executor's masks read the new bucket on the device."""
+        self.plan = self.executor.plan
+        self.deadline = self.executor.deadline
+        self.block_owner = self.executor.slot_owner
+
     def replan(self, new_cluster: ClusterSpec, *, g: np.ndarray | None = None
                ) -> DeploymentPlan:
-        """Elastic replan (scheme params kept), then ``refresh(g)``."""
+        """Elastic replan (scheme params kept), then ``refresh(g)``, or
+        ``rebind_soft`` after a bucket switch."""
         plan = self.executor.replan(new_cluster)
-        self.refresh(g)
+        if self.executor.last_replan_structural:
+            self.refresh(g)
+        else:
+            self.rebind_soft()
         return plan
 
     def finish_mask(self, generator: torch.Generator, deadline=None, *,
@@ -148,13 +186,15 @@ class CodedLMHead:
     def decode_logits(self, products: torch.Tensor, finished_workers: torch.Tensor):
         """(nb, B, R) + (W,) mask -> ((B, kb*R) logits, 0-d bool ok).
 
-        The torch twin of the reference's ``decode_logits_jit``: the worker
-        mask gathers through the scatter map to a block-erasure mask and
+        The torch twin of the reference's ``decode_logits_jit`` (and, in
+        bucket mode, ``decode_logits_bucket_jit``): the worker mask
+        gathers through the executor's ``slot_mask`` to an (nb,)
+        block-erasure mask (capacity padding rows dead) and
         ``decode_systematic`` solves the static (kb, kb) system.
         """
-        alive = finished_workers.to(torch.bool)[self.block_owner]
         nb, b, r = products.shape
-        z, ok = decode_systematic(self.generator, products.reshape(nb, b * r), alive)
+        z, ok = decode_systematic(self.generator, products.reshape(nb, b * r),
+                                  self.executor.slot_mask(finished_workers))
         return z.reshape(self.kb, b, r).permute(1, 0, 2).reshape(b, -1), ok
 
     def worker_products(self, h: torch.Tensor) -> torch.Tensor:
@@ -219,12 +259,16 @@ class Server:
         self.coded_head = (
             CodedLMHead(model.embed, cluster, block_rows=self.cfg.block_rows,
                         scheme=self.cfg.scheme,
-                        deadline_safety=self.cfg.deadline_safety)
+                        deadline_safety=self.cfg.deadline_safety,
+                        bucket_config=self.cfg.bucket_config())
             if cluster is not None else None
         )
         #: the true fleet's per-worker (mus, alphas, shifts) the finish
         #: masks draw from (``set_true_cluster``); None: the plan's own
         self._true_params = None
+        #: the ClusterSpec behind ``_true_params`` (a ``RoundClock``
+        #: decomposes against the spec)
+        self._true_cluster = None
 
     def set_true_cluster(self, cluster: ClusterSpec | None) -> None:
         """Draw the finish masks from ``cluster`` (a scenario's truth):
@@ -235,16 +279,23 @@ class Server:
             raise ValueError("set_true_cluster requires a coded head")
         self._true_params = (None if cluster is None
                              else self.coded_head.executor.worker_param_arrays(cluster))
+        self._true_cluster = cluster
 
     def refresh_coded_head(self) -> None:
         """Rebind the head to its executor's current plan: the new (nb, kb)
-        code is re-encoded through B3. The ``on_replan`` hook of an
-        ``AdaptiveController``; the true fleet is cleared (its per-worker
-        arrays had the old plan's shape), so set it again."""
+        code is re-encoded through B3, or, after a bucket switch, only the
+        host views move (``rebind_soft``, no B3). The ``on_replan`` hook of
+        an ``AdaptiveController``; the true fleet is cleared (its
+        per-worker arrays may have had the old plan's shape), so set it
+        again."""
         if self.coded_head is None:
             raise ValueError("refresh_coded_head requires a coded head")
-        self.coded_head.refresh()
+        if self.coded_head.executor.last_replan_structural:
+            self.coded_head.refresh()
+        else:
+            self.coded_head.rebind_soft()
         self._true_params = None
+        self._true_cluster = None
 
     def coded_select(self, logits: torch.Tensor, generator: torch.Generator,
                      deadline=None):
@@ -253,8 +304,9 @@ class Server:
         Pad-vocab sentinels are zeroed before the block mix (they would
         dominate the float32 solve) and re-masked after decode; when
         fewer than kb blocks survive, the round falls back to the plain
-        logits with ``torch.where`` (no host branch). Returns
-        (logits, ok, (W,) worker finish mask).
+        logits with ``torch.where`` (no host branch). In bucket mode the
+        executor draws with the active bucket's loads and masks with its
+        owner map. Returns (logits, ok, (W,) worker finish mask).
         """
         head = self.coded_head
         vocab = self.model.config.vocab_size
@@ -393,7 +445,7 @@ class Server:
     def serve(self, trace, *, slots: int = 4, prompt_cap: int | None = None,
               max_out: int | None = None, decode_block: int = 4, queue_cap: int = 64,
               admission_threshold: float = 1.0, controller=None, round_latency=None,
-              telemetry=None, seed: int = 0, paged: bool | None = None,
+              telemetry=None, clock=None, seed: int = 0, paged: bool | None = None,
               block_len: int | None = None, num_blocks: int | None = None,
               prefill_chunk: int | None = None) -> ServeReport:
         """Continuous batching: serve a request trace through S slots.
@@ -418,7 +470,16 @@ class Server:
         default ``controller.coverage_latency`` of an
         ``AdaptiveController``), the reference sampled once at the start,
         so the scheduler sheds when rounds are estimated to run slow.
+
+        ``clock`` (a ``runtime.timing.RoundClock``) times every dispatch
+        (the prefill chunk and decode chunk of a round) until the device is
+        done, decomposed with the generator cloned at the chunk's start (the
+        draw that gated its first step); with ``controller`` the timings
+        feed ``observe_timing``, so replans follow the measured rounds. The
+        clock changes no result. Requires a coded head.
         """
+        if clock is not None and self.coded_head is None:
+            raise ValueError("clock (measured serving) requires a coded head")
         set_full_fp32()
         paged = self.cfg.paged if paged is None else paged
         trace = sorted(trace, key=lambda r: (r.arrival, r.rid))
@@ -435,18 +496,38 @@ class Server:
                 reference = 1.0
         admission = dict(queue_cap=queue_cap, admission_threshold=admission_threshold,
                          round_latency=round_latency, reference_latency=reference)
+        measure = dict(clock=clock, controller=controller)
         if paged:
             return self._serve_paged(
                 trace, slots=slots, prompt_cap=prompt_cap, decode_block=decode_block,
                 admission=admission, telemetry=telemetry, seed=seed,
-                block_len=block_len, num_blocks=num_blocks, prefill_chunk=prefill_chunk)
+                block_len=block_len, num_blocks=num_blocks, prefill_chunk=prefill_chunk,
+                **measure)
         too_long = [r.rid for r in trace if r.prompt_len > prompt_cap]
         if too_long:
             raise ValueError(f"requests {too_long} exceed prompt_cap={prompt_cap}")
         max_out = int(max_out if max_out is not None else max(r.out_len for r in trace))
         return self._serve_dense(
             trace, slots=slots, prompt_cap=prompt_cap, max_out=max_out,
-            decode_block=decode_block, admission=admission, telemetry=telemetry, seed=seed)
+            decode_block=decode_block, admission=admission, telemetry=telemetry, seed=seed,
+            **measure)
+
+    def _dispatch(self, run, generator: torch.Generator, clock, controller):
+        """One serve dispatch: ``run()``, or ``run()`` under ``clock``,
+        decomposed with ``generator`` cloned before the run; a controller
+        then observes the timing (the next dispatch after a structural
+        replan is not fed). Returns ``run()``'s result."""
+        if clock is None:
+            return run()
+        draw = torch.Generator(device=generator.device)
+        draw.set_state(generator.get_state())
+        timing = clock.measure(run, generator=draw, true_cluster=self._true_cluster)
+        if controller is not None:
+            d = controller.observe_timing(timing)
+            if (d is not None and d.replanned
+                    and self.coded_head.executor.last_replan_structural):
+                clock.discard_next()
+        return timing.result
 
     def _loop_state(self, slots: int, seed: int):
         """Pending logits, positions, (ok, erased) counters and the
@@ -487,7 +568,7 @@ class Server:
         )
 
     def _serve_dense(self, trace, *, slots, prompt_cap, max_out, decode_block,
-                     admission, telemetry, seed) -> ServeReport:
+                     admission, telemetry, seed, clock, controller) -> ServeReport:
         """The dense slot-cache loop behind ``serve(paged=False)``.
 
         A round with admissions runs one batched prefill of the admitted
@@ -527,9 +608,12 @@ class Server:
                     for si, s in enumerate(sched.slots) if active[si]))
                 owners = [(si, s.request.rid) for si, s in enumerate(sched.slots)
                           if active[si]]
-                cache, logits, pos, toks = self._serve_step_dense(
-                    cache, logits, pos, admit, to_dev(np.asarray(active)), generator,
-                    stats, steps=steps)
+                active_t = to_dev(np.asarray(active))
+                cache, logits, pos, toks = self._dispatch(
+                    lambda: self._serve_step_dense(
+                        cache, logits, pos, admit, active_t, generator, stats,
+                        steps=steps),
+                    generator, clock, controller)
                 emitted.append((toks, owners))
                 if placed:  # the admit splice costs its own round
                     now += 1.0
@@ -547,8 +631,8 @@ class Server:
                             kv_bytes=kv_bytes)
 
     def _serve_paged(self, trace, *, slots, prompt_cap, decode_block, admission,
-                     telemetry, seed, block_len, num_blocks, prefill_chunk
-                     ) -> ServeReport:
+                     telemetry, seed, block_len, num_blocks, prefill_chunk, clock,
+                     controller) -> ServeReport:
         """The paged-KV loop behind ``serve(paged=True)``.
 
         Each round runs one prefill chunk for every slot still mid-prompt
@@ -628,10 +712,12 @@ class Server:
                 )
                 owners = [(si, s.request.rid) for si, s in enumerate(sched.slots)
                           if active[si]]
-                cache, logits, pos, toks = self._serve_step_paged(
-                    cache, logits, pos, step_chunk, to_dev(table_np),
-                    to_dev(np.asarray(active)), generator, stats, steps=steps,
-                )
+                table_t, active_t = to_dev(table_np), to_dev(np.asarray(active))
+                cache, logits, pos, toks = self._dispatch(
+                    lambda: self._serve_step_paged(
+                        cache, logits, pos, step_chunk, table_t, active_t, generator,
+                        stats, steps=steps),
+                    generator, clock, controller)
                 if toks:
                     emitted.append((toks, owners))
                 for si, take in notes:

@@ -19,9 +19,17 @@ rows survive, the backward is not run and the parameters, m, v and
 ``count`` stay bit-unchanged.
 
 Parameters live in the ``Model`` (updated in place after each step); the
-optimizer state is the dict of ``optim/adamw.py``. The scenario, adaptive
-control, measured-time and plan-bucket options of the reference's
-trainer, and ``Trainer.replan``, are not ported yet.
+optimizer state is the dict of ``optim/adamw.py``.
+
+Cluster dynamics close the loop as in the reference: ``scenario`` drifts
+the true fleet over the run (the finish masks draw from it, the plan
+stays the controller's), ``adapt_every`` attaches an
+``AdaptiveController`` that replans when its hysteresis rule fires,
+``measure_times`` feeds it the steps' measured wall times through a
+``RoundClock`` instead of simulated ones, and ``bucket_quantum`` puts
+the executor in bucket mode, where a replan within the bucket capacity
+keeps the step (the assignment matrix is sized at the slot capacity).
+``Trainer.replan`` replans by hand.
 """
 from __future__ import annotations
 
@@ -38,9 +46,15 @@ from repro_torch.core.runtime_model import ClusterSpec
 from repro_torch.core.schemes import AllocationScheme
 from repro_torch.models import layers as L
 from repro_torch.models.model import JAX_NAMES, Model
+from repro_torch.obs.metrics import REGISTRY
+from repro_torch.obs.trace import SpanTracer
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
+from repro_torch.runtime.control import AdaptConfig, AdaptiveController
 from repro_torch.runtime.executor import CodedRoundExecutor
+from repro_torch.runtime.plan_bucket import BucketConfig
 from repro_torch.runtime.telemetry import Telemetry
+from repro_torch.runtime.timing import RoundClock
+from repro_torch.sim import ScenarioSpec, make_scenario
 
 
 def heterogeneous_batch_split(cluster: ClusterSpec, global_batch: int) -> np.ndarray:
@@ -87,6 +101,9 @@ class TrainConfig:
     checkpoint_every: int = 50
     log_every: int = 10
     telemetry_path: str | None = None
+    #: bound the in-memory event window (ring buffer); the JSONL sink
+    #: at ``telemetry_path`` stays complete regardless
+    telemetry_max_events: int | None = None
     seed: int = 0
     # ---- coded execution (gradient coding on the shared substrate) ----
     #: straggler fleet to plan against; None = plain (uncoded) training
@@ -98,6 +115,33 @@ class TrainConfig:
     #: partition per batch row
     partitions: int | None = None
     deadline_safety: float = 3.0
+    # ---- cluster dynamics + closed-loop adaptation ----
+    #: registered scenario name (or a ScenarioSpec) perturbing the TRUE
+    #: cluster over the run; the plan only tracks it when adaptive
+    scenario: object | None = None
+    #: consume straggler estimates and maybe replan every this many
+    #: steps; None = no adaptive control (caller-initiated replans only)
+    adapt_every: int | None = None
+    #: hysteresis: minimum relative estimated-latency improvement
+    adapt_threshold: float = 0.05
+    #: modeled cost of one structural replan, in round-latency units
+    adapt_replan_cost: float = 0.0
+    #: adapt from MEASURED wall-clock round times instead of simulated
+    #: ground truth: each step runs under a ``RoundClock`` (decomposed per
+    #: worker) and the controller ingests the timings via ``observe_timing``
+    measure_times: bool = False
+    # ---- plan bucketing ----
+    #: quantize integer loads to this multiple and replan by a bucket
+    #: switch; None = off (every replan rebuilds the step)
+    bucket_quantum: int | None = None
+    bucket_capacity: int = 8
+    bucket_headroom: float = 1.5
+
+    def bucket_config(self) -> BucketConfig | None:
+        if self.bucket_quantum is None:
+            return None
+        return BucketConfig(quantum=self.bucket_quantum, capacity=self.bucket_capacity,
+                            n_headroom=self.bucket_headroom)
 
 
 def _params(model: Model) -> dict:
@@ -157,9 +201,11 @@ def make_coded_train_step_fn(model: Model, opt_cfg: AdamWConfig,
                              partitions: int):
     """Coded step: (opt_state, batch, worker_mask) -> (opt_state, metrics).
 
-    ``worker_mask`` is the (W,) bool finish mask of this round. The
-    parameters are updated in place unless the round is undecodable;
-    then only the forward runs (for the metrics).
+    ``worker_mask`` is the (W,) bool finish mask of this round;
+    ``executor.slot_mask`` gathers it to ``b_matrix``'s rows (in bucket
+    mode the slot capacity's, padding rows never alive). The parameters are
+    updated in place unless the round is undecodable; then only the
+    forward runs (for the metrics).
     """
     b_mat = b_matrix.to(torch.float32)
 
@@ -206,8 +252,18 @@ class Trainer:
     With ``TrainConfig(cluster=...)`` a ``CodedRoundExecutor`` plans the
     partition loads under the configured scheme on the model's device and
     every step runs ``make_coded_train_step_fn`` with a finish mask drawn
-    from ``self.generator``. ``step_seconds`` holds each step's wall time
-    (host clock, the step ends in a host read of its metrics).
+    from ``self.generator``. The port builds no compiled program, so where
+    the reference counts retraces of its jitted step, ``step_builds``
+    counts ``_build_coded_step`` calls: 1 at start and one more per
+    structural replan. ``step_seconds`` holds each step's wall time
+    (host clock; the step ends in a host read of its metrics).
+
+    ``scenario``, ``adapt_every`` and ``measure_times`` close the loop as
+    the reference's trainer does: the scenario's true fleet is injected
+    into the finish-mask draw each step, the controller observes the
+    same draw (or the clock's decomposition of the measured step) and
+    replans through ``_on_replan``, and every decision is an
+    ``adapt_decision`` event.
     """
 
     def __init__(self, model: Model, data, opt_cfg: AdamWConfig, cfg: TrainConfig):
@@ -217,27 +273,110 @@ class Trainer:
         self.cfg = cfg
         self.executor: CodedRoundExecutor | None = None
         self.step_seconds: list[float] = []
+        #: ``_build_coded_step`` calls (the coded step is rebuilt only on
+        #: a structural replan)
+        self.step_builds = 0
         if cfg.cluster is not None:
-            gb = data.shape.global_batch
+            # validate before acquiring file handles, so a raising
+            # __init__ leaks nothing
+            gb = data.shape.global_batch if hasattr(data, "shape") else None
             k = cfg.partitions if cfg.partitions is not None else gb
-            if gb % k:
+            if k is None:
+                raise ValueError("coded training needs cfg.partitions when the data "
+                                 "pipeline has no .shape to infer the batch from")
+            if gb is not None and gb % k:
                 raise ValueError(f"partitions ({k}) must divide the global batch ({gb})")
             self.partitions = int(k)
-        self.telemetry = Telemetry(cfg.telemetry_path)
+        if cfg.cluster is None and (cfg.scenario is not None or cfg.adapt_every is not None
+                                    or cfg.measure_times):
+            raise ValueError("scenario / adapt_every / measure_times require coded "
+                             "training (cfg.cluster)")
+        if cfg.adapt_every is not None and cfg.adapt_every <= 0:
+            raise ValueError(f"adapt_every must be a positive cadence, got {cfg.adapt_every}")
+        self.telemetry = Telemetry(cfg.telemetry_path, max_events=cfg.telemetry_max_events)
+        #: span tracer: a ``dispatch`` span per step, shared with the
+        #: executor so its replan and bucket-switch spans nest on one stack
+        self.tracer = SpanTracer(self.telemetry)
         self._ckpt = AsyncCheckpointer(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+        self.controller = None
+        self.trace = None
+        self.clock = None
         if cfg.cluster is not None:
             self.executor = CodedRoundExecutor(
                 cfg.cluster, self.partitions, cfg.scheme,
                 scheme_params=cfg.scheme_params, deadline_safety=cfg.deadline_safety,
-                device=model.device,
+                device=model.device, bucket_config=cfg.bucket_config(),
+                telemetry=self.telemetry, tracer=self.tracer,
             )
-            self.b_matrix = assignment_matrix(self.executor.n, self.partitions,
-                                              seed=cfg.seed, device=model.device)
-            self.coded_step_fn = make_coded_train_step_fn(
-                model, opt_cfg, self.executor, self.b_matrix, self.partitions)
+            self._build_coded_step()
             self.generator = torch.Generator(device=model.device).manual_seed(cfg.seed + 1)
+            if cfg.scenario is not None:
+                # a registered name is built AT the step budget so its
+                # events land inside the run; an explicit ScenarioSpec
+                # keeps its own horizon
+                spec = (cfg.scenario if isinstance(cfg.scenario, ScenarioSpec)
+                        else make_scenario(str(cfg.scenario), horizon=cfg.steps))
+                self.trace = spec.trace(cfg.cluster, seed=cfg.seed, horizon=cfg.steps)
+            if cfg.adapt_every is not None:
+                self.controller = AdaptiveController(
+                    self.executor,
+                    AdaptConfig(every=cfg.adapt_every, threshold=cfg.adapt_threshold,
+                                replan_cost=cfg.adapt_replan_cost),
+                    telemetry=self.telemetry, on_replan=self._on_replan,
+                )
+            if cfg.measure_times:
+                self.clock = RoundClock(self.executor, telemetry=self.telemetry)
         else:
             self.step_fn = make_train_step_fn(model, opt_cfg)
+
+    def _build_coded_step(self) -> None:
+        """(Re)build the coded step against the executor's current plan.
+
+        Bucket mode sizes the assignment matrix at the bucket slot
+        capacity: the decode masks the padding rows dead, so one matrix
+        and one step serve every admitted bucket.
+        """
+        self.step_builds += 1
+        self.b_matrix = assignment_matrix(self.executor.n_slots, self.partitions, seed=self.cfg.seed,
+                                          device=self.model.device)
+        self.coded_step_fn = make_coded_train_step_fn(
+            self.model, self.opt_cfg, self.executor, self.b_matrix, self.partitions)
+
+    def _on_replan(self) -> None:
+        """Replan hook: rebuild the step only when shapes moved. A bucket
+        switch keeps it; the executor's masks read the new bucket."""
+        if not self.executor.last_replan_structural:
+            return
+        self._build_coded_step()
+
+    def replan(self, new_cluster: ClusterSpec):
+        """Elastic replan mid-training, scheme params kept: the deadline,
+        assignment matrix and step follow the new membership (kept on a
+        bucket switch), and a ``replan`` event records it."""
+        if self.executor is None:
+            raise ValueError("replan requires coded training (cfg.cluster)")
+        plan = self.executor.replan(new_cluster)
+        self._on_replan()
+        self.telemetry.event("replan", workers=plan.num_workers, n=plan.n,
+                             deadline=self.executor.deadline)
+        return plan
+
+    def _clone_generator(self) -> torch.Generator:
+        """A generator in ``self.generator``'s current state."""
+        g = torch.Generator(device=self.generator.device)
+        g.set_state(self.generator.get_state())
+        return g
+
+    def _coded_dispatch(self, opt_state, batch, truth):
+        """One coded round: the finish mask drawn from ``self.generator``
+        (under ``truth``'s parameters when given, from the active bucket in
+        bucket mode), then the coded step. Returns (opt_state, metrics)."""
+        exe = self.executor
+        mus = alphas = shifts = None
+        if truth is not None:
+            mus, alphas, shifts = exe.worker_param_arrays(truth)
+        wmask = exe.finish_mask(self.generator, mus=mus, alphas=alphas, shifts=shifts)
+        return self.coded_step_fn(opt_state, batch, wmask)
 
     def init_or_restore(self):
         """(params, opt_state, start): the model's parameters, fresh or restored."""
@@ -268,8 +407,30 @@ class Trainer:
             t0 = time.perf_counter()
             batch = self.data.next_batch()
             if self.executor is not None:
-                wmask = self.executor.finish_mask(self.generator)
-                opt_state, metrics = self.coded_step_fn(opt_state, batch, wmask)
+                # scenario truth: this round straggles under the TRUE
+                # (drifted) fleet while loads and deadline stay the plan's
+                truth = self.trace.at(step) if self.trace is not None else None
+                # the mask's generator state: the controller (or the
+                # clock's decomposition) sees the draw that gated the step
+                draw = self._clone_generator()
+                with self.tracer.span("dispatch", step=step):
+                    if self.clock is not None:
+                        timing = self.clock.measure(
+                            lambda: self._coded_dispatch(opt_state, batch, truth),
+                            generator=draw, true_cluster=truth)
+                        opt_state, metrics = timing.result
+                    else:
+                        opt_state, metrics = self._coded_dispatch(opt_state, batch, truth)
+                if self.controller is not None:
+                    if self.clock is not None:
+                        d = self.controller.observe_timing(timing)
+                        if (d is not None and d.replanned
+                                and self.executor.last_replan_structural):
+                            # the next step runs on a rebuilt step and
+                            # re-encoded state: not a round latency
+                            self.clock.discard_next()
+                    else:
+                        self.controller.observe_truth(draw, truth)
             else:
                 opt_state, metrics = self.step_fn(opt_state, batch)
             metrics = {n: float(torch.as_tensor(v).detach()) for n, v in metrics.items()}
@@ -282,5 +443,7 @@ class Trainer:
                                 {"data_step": self.data.state()["step"]})
         if self._ckpt:
             self._ckpt.wait()
+        # the process-global registry's counters land in the JSONL too
+        REGISTRY.emit(self.telemetry, phase="train", rounds=float(self.cfg.steps))
         self.telemetry.close()
         return params, opt_state, history

@@ -17,6 +17,10 @@ controller, and the serving hooks it drives.
   decode), ``generate`` under ``set_true_cluster`` (leavers never
   finish), ``refresh_coded_head`` (B3 re-encode), and ``serve`` admission
   under ``round_latency`` shedding exactly as the reference's;
+* measured and bucketed serving: ``serve(clock=)`` paged and dense gives
+  the unmeasured streams (and raises without a coded head); a bucketed
+  ``CodedLMHead`` runs B3 (its plain version here) only on structural
+  replans, and decodes within 1e-4 of the uncoded logits;
 * the new entry points default to CUDA and raise without it.
 """
 import dataclasses
@@ -59,8 +63,10 @@ from repro_torch.runtime.control import (
     coverage_latency,
     replan_decision,
 )
+from repro_torch.runtime import serve_loop
 from repro_torch.runtime.executor import CodedRoundExecutor
 from repro_torch.runtime.serve_loop import CodedLMHead, ServeConfig, Server
+from repro_torch.runtime.timing import RoundClock
 from repro_torch.runtime.telemetry import Telemetry
 from repro_torch.serve import workload as wl
 from repro_torch.sim import (
@@ -471,6 +477,110 @@ def test_serve_takes_the_controllers_coverage_latency(models):
                              vocab=512).trace(seed=0)
     rep = server.serve(trace, controller=ctl, slots=2)
     assert calls and rep.tokens == sum(r.out_len for r in trace)
+
+
+# --------------------------------------------- measured and bucketed serving
+@pytest.mark.parametrize("paged", [True, False])
+def test_serve_under_a_clock_gives_the_unmeasured_streams(models, paged):
+    """The clock clones the finish-mask generator and never advances it,
+    so a measured serve with no controller emits the unmeasured streams;
+    every dispatch is measured and all but the warmup one fed."""
+    _, _, ours = models
+    trace = wl.make_workload("poisson", num_requests=4, prompt_len=(4, 12), out_len=(2, 5),
+                             vocab=512).trace(seed=1)
+    cfg = ServeConfig(block_rows=64, deadline_safety=1.2)
+    kw = dict(slots=2, decode_block=2, paged=paged, prefill_chunk=4)
+    plain = Server(ours, ClusterSpec.make(*SERVE_FLEET), cfg).serve(trace, **kw)
+    server = Server(ours, ClusterSpec.make(*SERVE_FLEET), cfg)
+    tel = Telemetry(None)
+    clock = RoundClock(server.coded_head.executor, telemetry=tel)
+    rep = server.serve(trace, clock=clock, **kw)
+    assert rep.streams == plain.streams and rep.erased_rounds == plain.erased_rounds > 0
+    assert clock.rounds >= plain.decode_rounds // 2 and clock.fed == clock.rounds - 1
+    assert len([e for e in tel.events if e["event"] == "round_timing"]) == clock.rounds
+    with pytest.raises(ValueError, match="coded head"):
+        Server(ours).serve(trace, clock=clock, **kw)
+
+
+def test_bucketed_head_reencodes_only_on_structural_replans(models, monkeypatch):
+    """A bucketed head is coded once at n_cap; a bucket switch and a bucket
+    hit rebind host views only (no B3), a membership change re-encodes;
+    decoded logits stay within 1e-4 of the uncoded ones throughout."""
+    _, _, ours = models
+    encodes = []
+    real = serve_loop.encode
+    monkeypatch.setattr(serve_loop, "encode",
+                        lambda g, a: encodes.append(tuple(g.shape)) or real(g, a))
+    server = Server(ours, ClusterSpec.make(*SERVE_FLEET),
+                    ServeConfig(block_rows=16, deadline_safety=1.2, bucket_quantum=2))
+    head, exe = server.coded_head, server.coded_head.executor
+    assert encodes == [(exe.buckets.n_cap, head.kb)] and head.nb == exe.buckets.n_cap > exe.n
+    vocab = ours.config.vocab_size
+    logits = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, head.table.shape[0])).astype(np.float32))
+    logits[:, vocab:] = serve_loop.NEG_INF
+    gen = torch.Generator().manual_seed(4)
+
+    def held():
+        erased = 0
+        for _ in range(24):
+            sel, ok, mask = server.coded_select(logits, gen)
+            if bool(ok):
+                np.testing.assert_allclose(sel[:, :vocab].numpy(), logits[:, :vocab].numpy(),
+                                           rtol=1e-4, atol=1e-4)
+                erased += int((~mask).sum()) > 0
+        return erased
+
+    assert held() > 0
+    steps = [([6, 6], [8.0, 0.2]), ([6, 6], [8.0, 0.7]), ([6, 6], [8.0, 0.2])]
+    hits = []
+    for args in steps:
+        exe.replan(ClusterSpec.make(*args))
+        server.refresh_coded_head()
+        assert not exe.last_replan_structural and len(encodes) == 1
+        hits.append(exe.last_bucket_hit)
+        assert head.plan is exe.plan and head.deadline == exe.deadline
+        held()
+    assert hits == [False, True, True]
+    exe.replan(ClusterSpec.make([6, 5], [8.0, 0.2]))  # a worker leaves: structural
+    server.refresh_coded_head()
+    assert exe.last_replan_structural and len(encodes) == 2
+    assert head.nb == exe.buckets.n_cap and tuple(head.coded.shape[:1]) == (head.nb,)
+    held()
+
+
+def test_bucketed_head_decode_matches_reference(models):
+    """The bucketed head against the reference's with its generator
+    injected: the coded blocks and the decode through the bucket's alive
+    mask (padding rows dead), 1e-5 and 1e-4."""
+    from repro.runtime.plan_bucket import BucketConfig as RefBucketConfig
+    from repro.runtime.plan_bucket import select_bucket as ref_select_bucket
+    from repro_torch.runtime.plan_bucket import BucketConfig
+
+    _, params, ours = models
+    table = np.asarray(params["embed"]["table"])
+    ref = RefHead(jnp.asarray(table), RefCluster.make(*SERVE_FLEET), block_rows=48,
+                  deadline_safety=3.0, bucket_config=RefBucketConfig(quantum=4))
+    head = CodedLMHead(ours.embed, ClusterSpec.make(*SERVE_FLEET), block_rows=48,
+                       deadline_safety=3.0, bucket_config=BucketConfig(quantum=4),
+                       g=np.asarray(ref.generator))
+    assert (head.nb, head.kb) == (ref.nb, ref.kb)
+    np.testing.assert_allclose(head.coded.numpy(), np.asarray(ref.coded), rtol=1e-5,
+                               atol=1e-5)
+    logits = np.random.default_rng(0).standard_normal((2, table.shape[0])).astype(np.float32)
+    prod = head.encode_logits(torch.from_numpy(logits))
+    mask = np.ones(head.plan.num_workers, bool)
+    mask[-1] = False
+    alive = head.executor.slot_mask(torch.from_numpy(mask))
+    state, index = ref.executor.bucket_args()
+    ref_alive = ref.executor.slot_mask_bucket_jit(jnp.asarray(mask),
+                                                  ref_select_bucket(state, index))
+    np.testing.assert_array_equal(alive.numpy(), np.asarray(ref_alive))
+    got, ok = head.decode_logits(prod, torch.from_numpy(mask))
+    want, want_ok = ref.decode_logits_bucket_jit(ref.encode_logits(jnp.asarray(logits)),
+                                                 ref_alive)
+    assert bool(ok) and bool(want_ok)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
 # ------------------------------------------------------------ entry points

@@ -4,8 +4,10 @@ Reduced qwen3-0.6b with ``--device cpu``: the coded generate under three
 schemes prints the reference's coded-head line (scheme tag, (n, k),
 loads, deadline) and the ``generated ... tok/s`` line, and returns
 (batch, prompt + max_new) tokens below the vocab; ``--trace`` serves a
-workload on the paged pool and on dense caches. Without ``--device`` the
-CLI runs on CUDA, and raises where there is none
+workload on the paged pool and on dense caches; ``--measure-times``
+times each dispatch with a ``RoundClock`` (the ``measured:`` line) in
+trace and scenario modes, and ``--bucket-quantum`` buckets the head.
+Without ``--device`` the CLI runs on CUDA, and raises where there is none
 (``tests/test_torch_plan.py``).
 """
 import re
@@ -52,7 +54,7 @@ def test_cli_trace_serves_every_request(capsys, dense):
 
 
 def test_cli_refuses_flags_of_modules_not_ported(capsys):
-    for flag in (["--scenario", "churn"], ["--bucket-quantum", "4"], ["--use-kernel"],
+    for flag in (["--scenario", "churn"], ["--use-kernel"],
                  ["--slots", "auto"], ["--measure-times"], ["--telemetry", "x.jsonl"],
                  ["--chrome-trace", "x.json"], ["--legacy-decode"]):
         with pytest.raises(SystemExit):
@@ -94,5 +96,49 @@ def test_cli_scenario_rounds_default_and_open_loop(capsys):
     ["--coded", "--scenario", "nope"],                          # not registered
 ])
 def test_cli_scenario_refusals(flags):
+    with pytest.raises(SystemExit):
+        launch_serve.main(BASE + flags)
+
+
+MEASURED = re.compile(r"measured: (\d+)/(\d+) rounds fed, unit_s=[\d.e+-]+")
+
+
+@pytest.mark.parametrize("dense", [False, True])
+def test_cli_trace_measure_times(capsys, dense):
+    """Every dispatch of the served trace under the clock; with no
+    controller only the warmup round goes unfed, and the streams are the
+    unmeasured run's."""
+    flags = BASE + ["--coded", "--trace", "poisson", "--num-requests", "3", "--slots", "2"] \
+        + (["--dense-kv"] if dense else [])
+    plain = launch_serve.main(flags)
+    capsys.readouterr()
+    rep = launch_serve.main(flags + ["--measure-times", "--bucket-quantum", "4"])
+    text = capsys.readouterr().out
+    line = MEASURED.search(text)
+    assert line is not None and int(line[1]) == int(line[2]) - 1 > 0, text
+    assert "served 3 (0 shed)" in text, text
+    assert rep.tokens == plain.tokens and set(rep.streams) == set(plain.streams)
+
+
+def test_cli_scenario_measure_times_bucketed(capsys):
+    """``churn`` measured: the membership replans (rebuilds, so their next
+    round is not fed) and the ``measured:`` and controller lines."""
+    ctl = launch_serve.main(BASE + ["--coded", "--scenario", "churn", "--adapt-every", "2",
+                                    "--rounds", "12", "--max-new", "2", "--measure-times",
+                                    "--bucket-quantum", "4"])
+    text = capsys.readouterr().out
+    line = MEASURED.search(text)
+    assert line is not None and int(line[2]) == 12, text
+    structural = sum(1 for d in ctl.decisions if d.reason == "membership")
+    assert structural == 2 and int(line[1]) <= 12 - 1 - structural, text
+    assert "replanned (membership)" in text and "controller: " in text, text
+
+
+@pytest.mark.parametrize("flags", [
+    ["--measure-times"],                                        # needs --coded
+    ["--measure-times", "--trace", "poisson"],                  # needs --coded
+    ["--coded", "--measure-times", "--legacy-decode"],          # not ported
+])
+def test_cli_measure_times_refusals(flags):
     with pytest.raises(SystemExit):
         launch_serve.main(BASE + flags)

@@ -534,3 +534,43 @@ def test_fused_ce_refusals(dev):
         ce.fused_ce(hb, eb, lb)
     with pytest.raises(ValueError, match="chunk"):
         ce.fused_ce(*_ce_case(dev, torch.bfloat16, 16, 64, 8, 0), chunk=100)
+
+
+def test_bucketed_coded_head_decode_matches_plain(dev):
+    """A bucketed head at full width (qwen3-0.6b's vocab and d_model, coded
+    at n_cap) on the card: the block mix through B1 and the decode through
+    the active bucket's alive mask (padding rows dead), against the same
+    round with B1's plain version."""
+    from repro_torch.core.runtime_model import ClusterSpec
+    from repro_torch.runtime.plan_bucket import BucketConfig
+    from repro_torch.runtime.serve_loop import CodedLMHead
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    table = torch.randn((151_936, 1024), generator=gen, device=dev) * 0.02
+    head = CodedLMHead(table, ClusterSpec.make([6, 6], [8.0, 0.7]), deadline_safety=1.2,
+                       bucket_config=BucketConfig(quantum=4))
+    exe = head.executor
+    head.replan(ClusterSpec.make([6, 6], [8.0, 0.9]))
+    assert head.nb == exe.buckets.n_cap > exe.n and not exe.last_replan_structural
+    logits = torch.randn((4, 151_936), generator=gen, device=dev)
+    mask = torch.ones(exe.num_workers, dtype=torch.bool, device=dev)
+    mask[-2:] = False
+    alive = exe.slot_mask(mask)
+    assert not bool(alive[exe.n:].any())
+    before = kernels.launch_counts()["coded_matvec"]
+    prod = head.encode_logits(logits)
+    got, ok = head.decode_logits(prod, mask)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["coded_matvec"] == before + 1 and bool(ok)
+    b, r = logits.shape[0], head.block_rows
+    lf = torch.nn.functional.pad(logits, (0, head.kb * r - logits.shape[1]))
+    cols = lf.reshape(b, head.kb, r).permute(1, 0, 2).reshape(head.kb, b * r)
+    plain = cmv.blocked_matvec_plain(head.generator, cols).reshape(head.nb, b, r)
+    assert (prod - plain).abs().max().item() <= _gemm_tol(head.generator, cols)
+    want, want_ok = head.decode_logits(plain, mask)
+    assert bool(want_ok)
+    scale = float(logits.abs().max())
+    order = torch.argsort((~alive).to(torch.int8), stable=True)[: head.kb]
+    cond = float(torch.linalg.cond(head.generator[order].double()))
+    assert (got[:, :151_936] - logits).abs().max().item() <= cond * 2.0**-22 * scale
+    assert (got - want).abs().max().item() <= cond * 2.0**-22 * scale
