@@ -2,10 +2,11 @@
 """Drive the PyTorch/CUDA port on one H100: build, check and time its kernels,
 run the paper's coded matvec at full width, serve full-width qwen3-0.6b
 through the coded server (paged and dense), generate with it under every
-baseline allocation scheme and under a drifting fleet with closed-loop
-replanning (simulated, then measured by a round clock with plan buckets),
-run the serving CLI, then train it with gradient coding, plain and then
-adaptive under measured round times.
+baseline allocation scheme, profile those serving paths phase by phase with
+their spans on a telemetry stream, generate under a drifting fleet with
+closed-loop replanning (simulated, then measured by a round clock with plan
+buckets), run the serving CLI and its ops report, then train it with
+gradient coding, plain and then adaptive under measured round times.
 
 Run from the repository root with no arguments:
 
@@ -49,6 +50,19 @@ Phases (any failure raises, and the script exits non-zero):
    and ``comm_uniform`` (4 each; the comm pair behind finite links),
    counters reset before each and read after; every coded run's tokens
    held against the uncoded run's where the margin is clear;
+   obs      — the serving paths with the observability layer on, each in
+   its own ``obs.profile.capture`` session (a ``torch.profiler`` phase),
+   on a short trace (``obs_trace``: 1 request) served first without the
+   profiler: the paged serve with a ``Telemetry`` JSONL (its spans ride on
+   it), the dense serve measured by a ``RoundClock`` with a controller that
+   holds, and generate's first 2 tokens; streams and tokens equal the
+   unprofiled ones, every JSONL record validates against
+   ``repro_torch.obs.schema``, the chunk spans equal the dispatches; per
+   phase the wall, the device-op time (each kernel filed under the phase
+   that launched it) and the top five ops, B1, B2 and B3's device launches
+   in the profile equal to their counters times the launches per call,
+   device time <= wall; the ops report (``launch.obsreport``) with every
+   section;
 7. adapt    — Path R, closed-loop replanning: for ``mu_step`` and
    ``churn`` (12 rounds, trace seed 0), counters reset, then one coded
    ``generate`` a round (4 x 16-token prompts, 4 new) under the
@@ -64,10 +78,14 @@ Phases (any failure raises, and the script exits non-zero):
    the streams equal the serve phase's, fed == dispatches - 1; and one
    replan's allocation timed on the fused torch cores and on the numpy
    eager oracle; counters reset before (c) and (d) and read after;
-9. cli      — ``python -m repro_torch.launch.serve --coded`` as two
+9. cli      — ``python -m repro_torch.launch.serve --coded`` as three
    subprocesses started together: ``--scheme uniform_r`` (exit 0, its
-   coded-head line) and ``--scenario churn --adapt-every 2 --rounds 12``
-   (exit 0, its replan lines and the controller line);
+   coded-head line), ``--scenario churn --adapt-every 2 --rounds 12``
+   (exit 0, its replan lines and the controller line) and ``--trace
+   poisson --num-requests 8 --slots auto --telemetry ... --chrome-trace
+   ...`` (exit 0, its width, Chrome trace and serve lines); then ``python
+   -m repro_torch.launch.obsreport`` on its JSONL with ``--require-spans``
+   (exit 0, ``span coverage:``);
 10. train   — launch counters reset, then ``Trainer.run`` of 4 gradient-
    coded steps of full-width qwen3-0.6b (seeded init, batch 16 x 512) on
    the same fleet; counters read right after; then one more steady step
@@ -97,6 +115,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -903,7 +922,8 @@ def first_round_logits(model, reqs, chunk):
 def serve_dense_phase(model, paged_rep) -> dict:
     """The serve phase's trace through ``serve(paged=False)`` (dense per-slot
     caches), same slots, decode chunks and seed; the first-round logits of
-    the two paths held against each other. Returns the launch counts."""
+    the two paths held against each other. Returns the launch counts and
+    the report."""
     import dataclasses
 
     import torch
@@ -964,8 +984,244 @@ def serve_dense_phase(model, paged_rep) -> dict:
           f"{int((dense.argmax(1) == paged.argmax(1)).sum())}/{SLOTS}")
     check(bool(torch.isfinite(dense).all()) and e_dense <= 2 * e_paged + 2.0**-8 * scale,
           "the dense path's bf16 logits are noisier than the paged path's")
-    return counts
+    return counts, rep
 
+
+#: [obs]: the profiled copies, each in its own profiler session and phase,
+#: and their depth (``obs_trace``; generate's first OBS_GEN_NEW tokens)
+OBS_PHASES = ("serve_paged", "serve_dense", "generate")
+OBS_REQUESTS, OBS_PROMPT, OBS_OUT, OBS_GEN_NEW = 1, (32, 64), (4, 8), 2
+#: the serving kernels by a piece of their compiled names. B1's split-K
+#: GEMM and B3 are one kernel, ``psg::pipe_sgemm_kernel``
+#: (kernels/csrc/pipe_sgemm.cuh): B1 at the serve shapes runs several
+#: splits (grid y > 1), B3 one (grid y 1)
+OBS_NAMES = (("split_sum_kernel", "coded_matvec"), ("narrow_matvec_kernel", "coded_matvec"),
+             ("paged_decode_split_kernel", "paged_decode"),
+             ("paged_decode_combine_kernel", "paged_decode"))
+#: pieces of name that only the repo's own kernels carry
+OBS_REPO_MARKS = ("pipe_sgemm", "split_sum", "narrow_matvec", "paged_decode", "fused_ce",
+                  "Epi")
+OBS_HEADINGS = ("# Ops report", "## Overview", "## Span waterfall", "## Request latency",
+                "## Replan / decision timeline", "## Straggler-estimate drift",
+                "## KV block pool", "## Metrics snapshot",
+                "## Torch profile summary (per phase)")
+
+
+def repo_kernel(event: dict) -> str | None:
+    """The ``KERNELS`` entry a profiled device event belongs to (None: not
+    one of the serving kernels; ``repo_unmapped`` tells the repo's own
+    kernels apart from PyTorch's)."""
+    name = event.get("name", "")
+    if "pipe_sgemm_kernel" in name:
+        grid = (event.get("args") or {}).get("grid")
+        if not grid or len(grid) < 2:
+            return None
+        return "coded_matvec" if grid[1] > 1 else "mds_encode"
+    return next((k for part, k in OBS_NAMES if part in name), None)
+
+
+def count_calls(obj, name: str) -> list[int]:
+    """Wrap the bound method ``obj.name`` so that each call adds one to the
+    returned one-element counter."""
+    calls, real = [0], getattr(obj, name)
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+
+    setattr(obj, name, counted)
+    return calls
+
+
+def obs_trace(cfg):
+    """[obs]'s short trace. A profiled serve of [serve]'s 8 requests writes
+    hundreds of MB of trace JSON, and the profiler's stop, the export and
+    the analysis take over a minute on the H100. So the profiled copies
+    serve OBS_REQUESTS request of OBS_PROMPT tokens (one prefill chunk)
+    with OBS_OUT new tokens: two dispatches."""
+    from repro_torch.serve.workload import make_workload
+
+    return make_workload("poisson", num_requests=OBS_REQUESTS, prompt_len=OBS_PROMPT,
+                         out_len=OBS_OUT, vocab=cfg.vocab_size).trace(seed=0)
+
+
+def obs_phase(model, gen_out) -> dict:
+    """The serving paths once more with the observability layer on, each
+    under its own ``obs.profile.capture`` session and phase, on a short
+    trace (``obs_trace``) served first without the profiler for the
+    streams to hold to: (1) the paged serve with a ``Telemetry`` JSONL,
+    so its spans ride on it; (2) the dense serve, measured by a
+    ``RoundClock`` and observed by an ``AdaptiveController`` that holds
+    (threshold 1.0: no gain can reach it) with admission at a fixed
+    latency, on the same JSONL; (3) the first OBS_GEN_NEW tokens of
+    [generate]'s coded optimal run with a ``dispatch`` span. Streams and
+    tokens equal the unprofiled runs'; every JSONL record validates; the
+    chunk spans equal the dispatches; per phase, B1, B2 and B3's device
+    launches that the profile files under it equal its launch counters
+    times the device launches per call; device-op time <= the phase's
+    wall; the ops report has every section. Returns the counts by path."""
+    import os
+    import tempfile
+
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.core.runtime_model import ClusterSpec
+    from repro_torch.kernels.coded_matvec import ops as cmv
+    from repro_torch.launch.obsreport import load_records, render_report
+    from repro_torch.obs import profile
+    from repro_torch.obs.schema import validate_events
+    from repro_torch.obs.trace import SpanTracer
+    from repro_torch.runtime.control import AdaptConfig, AdaptiveController
+    from repro_torch.runtime.serve_loop import ServeConfig, Server
+    from repro_torch.runtime.telemetry import Telemetry
+    from repro_torch.runtime.timing import RoundClock
+
+    cfg, device = model.config, model.device
+    fleet = ClusterSpec.make(*CLUSTER)
+    conf = ServeConfig(block_rows=256, deadline_safety=SAFETY, scheme="optimal")
+    trace = obs_trace(cfg)
+    kw = dict(slots=SLOTS, decode_block=DECODE_BLOCK, seed=0)
+    paged_kw = dict(kw, block_len=BLOCK_LEN, prefill_chunk=CHUNK)
+    plain = {"serve_paged": Server(model, fleet, conf).serve(trace, **paged_kw),
+             "serve_dense": Server(model, fleet, conf).serve(trace, paged=False, **kw)}
+    print(f"[obs] profiled copies: a trace of {len(trace)} (prompt lengths "
+          f"{[r.prompt_len for r in trace]}, out {[r.out_len for r in trace]}) served "
+          f"unprofiled first, paged {plain['serve_paged'].wall_s:.3f} s and dense "
+          f"{plain['serve_dense'].wall_s:.3f} s; generate's first {OBS_GEN_NEW} tokens")
+    counts, spans, calls, walls = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl = os.path.join(tmp, "obs.jsonl")
+        tel = Telemetry(jsonl)
+
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        with profile.capture(tmp, "serve_paged"):
+            server = Server(model, fleet, conf)
+            calls["serve_paged"] = count_calls(server, "_serve_step_paged")
+            rep = server.serve(trace, telemetry=tel, **paged_kw)
+        walls["serve_paged"] = time.perf_counter() - t
+        counts["serve_paged"] = kernels.launch_counts()
+        spans["serve_paged"] = list(server.tracer.spans)
+        nb = server.coded_head.nb
+        base = plain["serve_paged"].wall_s
+        print(f"[obs] serve_paged: serve wall {rep.wall_s:.3f} s under the profiler, "
+              f"{base:.3f} s without ({rep.wall_s / base:.2f}x); launches "
+              f"{counts['serve_paged']}")
+        check(rep.streams == plain["serve_paged"].streams,
+              "tracing changed the paged serve's streams")
+
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        with profile.capture(tmp, "serve_dense"):
+            server = Server(model, fleet, conf)
+            exe = server.coded_head.executor
+            ctl = AdaptiveController(exe, AdaptConfig(every=1, threshold=1.0), telemetry=tel)
+            clock = RoundClock(exe, telemetry=tel)
+            calls["serve_dense"] = count_calls(server, "_serve_step_dense")
+            rep = server.serve(trace, paged=False, telemetry=tel, clock=clock, controller=ctl,
+                               round_latency=lambda: 1.0, tracer=SpanTracer(tel), **kw)
+        walls["serve_dense"] = time.perf_counter() - t
+        counts["serve_dense"] = kernels.launch_counts()
+        spans["serve_dense"] = list(server.tracer.spans)
+        print(f"[obs] serve_dense (measured, a holding controller): serve wall "
+              f"{rep.wall_s:.3f} s ({plain['serve_dense'].wall_s:.3f} s unmeasured and "
+              f"unprofiled); {clock.rounds} dispatches timed, {clock.fed} fed, "
+              f"{len(ctl.decisions)} decisions ({ctl.replans} replans); launches "
+              f"{counts['serve_dense']}")
+        check(ctl.replans == 0 and len(ctl.decisions) > 0,
+              "the holding controller decided and never replanned")
+        check(rep.streams == plain["serve_dense"].streams,
+              "tracing changed the dense serve's streams")
+
+        prompts = gen_prompts(cfg.vocab_size)
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        with profile.capture(tmp, "generate"):
+            server = Server(model, fleet, conf)
+            server.tracer = SpanTracer(tel)
+            out = server.generate(prompts, OBS_GEN_NEW, seed=1,
+                                  cache_len=GEN_PROMPT + GEN_NEW)
+        walls["generate"] = time.perf_counter() - t
+        counts["generate"] = kernels.launch_counts()
+        spans["generate"] = list(server.tracer.spans)
+        check(torch.equal(out, gen_out[:, :GEN_PROMPT + OBS_GEN_NEW]),
+              "tracing changed generate's tokens")
+        tel.close()
+        del server, exe, ctl
+        sizes = {p: os.path.getsize(os.path.join(tmp, f"{p}.pt.trace.json")) / 1e6
+                 for p in walls}
+        print("[obs] captures (run, profiler stop and trace export): " + ", ".join(
+            f"{p} {w:.1f} s ({sizes[p]:.1f} MB)" for p, w in walls.items()))
+
+        records = load_records(jsonl)
+        n = validate_events(records, source="[obs] JSONL")
+        check(n == len(records), "every JSONL record is an event")
+        for phase in ("serve_paged", "serve_dense"):
+            names = [s.name for s in spans[phase]]
+            chunks = names.count("prefill_chunk") + names.count("decode_chunk")
+            by_name = ", ".join(f"{x} {names.count(x)}" for x in dict.fromkeys(names))
+            print(f"[obs] {phase} spans: {len(names)} ({by_name}); "
+                  f"{calls[phase][0]} dispatches")
+            check(chunks == calls[phase][0] == names.count("dispatch"),
+                  f"{phase}: prefill_chunk + decode_chunk spans == dispatches")
+        check([(s.name, s.attrs) for s in spans["generate"]]
+              == [("dispatch", {"kind": "generate", "max_new": OBS_GEN_NEW,
+                                "batch": GEN_BATCH})],
+              "generate: one dispatch span")
+        check(all(s.parent == "decode_chunk" for s in spans["serve_dense"]
+                  if s.name == "adapt_update"), "adapt_update nests in its chunk")
+
+        t = time.perf_counter()
+        summ = profile.summarize(tmp, OBS_PHASES, events=True)
+        plan = cmv.gemm_plan(nb, SLOTS * 256, -(-cfg.vocab_size // 256),
+                             cmv.sm_count(device.index or 0)) if device.type == "cuda" else None
+        per_call = {"coded_matvec": 1 + (plan is not None and plan.splits > 1),
+                    "paged_decode": 2, "mds_encode": 1}
+        if plan is not None:
+            check(plan.splits > 1, "B1 splits at the serve shapes (its grid tells it from B3)")
+        for phase in OBS_PHASES:
+            s = summ[phase]
+            wall, dev = s["wall_us"] / 1e3, s["op_total_us"] / 1e3
+            print(f"[obs] {phase}: wall {wall:.1f} ms, device ops {dev:.1f} ms "
+                  f"({dev / wall:.3f} of the wall; the host's share {1 - dev / wall:.3f}), "
+                  f"{s['n_ops']} device ops; the top {len(s['ops'])} by device time:")
+            for o in s["ops"]:
+                print(f"[obs]   {o['total_us'] / 1e3:9.3f} ms x{o['count']:<6d} "
+                      f"{o['name'][:100]}")
+            mine = {k: [0, 0.0] for k in per_call}
+            unmapped = {}
+            for e in s.pop("events"):
+                k = repo_kernel(e)
+                if k in mine:
+                    mine[k][0] += 1
+                    mine[k][1] += e["dur"] / 1e3
+                elif any(m in e.get("name", "") for m in OBS_REPO_MARKS):
+                    unmapped[e["name"]] = unmapped.get(e["name"], 0) + 1
+            print("[obs]   repo kernels: " + ", ".join(
+                f"{k} {c} device launches ({counts[phase][k]} calls x {per_call[k]}) "
+                f"{ms:.3f} ms" for k, (c, ms) in mine.items())
+                  + (f"; not mapped: {unmapped}" if unmapped else "; every one mapped"))
+            for k, (c, _) in mine.items():
+                check(c == counts[phase][k] * per_call[k],
+                      f"{phase}: the profile files {c} {k} launches, the counter says "
+                      f"{counts[phase][k]} x {per_call[k]}")
+            check(s["op_total_us"] <= s["wall_us"], f"{phase}: device-op time <= wall")
+        check(counts["serve_dense"]["paged_decode"] == 0
+              and counts["generate"]["paged_decode"] == 0,
+              "B2 launches only in the paged serve")
+        md = render_report(records, source="obs.jsonl", profile_summary=summ)
+        missing = [h for h in OBS_HEADINGS if h not in md]
+        print(f"[obs] ops report: {len(md.splitlines())} lines, {len(records)} records, "
+              f"sections missing: {missing or 'none'}; profile analysis "
+              f"{time.perf_counter() - t:.1f} s")
+        lines = md.splitlines()
+        at = lines.index("## Span waterfall")
+        for line in lines[at + 2:at + 12]:
+            if line:
+                print(f"[obs]   {line}")
+        check(not missing, "the ops report has every section")
+    return {f"obs_{p}": c for p, c in counts.items()}
 
 def round_cond(head, ok, mask) -> float:
     """cond(G_S) of the generator rows a coded round decoded from; 0 for a
@@ -1018,10 +1274,19 @@ COMM_BANDWIDTHS, COMM_COSTS = [4.0, 1.0], {"upload": 0.05, "download": 0.05}
 GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_NEW_SCHEMES = 4, 128, 8, 4
 
 
+def gen_prompts(vocab: int):
+    """[generate]'s seeded (GEN_BATCH, GEN_PROMPT) prompts, on the host."""
+    import torch
+
+    return torch.randint(0, vocab, (GEN_BATCH, GEN_PROMPT), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(3))
+
+
 def generate_phase(model, card: str) -> dict:
     """``Server.generate`` at full width: uncoded, then coded under every
     scheme of the registry's baselines on the serve fleet, each held against
-    the uncoded tokens. Returns the coded optimal run's launch counts."""
+    the uncoded tokens. Returns the coded optimal run's launch counts and
+    its output."""
     import torch
 
     import repro_torch.kernels as kernels
@@ -1031,8 +1296,7 @@ def generate_phase(model, card: str) -> dict:
 
     cfg, device = model.config, model.device
     v = cfg.vocab_size
-    prompts = torch.randint(0, v, (GEN_BATCH, GEN_PROMPT), dtype=torch.int32,
-                            generator=torch.Generator().manual_seed(3))
+    prompts = gen_prompts(v)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
 
     def run(server, max_new, seed, observe):
@@ -1067,7 +1331,7 @@ def generate_phase(model, card: str) -> dict:
             ("uncoded", {}, GEN_NEW_SCHEMES, fleet),
             ("comm_aware", COMM_COSTS, GEN_NEW_SCHEMES, comm_fleet),
             ("comm_uniform", COMM_COSTS, GEN_NEW_SCHEMES, comm_fleet)]
-    optimal_counts = None
+    optimal_counts = optimal_out = None
     for seed, (name, params, max_new, cluster) in enumerate(runs, start=1):
         kernels.reset_launch_counts()
         server = Server(model, cluster, ServeConfig(
@@ -1098,9 +1362,9 @@ def generate_phase(model, card: str) -> dict:
         check(counts["paged_decode"] == 0, f"{name}: paged_decode never launched")
         check(len(rounds) == max_new, f"{name}: every token through the coded head")
         if name == "optimal":
-            optimal_counts = counts
+            optimal_counts, optimal_out = counts, out
         del server, head, rounds
-    return optimal_counts
+    return optimal_counts, optimal_out
 
 
 #: Path R: the serve fleet under a drifting truth, the CLI's round
@@ -1604,6 +1868,25 @@ def cli_phase(runs: list[tuple[list[str], list[str]]]) -> None:
             check(any(line.startswith(head) for line in lines), f"the CLI prints {head!r}")
 
 
+def obsreport_cli(jsonl: str) -> None:
+    """``python -m repro_torch.launch.obsreport JSONL --require-spans`` as a
+    user runs it on a served run's telemetry: exit 0 and its span count."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    cmd = [sys.executable, "-m", "repro_torch.launch.obsreport", jsonl, "--require-spans"]
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, text=True, capture_output=True,
+                          timeout=120)
+    lines = proc.stdout.strip().splitlines()
+    print(f"[cli] repro_torch.launch.obsreport --require-spans: exit {proc.returncode}, "
+          f"{len(lines)} lines of report; last: {lines[-1] if lines else ''}")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+    check(proc.returncode == 0, "the ops report CLI exits 0")
+    check(any(line.startswith("span coverage:") for line in lines),
+          "the ops report CLI prints its span coverage")
+
+
 def profile_step(trainer, opt_state, top: int = 16):
     """One more steady coded step (every worker finishing) under
     ``torch.profiler``, outside the timed steps: the kernels that take the
@@ -1793,10 +2076,12 @@ def main() -> int:
     model = make_model(get_arch("qwen3-0.6b"))
     paths["serve"], paged_rep = serve_phase(model)
     lap("serve")
-    paths["serve_dense"] = serve_dense_phase(model, paged_rep)
+    paths["serve_dense"], _ = serve_dense_phase(model, paged_rep)
     lap("serve-dense")
-    paths["generate"] = generate_phase(model, card)
+    paths["generate"], gen_out = generate_phase(model, card)
     lap("generate")
+    paths.update(obs_phase(model, gen_out))
+    lap("obs")
     for name, c in adapt_phase(model, card).items():
         paths[f"adapt_{name}"] = c
     lap("adapt")
@@ -1804,14 +2089,21 @@ def main() -> int:
     lap("adapt-measured")
     del model
     torch.cuda.empty_cache()
-    cli_phase([
-        (["--scheme", "uniform_r", "--scheme-r", "10", "--max-new", "4"],
-         ["coded LM head [uniform_r_group_code]: kb=594", "generated (4, 20)"]),
-        (["--scenario", "churn", "--adapt-every", "2", "--rounds", "12", "--max-new", "4"],
-         ["coded LM head [optimal]: kb=594", "[round 3] replanned (membership)",
-          "[round 9] replanned (membership)", "scenario 'churn': 12 rounds",
-          "controller: 6 decisions"]),
-    ])
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl = str(Path(tmp) / "cli.jsonl")
+        cli_phase([
+            (["--scheme", "uniform_r", "--scheme-r", "10", "--max-new", "4"],
+             ["coded LM head [uniform_r_group_code]: kb=594", "generated (4, 20)"]),
+            (["--scenario", "churn", "--adapt-every", "2", "--rounds", "12",
+              "--max-new", "4"],
+             ["coded LM head [optimal]: kb=594", "[round 3] replanned (membership)",
+              "[round 9] replanned (membership)", "scenario 'churn': 12 rounds",
+              "controller: 6 decisions"]),
+            (["--trace", "poisson", "--num-requests", "8", "--slots", "auto", "--telemetry",
+              jsonl, "--chrome-trace", str(Path(tmp) / "cli.trace.json"), "--max-new", "4"],
+             ["slots auto -> ", "chrome trace: ", "served 8 (0 shed)"]),
+        ])
+        obsreport_cli(jsonl)
     lap("cli")
     paths["train"] = train_phase(get_arch("qwen3-0.6b"))
     torch.cuda.empty_cache()

@@ -19,11 +19,17 @@ it prints ``measured: F/R rounds fed``. ``--bucket-quantum`` quantizes
 the head's loads so that a replan within the bucket capacity keeps the
 coded head (no B3 re-encode).
 
-Not ported (argparse refuses them): telemetry and Chrome traces
-(``--telemetry``, ``--chrome-trace``; the measured rounds'
-``round_timing`` events stay in memory), ``--slots auto``, the
-reference's numpy host loop (``--legacy-decode``) and ``--use-kernel``
-(on the card the head always runs its kernel).
+Observability: ``--telemetry PATH`` is the JSONL sink of ``--trace`` and
+``--scenario`` runs (the scheduler's and pool's events, the serve loop's
+spans, the clock's ``round_timing`` and the controller's decisions; feed
+it to ``python -m repro_torch.launch.obsreport``), and ``--chrome-trace
+PATH`` exports the run's spans as Chrome ``trace_event`` JSON (it prints
+``chrome trace: PATH (N spans)``). ``--slots auto`` asks an
+``AdaptiveController`` on the coded fleet for the ``--trace`` width.
+
+Not ported (argparse refuses them): the reference's numpy host loop
+(``--legacy-decode``) and ``--use-kernel`` (on the card the head always
+runs its kernel).
 """
 from __future__ import annotations
 
@@ -37,6 +43,8 @@ from repro_torch.configs import get_arch
 from repro_torch.core.runtime_model import ClusterSpec
 from repro_torch.core.schemes import make_scheme, scheme_names
 from repro_torch.models.model import Model
+from repro_torch.obs.trace import SpanTracer
+from repro_torch.runtime.control import AdaptConfig, AdaptiveController
 from repro_torch.runtime.serve_loop import ServeConfig, Server
 from repro_torch.runtime.telemetry import Telemetry
 from repro_torch.runtime.timing import RoundClock
@@ -95,8 +103,10 @@ def main(argv=None):
                          "accept it (poisson, chat)")
     ap.add_argument("--num-requests", type=int, default=None,
                     help="trace length for --trace (default: the preset)")
-    ap.add_argument("--slots", type=int, default=4,
-                    help="in-flight stream slots for --trace")
+    ap.add_argument("--slots", default="4",
+                    help="in-flight stream slots for --trace; 'auto' asks the "
+                         "AdaptiveController for a width from the coded fleet's "
+                         "round latency (requires --coded)")
     ap.add_argument("--dense-kv", action="store_true",
                     help="serve --trace from dense per-slot KV caches instead "
                          "of the paged block pool")
@@ -116,6 +126,13 @@ def main(argv=None):
                     help="time each dispatch with a RoundClock and adapt from the "
                          "measured wall times instead of simulated ones (requires "
                          "--coded)")
+    ap.add_argument("--telemetry", default=None,
+                    help="JSONL telemetry sink (request, pool, span, round_timing "
+                         "and adapt_decision events; feed it to "
+                         "repro_torch.launch.obsreport for the ops report)")
+    ap.add_argument("--chrome-trace", default=None, metavar="PATH",
+                    help="export the run's spans as Chrome trace_event JSON (open "
+                         "in Perfetto / chrome://tracing)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain paths)")
     args = ap.parse_args(argv)
@@ -129,6 +146,16 @@ def main(argv=None):
     if args.measure_times and not args.coded:
         raise SystemExit("--measure-times requires --coded (round times are decomposed "
                          "over the coded fleet)")
+    if args.slots == "auto":
+        if not args.coded:
+            raise SystemExit("--slots auto derives the width from the coded "
+                             "fleet's round latency; requires --coded")
+    else:
+        try:
+            args.slots = int(args.slots)
+        except ValueError:
+            raise SystemExit(f"--slots must be an int or 'auto', "
+                             f"got {args.slots!r}") from None
 
     config = get_arch(args.arch)
     if args.reduced:
@@ -156,6 +183,7 @@ def main(argv=None):
         if model.device.type == "cuda" else (lambda: None)
     if args.scenario is not None:
         return _serve_scenario(server, prompts, args, cluster, sync)
+    tracer = _attach_tracer(server, args)
     sync()
     t0 = time.perf_counter()
     out = server.generate(prompts, args.max_new)
@@ -164,7 +192,27 @@ def main(argv=None):
     print(f"generated {tuple(out.shape)} in {dt:.2f}s "
           f"({args.batch * args.max_new / dt:.1f} tok/s)")
     print("sample:", out[0, -args.max_new:].tolist())
+    _export_chrome(tracer, args)
     return out
+
+
+def _attach_tracer(server: Server, args, telemetry=None):
+    """A ``SpanTracer`` on the server (and its coded executor) when
+    ``--chrome-trace`` asks for one; it mirrors spans to ``telemetry``
+    when the run has a JSONL sink too."""
+    if args.chrome_trace is None:
+        return None
+    tracer = SpanTracer(telemetry)
+    server.tracer = tracer
+    if server.coded_head is not None:
+        server.coded_head.executor.tracer = tracer
+    return tracer
+
+
+def _export_chrome(tracer, args) -> None:
+    if tracer is not None:
+        path = tracer.export_chrome(args.chrome_trace)
+        print(f"chrome trace: {path} ({len(tracer.spans)} spans)")
 
 
 def _serve_trace(server: Server, args, config):
@@ -176,13 +224,24 @@ def _serve_trace(server: Server, args, config):
     wl = make_workload(args.trace, arrival_rate=args.arrival_rate,
                        num_requests=args.num_requests, vocab=config.vocab_size)
     trace = wl.trace(seed=args.trace_seed)
-    # the round_timing events stay in memory (no --telemetry sink yet)
-    clock = RoundClock(server.coded_head.executor, telemetry=Telemetry(None)) \
-        if args.measure_times else None
-    rep = server.serve(trace, slots=args.slots,
-                       admission_threshold=args.admission_threshold, clock=clock,
-                       paged=not args.dense_kv, block_len=args.block_len,
-                       num_blocks=args.num_blocks, prefill_chunk=args.prefill_chunk)
+    slots = args.slots
+    if slots == "auto":
+        # the controller's coverage-latency view of the fleet (the planned
+        # latency before any measured round) scales a base of 4 slots
+        controller = AdaptiveController(server.coded_head.executor)
+        slots = controller.recommend_slots(base=4)
+        print(f"slots auto -> {slots} "
+              f"(coverage latency {controller.coverage_latency():.4f})")
+    with Telemetry(args.telemetry) as tel:
+        tracer = _attach_tracer(server, args, telemetry=tel)
+        clock = RoundClock(server.coded_head.executor, telemetry=tel) \
+            if args.measure_times else None
+        rep = server.serve(trace, slots=slots,
+                           admission_threshold=args.admission_threshold, telemetry=tel,
+                           clock=clock, tracer=tracer, paged=not args.dense_kv,
+                           block_len=args.block_len, num_blocks=args.num_blocks,
+                           prefill_chunk=args.prefill_chunk)
+    _export_chrome(tracer, args)
     if clock is not None:
         _print_measured(clock)
     lat = rep.latencies()
@@ -215,13 +274,13 @@ def _serve_scenario(server: Server, prompts, args, cluster, sync):
     observes the timing instead. Returns the controller (None without
     ``--adapt-every``).
     """
-    from repro_torch.runtime.control import AdaptConfig, AdaptiveController
-
     # the scenario is built at the round budget, so its events land inside it
     rounds = args.rounds if args.rounds is not None else 24
     spec = make_scenario(args.scenario, horizon=max(rounds, 1))
     trace = spec.trace(cluster, seed=0)
     head = server.coded_head
+    tel = Telemetry(args.telemetry)
+    tracer = _attach_tracer(server, args, telemetry=tel)
     controller = None
     if args.adapt_every is not None:
         controller = AdaptiveController(
@@ -229,10 +288,10 @@ def _serve_scenario(server: Server, prompts, args, cluster, sync):
             AdaptConfig(every=args.adapt_every,
                         threshold=0.05 if args.adapt_threshold is None
                         else args.adapt_threshold),
+            telemetry=tel,
             on_replan=server.refresh_coded_head,
         )
-    clock = RoundClock(head.executor, telemetry=Telemetry(None)) \
-        if args.measure_times else None
+    clock = RoundClock(head.executor, telemetry=tel) if args.measure_times else None
     observe = torch.Generator().manual_seed(7)
     sync()
     t0 = time.perf_counter()
@@ -268,6 +327,8 @@ def _serve_scenario(server: Server, prompts, args, cluster, sync):
         replans = [d for d in controller.decisions if d.replanned]
         print(f"controller: {len(controller.decisions)} decisions, "
               f"{len(replans)} replans at rounds {[d.round for d in replans]}")
+    _export_chrome(tracer, args)
+    tel.close()
     return controller
 
 

@@ -6,5 +6,11 @@ from repro_torch.optim.adamw import (
     cosine_schedule,
     global_norm,
 )
+from repro_torch.optim.compression import (
+    compress_bf16_ef,
+    decompress_bf16_ef,
+    init_error_feedback,
+)
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule", "global_norm"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "compress_bf16_ef",
+           "cosine_schedule", "decompress_bf16_ef", "global_norm", "init_error_feedback"]

@@ -55,6 +55,7 @@ from repro_torch.core.schemes import AllocationScheme
 from repro_torch.kernels.coded_matvec.ops import blocked_matvec
 from repro_torch.models.model import Model, padded_vocab
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import NULL_TRACER, SpanTracer
 from repro_torch.runtime.executor import CodedRoundExecutor
 from repro_torch.runtime.plan_bucket import BucketConfig
 from repro_torch.serve.scheduler import BlockPool, SlotScheduler
@@ -269,6 +270,9 @@ class Server:
         #: the ClusterSpec behind ``_true_params`` (a ``RoundClock``
         #: decomposes against the spec)
         self._true_cluster = None
+        #: span tracer; ``serve(tracer=...)`` rebinds it, and ``generate``
+        #: records a ``dispatch`` span on whichever tracer is bound
+        self.tracer = NULL_TRACER
 
     def set_true_cluster(self, cluster: ClusterSpec | None) -> None:
         """Draw the finish masks from ``cluster`` (a scenario's truth):
@@ -343,7 +347,8 @@ class Server:
         called once per sampled token as ``observe(step, logits, selected,
         ok, mask)``: the model's logits, those the token was taken from,
         and the round's decode-ok flag and (W,) finish mask (None without
-        a coded head), all on the device.
+        a coded head), all on the device. The prefill and the decode loop
+        are one ``dispatch`` span (``kind="generate"``) on ``self.tracer``.
         """
         set_full_fp32()
         dev = self.device
@@ -354,7 +359,6 @@ class Server:
         b, s0 = prompts.shape
         cache = self.model.init_cache(b, cache_len or s0 + max_new)
         generator = torch.Generator(device=dev).manual_seed(seed)
-        logits, cache = self._prefill_into_cache(cache, prompts)
 
         def sample(step: int, logits: torch.Tensor) -> torch.Tensor:
             sel, ok, mask = logits, None, None
@@ -364,13 +368,15 @@ class Server:
                 observe(step, logits, sel, ok, mask)
             return torch.argmax(sel, -1).to(torch.int32)
 
-        tok = sample(0, logits)
-        out = [prompts, tok[:, None]]
-        for t in range(max_new - 1):
-            logits, cache = self.model.decode_step(cache, tok, s0 + t)
-            tok = sample(t + 1, logits)
-            out.append(tok[:, None])
-        return torch.cat(out, dim=1)
+        with self.tracer.span("dispatch", kind="generate", max_new=max_new, batch=b):
+            logits, cache = self._prefill_into_cache(cache, prompts)
+            tok = sample(0, logits)
+            out = [prompts, tok[:, None]]
+            for t in range(max_new - 1):
+                logits, cache = self.model.decode_step(cache, tok, s0 + t)
+                tok = sample(t + 1, logits)
+                out.append(tok[:, None])
+            return torch.cat(out, dim=1)
 
     # -------------------------------------------------- continuous batching
     def _decode_chunk(self, step_fn, cache, logits, pos, active, generator, stats,
@@ -447,7 +453,7 @@ class Server:
               admission_threshold: float = 1.0, controller=None, round_latency=None,
               telemetry=None, clock=None, seed: int = 0, paged: bool | None = None,
               block_len: int | None = None, num_blocks: int | None = None,
-              prefill_chunk: int | None = None) -> ServeReport:
+              prefill_chunk: int | None = None, tracer=None) -> ServeReport:
         """Continuous batching: serve a request trace through S slots.
 
         The scheduler (host) decides placements; each round runs the
@@ -477,9 +483,23 @@ class Server:
         draw that gated its first step); with ``controller`` the timings
         feed ``observe_timing``, so replans follow the measured rounds. The
         clock changes no result. Requires a coded head.
+
+        Spans (``tracer``, a ``SpanTracer``): each round's ``admit``, then
+        its ``prefill_chunk`` (a round that splices prompt chunks) or
+        ``decode_chunk`` with the ``dispatch`` inside; a controller's
+        ``adapt_update`` and the executor's ``replan`` nest in the chunk
+        that fed it. A ``telemetry`` sink implies a tracer on it, an
+        explicit tracer wins, neither means ``NULL_TRACER``. The tracer
+        is bound to the server and the head's executor. Spans are host
+        wall clock; they change no result.
         """
         if clock is not None and self.coded_head is None:
             raise ValueError("clock (measured serving) requires a coded head")
+        if tracer is None:
+            tracer = SpanTracer(telemetry) if telemetry is not None else NULL_TRACER
+        self.tracer = tracer
+        if self.coded_head is not None:
+            self.coded_head.executor.tracer = tracer
         set_full_fp32()
         paged = self.cfg.paged if paged is None else paged
         trace = sorted(trace, key=lambda r: (r.arrival, r.rid))
@@ -513,15 +533,18 @@ class Server:
             **measure)
 
     def _dispatch(self, run, generator: torch.Generator, clock, controller):
-        """One serve dispatch: ``run()``, or ``run()`` under ``clock``,
-        decomposed with ``generator`` cloned before the run; a controller
-        then observes the timing (the next dispatch after a structural
-        replan is not fed). Returns ``run()``'s result."""
+        """One serve dispatch in a ``dispatch`` span: ``run()``, or ``run()``
+        under ``clock``, decomposed with ``generator`` cloned before the
+        run; a controller then observes the timing, outside the span (the
+        next dispatch after a structural replan is not fed). Returns
+        ``run()``'s result."""
         if clock is None:
-            return run()
+            with self.tracer.span("dispatch"):
+                return run()
         draw = torch.Generator(device=generator.device)
         draw.set_state(generator.get_state())
-        timing = clock.measure(run, generator=draw, true_cluster=self._true_cluster)
+        with self.tracer.span("dispatch"):
+            timing = clock.measure(run, generator=draw, true_cluster=self._true_cluster)
         if controller is not None:
             d = controller.observe_timing(timing)
             if (d is not None and d.replanned
@@ -585,22 +608,26 @@ class Server:
         emitted = []
         to_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
 
+        tracer = self.tracer
         now, i = 0.0, 0
         prefill_rounds = decode_rounds = 0
         t0 = time.perf_counter()
         while i < len(trace) or not sched.idle:
-            while i < len(trace) and trace[i].arrival <= now + 1e-9:
-                sched.offer(trace[i], now)
-                i += 1
-            placed = sched.fill_slots(now)
-            admit = None
-            if placed:
-                prompts_np = np.zeros((len(placed), prompt_cap), np.int32)
-                for r, (_si, req) in enumerate(placed):
-                    prompts_np[r, : req.prompt_len] = req.prompt
-                admit = (to_dev(prompts_np),
-                         to_dev(np.asarray([req.prompt_len for _, req in placed], np.int32)),
-                         to_dev(np.asarray([si for si, _ in placed], np.int64)))
+            with tracer.span("admit", round=now) as asp:
+                while i < len(trace) and trace[i].arrival <= now + 1e-9:
+                    sched.offer(trace[i], now)
+                    i += 1
+                placed = sched.fill_slots(now)
+                asp.set(placed=len(placed))
+                admit = None
+                if placed:
+                    prompts_np = np.zeros((len(placed), prompt_cap), np.int32)
+                    for r, (_si, req) in enumerate(placed):
+                        prompts_np[r, : req.prompt_len] = req.prompt
+                    admit = (to_dev(prompts_np),
+                             to_dev(np.asarray([req.prompt_len for _, req in placed],
+                                               np.int32)),
+                             to_dev(np.asarray([si for si, _ in placed], np.int64)))
             active = [s.busy and not s.done for s in sched.slots]
             if any(active):
                 steps = min(decode_block, min(
@@ -609,11 +636,13 @@ class Server:
                 owners = [(si, s.request.rid) for si, s in enumerate(sched.slots)
                           if active[si]]
                 active_t = to_dev(np.asarray(active))
-                cache, logits, pos, toks = self._dispatch(
-                    lambda: self._serve_step_dense(
-                        cache, logits, pos, admit, active_t, generator, stats,
-                        steps=steps),
-                    generator, clock, controller)
+                with tracer.span("decode_chunk", steps=steps, round=now,
+                                 placed=len(placed)):
+                    cache, logits, pos, toks = self._dispatch(
+                        lambda: self._serve_step_dense(
+                            cache, logits, pos, admit, active_t, generator, stats,
+                            steps=steps),
+                        generator, clock, controller)
                 emitted.append((toks, owners))
                 if placed:  # the admit splice costs its own round
                     now += 1.0
@@ -662,17 +691,21 @@ class Server:
         emitted = []  # (per-step token tensors, [(slot, rid)]) per dispatch
         to_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
 
+        tracer = self.tracer
         now, i = 0.0, 0
         prefill_rounds = decode_rounds = 0
         t0 = time.perf_counter()
         while i < len(trace) or not sched.idle:
-            while i < len(trace) and trace[i].arrival <= now + 1e-9:
-                sched.offer(trace[i], now)
-                i += 1
-            for si, _req in sched.fill_slots(now):
-                blocks = sched.slots[si].blocks
-                table_np[si, :] = -1
-                table_np[si, : len(blocks)] = blocks
+            with tracer.span("admit", round=now) as asp:
+                while i < len(trace) and trace[i].arrival <= now + 1e-9:
+                    sched.offer(trace[i], now)
+                    i += 1
+                placed = sched.fill_slots(now)
+                asp.set(placed=len(placed))
+                for si, _req in placed:
+                    blocks = sched.slots[si].blocks
+                    table_np[si, :] = -1
+                    table_np[si, : len(blocks)] = blocks
             # this round's prefill chunk: the next `chunk` prompt tokens of
             # every slot still mid-prompt, in one batched pass
             chunk_np = None
@@ -713,11 +746,15 @@ class Server:
                 owners = [(si, s.request.rid) for si, s in enumerate(sched.slots)
                           if active[si]]
                 table_t, active_t = to_dev(table_np), to_dev(np.asarray(active))
-                cache, logits, pos, toks = self._dispatch(
-                    lambda: self._serve_step_paged(
-                        cache, logits, pos, step_chunk, table_t, active_t, generator,
-                        stats, steps=steps),
-                    generator, clock, controller)
+                # a round that splices prompt chunks is a prefill round even
+                # when finishing slots decode in the same dispatch
+                with tracer.span("prefill_chunk" if prefilling else "decode_chunk",
+                                 steps=steps, round=now, placed=len(placed)):
+                    cache, logits, pos, toks = self._dispatch(
+                        lambda: self._serve_step_paged(
+                            cache, logits, pos, step_chunk, table_t, active_t,
+                            generator, stats, steps=steps),
+                        generator, clock, controller)
                 if toks:
                     emitted.append((toks, owners))
                 for si, take in notes:

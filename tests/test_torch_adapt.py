@@ -10,8 +10,8 @@ controller, and the serving hooks it drives.
 * ``AdaptiveController`` fed identical time arrays round by round:
   identical decision sequences (gain, current, candidate 1e-9) and
   plans; its ``adapt_decision`` and ``alloc_cache_hit`` events validate
-  against the reference's ``repro.obs.schema`` registry (only this test
-  imports it); the executor's ``replan`` span nests in ``adapt_update``;
+  against the port's ``repro_torch.obs.schema`` registry and the
+  reference's; the executor's ``replan`` span nests in ``adapt_update``;
 * the serving hooks on reduced qwen3-0.6b: ``CodedLMHead`` after a replan
   with the reference's generator injected (1e-5 coded blocks, 1e-4
   decode), ``generate`` under ``set_true_cluster`` (leavers never
@@ -35,7 +35,7 @@ from repro.configs import ARCHS as REF_ARCHS
 from repro.core.runtime_model import ClusterSpec as RefCluster
 from repro.core.schemes import make_scheme as ref_make_scheme
 from repro.models.model import Model as RefModel
-from repro.obs.schema import validate_event
+from repro.obs.schema import validate_event as ref_validate_event
 from repro.runtime.control import AdaptConfig as RefAdaptConfig
 from repro.runtime.control import AdaptiveController as RefController
 from repro.runtime.control import coverage_latency as ref_coverage_latency
@@ -56,6 +56,7 @@ from repro_torch.core.schemes import make_scheme
 import repro_torch.kernels as kernels
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.model import Model
+from repro_torch.obs.schema import validate_event
 from repro_torch.obs.trace import SpanTracer
 from repro_torch.runtime.control import (
     AdaptConfig,
@@ -271,7 +272,7 @@ def test_controller_decisions_equal_reference_on_identical_times(name, scheme, p
 
 def test_controller_events_validate_and_spans_nest():
     """Decisions land as ``adapt_decision`` events (and memo hits as
-    ``alloc_cache_hit``) that the reference's schema accepts; each
+    ``alloc_cache_hit``) that the port's schema and the reference's accept; each
     executor replan is a ``replan`` span inside an ``adapt_update`` span."""
     tracer = SpanTracer()
     with Telemetry() as tel:
@@ -281,6 +282,7 @@ def test_controller_events_validate_and_spans_nest():
     assert "alloc_cache_hit" in names
     for rec in tel.events:
         validate_event(rec, source=" (port)")
+        ref_validate_event(rec, source=" (port)")
     spans = list(tracer.spans)
     replans = [s for s in spans if s.name == "replan"]
     assert len(replans) == ctl.replans > 0

@@ -7,15 +7,29 @@ loads, deadline) and the ``generated ... tok/s`` line, and returns
 workload on the paged pool and on dense caches; ``--measure-times``
 times each dispatch with a ``RoundClock`` (the ``measured:`` line) in
 trace and scenario modes, and ``--bucket-quantum`` buckets the head.
+``--slots auto`` picks the reference CLI's width on the same fleet,
+``--telemetry`` and ``--chrome-trace`` write a JSONL that validates
+against ``repro_torch.obs.schema`` (and feeds the ops report) and a
+Chrome trace that loads, and the ``--slots`` refusals print the
+reference's messages.
 Without ``--device`` the CLI runs on CUDA, and raises where there is none
 (``tests/test_torch_plan.py``).
 """
+import json
 import re
 
 import pytest
 import torch
 
+from repro.core.runtime_model import ClusterSpec as RefCluster
+from repro.core.schemes import make_scheme as ref_make_scheme
+from repro.launch import serve as ref_launch_serve
+from repro.runtime.control import AdaptiveController as RefController
+from repro.runtime.executor import CodedRoundExecutor as RefExecutor
+from repro_torch.launch import obsreport
 from repro_torch.launch import serve as launch_serve
+from repro_torch.models.model import padded_vocab
+from repro_torch.obs.schema import validate_events
 
 # one intra-op thread: the suite runs test files in parallel worker
 # processes, beside the reference's wall-clock tests
@@ -55,8 +69,7 @@ def test_cli_trace_serves_every_request(capsys, dense):
 
 def test_cli_refuses_flags_of_modules_not_ported(capsys):
     for flag in (["--scenario", "churn"], ["--use-kernel"],
-                 ["--slots", "auto"], ["--measure-times"], ["--telemetry", "x.jsonl"],
-                 ["--chrome-trace", "x.json"], ["--legacy-decode"]):
+                 ["--slots", "auto"], ["--measure-times"], ["--legacy-decode"]):
         with pytest.raises(SystemExit):
             launch_serve.main(BASE + flag)
     with pytest.raises(SystemExit):  # not a registered scheme
@@ -142,3 +155,100 @@ def test_cli_scenario_measure_times_bucketed(capsys):
 def test_cli_measure_times_refusals(flags):
     with pytest.raises(SystemExit):
         launch_serve.main(BASE + flags)
+
+
+# ------------------------------------------------------------ observability
+SLOTS_AUTO = re.compile(r"slots auto -> (\d+) \(coverage latency ([\d.]+)\)")
+CHROME = re.compile(r"chrome trace: (\S+) \((\d+) spans\)")
+
+
+def test_cli_slots_auto_picks_the_reference_width(capsys):
+    """The reference CLI asks an ``AdaptiveController`` on its coded head's
+    executor (the default fleet, kb blocks of 256 vocab rows); the port's
+    CLI prints the same width and coverage latency, and serves at it."""
+    rep = launch_serve.main(BASE + ["--coded", "--trace", "poisson", "--num-requests", "3",
+                                    "--slots", "auto"])
+    text = capsys.readouterr().out
+    line = SLOTS_AUTO.search(text)
+    assert line is not None, text
+    kb = -(-padded_vocab(512) // 256)
+    ref = RefController(RefExecutor(RefCluster.parse("6:2.0,6:0.5"), kb,
+                                    ref_make_scheme("optimal")))
+    assert int(line[1]) == ref.recommend_slots(base=4)
+    assert line[2] == f"{ref.coverage_latency():.4f}"
+    assert "served 3 (0 shed)" in text and rep.admitted == 3
+
+
+def _chrome(text):
+    line = CHROME.search(text)
+    assert line is not None, text
+    with open(line[1]) as f:
+        events = json.load(f)["traceEvents"]
+    assert len(events) == int(line[2]) > 0
+    assert all(e["ph"] == "X" and e["ts"] >= 0 and e["dur"] >= 0 for e in events)
+    return events
+
+
+@pytest.mark.parametrize("dense", [False, True])
+def test_cli_trace_telemetry_and_chrome_trace(capsys, tmp_path, dense):
+    """``--trace`` with both sinks: every JSONL record validates, the spans
+    in it are those of the Chrome trace, and the ops report reads it."""
+    jsonl, chrome = tmp_path / "t.jsonl", tmp_path / "t.trace.json"
+    launch_serve.main(BASE + ["--coded", "--trace", "poisson", "--num-requests", "3",
+                              "--slots", "auto", "--telemetry", str(jsonl),
+                              "--chrome-trace", str(chrome)]
+                      + (["--dense-kv"] if dense else []))
+    events = _chrome(capsys.readouterr().out)
+    records = obsreport.load_records(str(jsonl))
+    assert validate_events(records, source=str(jsonl)) == len(records)
+    spans = [r for r in records if r["event"] == "span"]
+    assert [r["span"] for r in spans] == [e["name"] for e in events]
+    assert {r["span"] for r in spans} == {"admit", "decode_chunk", "dispatch"} | (
+        set() if dense else {"prefill_chunk"})
+    assert {"request_admitted", "request_done", "metrics_snapshot"} <= {
+        r["event"] for r in records}
+    obsreport.main([str(jsonl), "--require-spans"])
+    assert f"span coverage: {len(spans)} spans" in capsys.readouterr().out
+
+
+def test_cli_scenario_telemetry_and_chrome_trace(capsys, tmp_path):
+    """``--scenario`` measured and closed-loop: the clock's ``round_timing``,
+    the controller's decisions and the spans (a ``dispatch`` per generate,
+    ``adapt_update`` with the executor's ``replan`` inside) in one JSONL."""
+    jsonl, chrome = tmp_path / "s.jsonl", tmp_path / "s.trace.json"
+    ctl = launch_serve.main(BASE + ["--coded", "--scenario", "churn", "--adapt-every", "2",
+                                    "--rounds", "6", "--max-new", "2", "--measure-times",
+                                    "--telemetry", str(jsonl), "--chrome-trace", str(chrome)])
+    events = _chrome(capsys.readouterr().out)
+    records = obsreport.load_records(str(jsonl))
+    validate_events(records, source=str(jsonl))
+    names = [r["event"] for r in records]
+    assert names.count("round_timing") == 6
+    assert names.count("adapt_decision") == len(ctl.decisions) > 0
+    spans = [r for r in records if r["event"] == "span"]
+    assert len(spans) == len(events)
+    assert sum(r["span"] == "dispatch" and r["attrs"]["kind"] == "generate"
+               for r in spans) == 6
+    assert all(r["parent"] == "adapt_update" for r in spans if r["span"] == "replan")
+    assert any(r["span"] == "replan" for r in spans)  # churn's membership replan
+
+
+def test_cli_generate_chrome_trace(capsys, tmp_path):
+    """A plain coded generate traces one ``dispatch`` span."""
+    launch_serve.main(BASE + ["--coded", "--chrome-trace", str(tmp_path / "g.json")])
+    (event,) = _chrome(capsys.readouterr().out)
+    assert event["name"] == "dispatch" and event["args"]["kind"] == "generate"
+
+
+@pytest.mark.parametrize("flags", [
+    ["--slots", "auto"],             # needs --coded
+    ["--coded", "--slots", "two"],   # not an int
+    ["--slots", "2.5"],
+])
+def test_cli_slots_refusals_match_reference(flags):
+    with pytest.raises(SystemExit) as ref:
+        ref_launch_serve.main(["--arch", "qwen3-0.6b", "--reduced", "--trace", "poisson"]
+                              + flags)
+    with pytest.raises(SystemExit) as ours:
+        launch_serve.main(BASE + ["--trace", "poisson"] + flags)
+    assert str(ours.value) == str(ref.value) and "--slots" in str(ours.value)

@@ -41,7 +41,7 @@ torch.set_num_threads(1)
 
 KEY = jax.random.PRNGKey(0)
 FLEET = ([2, 2], [4.0, 0.8])
-#: scheduler / pool events (the reference's span events are not ported)
+#: scheduler / pool events (the spans are compared in tests/test_torch_obs.py)
 EVENTS = {"request_admitted", "request_evicted", "request_done", "blocks_in_use",
           "blocks_freed", "kv_bytes", "metrics_snapshot"}
 
