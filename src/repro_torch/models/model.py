@@ -217,16 +217,19 @@ class Model(nn.Module):
 
     # ------------------------------------------------------- dense cache
     def _check_slot_support(self) -> None:
-        """The dense cache paths cover the attention-cache families.
-
-        The reference also refuses int8 KV and sliding windows here; the
-        port's ``ModelConfig`` has neither field, so only the family is
-        checked (``__init__`` already refuses any other).
-        """
-        if self.config.family != "dense":
+        """The slot and paged paths allocate full-context, full-precision
+        caches: refuse ``kv_quant`` and sliding windows with the
+        reference's messages (``__init__`` already refuses any family but
+        dense)."""
+        c = self.config
+        if c.kv_quant:
             raise NotImplementedError(
-                f"dense-cache decode supports the dense family, not "
-                f"{self.config.family!r}"
+                "slot-resident decode does not support int8 KV caches yet"
+            )
+        if c.sliding_window is not None:
+            raise NotImplementedError(
+                "slot-resident decode allocates full-context caches; "
+                "sliding-window models are not supported yet"
             )
 
     def _dense_kv(self, batch: int, cache_len: int) -> dict:
@@ -237,7 +240,6 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, cache_len: int) -> dict:
         """Decode state of ``decode_step``: K/V and a (L, S) position map."""
-        self._check_slot_support()
         return {**self._dense_kv(batch, cache_len),
                 "pos": torch.full((self.config.num_layers, cache_len), -1,
                                   dtype=torch.int32, device=self.device)}
@@ -317,6 +319,7 @@ class Model(nn.Module):
     # ------------------------------------------------------- paged cache
     def init_paged_cache(self, num_blocks: int, block_len: int) -> dict:
         """KV block pool: ``num_blocks + 1`` blocks per layer (last = sink)."""
+        self._check_slot_support()
         c = self.config
         shape = (c.num_layers, num_blocks + 1, block_len, c.num_kv_heads,
                  c.resolved_head_dim)
@@ -332,6 +335,7 @@ class Model(nn.Module):
         int32; active: (S,) bool (inactive rows write the sink). Returns
         (logits (S, V_padded), cache).
         """
+        self._check_slot_support()
         c = self.config
         x = L.embed(self.embed, tokens[:, None], c.cdtype)
         for i in range(c.num_layers):
@@ -351,6 +355,7 @@ class Model(nn.Module):
         not prefilling). Returns the logits at each row's last real chunk
         position, (S, V_padded), and the cache.
         """
+        self._check_slot_support()
         c = self.config
         b, cc = tokens.shape
         x = L.embed(self.embed, tokens, c.cdtype)

@@ -264,7 +264,7 @@ def test_coded_serve_emits_uncoded_tokens_through_erasures(models):
 def test_serve_rejects_what_the_port_does_not_serve(models):
     """A dense slot cache cannot hold a prompt past ``prompt_cap`` (the
     paged pool prefills it in chunks instead); an empty trace; a family
-    other than dense."""
+    the port does not implement."""
     _, _, ours = models
     server = Server(ours)
     trace = wl.make_workload("poisson", num_requests=2, prompt_len=12,
@@ -275,8 +275,8 @@ def test_serve_rejects_what_the_port_does_not_serve(models):
         r.out_len for r in trace)
     with pytest.raises(ValueError, match="non-empty"):
         server.serve([])
-    with pytest.raises(NotImplementedError, match="dense"):
-        Model(dataclasses.replace(ARCHS["qwen3-0.6b"].reduced(), family="moe"),
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        Model(dataclasses.replace(ARCHS["qwen3-0.6b"].reduced(), family="hybrid"),
               device="cpu")
 
 
