@@ -5,8 +5,11 @@ through the coded server (paged and dense), generate with it under every
 baseline allocation scheme, profile those serving paths phase by phase with
 their spans on a telemetry stream, generate under a drifting fleet with
 closed-loop replanning (simulated, then measured by a round clock with plan
-buckets), run the serving CLI and its ops report, then train it with
-gradient coding, plain and then adaptive under measured round times.
+buckets), run the serving CLI and its ops report, serve the other configs of
+the port's envelope (granite-3-2b, yi-9b, moonshot-v1-16b-a3b at full width,
+h2o-danube-3-4b through its sequential prefill, plain and int8 KV), then
+train qwen3-0.6b with gradient coding, plain and then adaptive under
+measured round times.
 
 Run from the repository root with no arguments:
 
@@ -86,6 +89,20 @@ Phases (any failure raises, and the script exits non-zero):
    ...`` (exit 0, its width, Chrome trace and serve lines); then ``python
    -m repro_torch.launch.obsreport`` on its JSONL with ``--require-spans``
    (exit 0, ``span coverage:``);
+   families — the model envelope at full width, one model on the card at a
+   time (its own seeded init; freed, and the allocator checked, before the
+   next): per config B1 and B3 at its coded head's shapes and B2 at its
+   serve shape held against their plain versions and timed beside the
+   library call, then granite-3-2b (40 layers) and yi-9b (48) through the
+   serve phase's trace paged (yi also dense, with the serve-dense phase's
+   checks), moonshot-v1-16b-a3b (MoE, 64 experts top-6) at 24 of its 48
+   layers (27.7 B parameters do not fit in 80 GB in float32) paged, each
+   with the serve phase's coded-round check; h2o-danube-3-4b (24 layers,
+   window 4,096) ``generate`` of [generate]'s prompts through the
+   sequential prefill, with its cache and with the int8 one, each held
+   against its uncoded run; counters reset before each path and read
+   after; then the reduced danube (window 64) generates past its window on
+   the card and on the CPU, the same weights, the logits held together;
 10. train   — launch counters reset, then ``Trainer.run`` of 4 gradient-
    coded steps of full-width qwen3-0.6b (seeded init, batch 16 x 512) on
    the same fleet; counters read right after; then one more steady step
@@ -105,8 +122,9 @@ Phases (any failure raises, and the script exits non-zero):
    (forward) and steps not skipped (each backward), counted per run.
 
 The last three stdout lines are the card (``nvidia-smi``), the kernels
-JSON (each kernel's launches on every path beside its main path's, and
-B1 and B3 also at Path M's shapes) and ``{"ok": true, "device": {...}}``.
+JSON (each kernel's launches on every path beside its main path's, B1 and
+B3 also at Path M's shapes, and B1-B3 at each [families] config's shapes)
+and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -191,44 +209,72 @@ def device_us(ev) -> float:
                          getattr(ev, "self_cuda_time_total", 0.0)) or 0.0)
 
 
+def profiled(fn, calls: int = 1) -> list | None:
+    """(name, device us) of each kernel that ``calls`` calls of ``fn`` launch,
+    under ``torch.profiler``. The profiler loses the first kernels of a
+    capture now and then (late in a long process, 1 to 50 calls' worth;
+    none in a fresh process), so the capture makes the same calls twice
+    with a marker kernel (``torch.cuda._sleep``'s spin kernel) between,
+    and keeps the kernels that started after the marker. None when the
+    marker itself was lost."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda._sleep(1000)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    marks = [e.time_range.start for e in kernels if "spin_kernel" in e.name]
+    if not marks:
+        return None
+    return [(e.name, e.time_range.elapsed_us()) for e in kernels
+            if e.time_range.start > marks[0] and "spin_kernel" not in e.name]
+
+
 def device_split(fn, stages: dict) -> dict | None:
     """Device ms and launches of each stage of one call of ``fn`` under
     ``torch.profiler``: ``stages`` maps a stage name to a test on the
     kernel's name (the first that holds takes it). None when the profiler
     recorded no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     out = {name: [0.0, 0] for name in stages}
-    for ev in prof.key_averages():
+    for kernel, us in profiled(fn) or []:
         for name, test in stages.items():
-            if test(ev.key):
-                out[name][0] += device_us(ev) / 1e3
-                out[name][1] += ev.count
+            if test(kernel):
+                out[name][0] += us / 1e3
+                out[name][1] += 1
                 break
     return out if sum(ms for ms, _ in out.values()) > 0 else None
 
 
-def device_ms(fn, calls: int = 50, warmup: int = 3, match: str = "") -> float | None:
-    """Device time of one call of ``fn``: the summed self device time of the
+def device_ms(fn, calls: int = 50, warmup: int = 3, match: str = "",
+              attempts: int = 6) -> float | None:
+    """Device time of one call of ``fn``: the summed device time of the
     kernels that ``calls`` calls launch under ``torch.profiler`` (those
-    whose name holds ``match``), over ``calls``. None when the profiler
-    recorded no device time."""
+    whose name holds ``match``; ``profiled``), over ``calls``. A capture in
+    which some kernel did not come back a whole number of times per call
+    is taken again, up to ``attempts`` times; then None."""
+    import collections
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(device_us(ev) for ev in prof.key_averages() if match in ev.key) / 1e3
-    return total / calls if total > 0 else None
+    for attempt in range(1, attempts + 1):
+        counts, total = collections.Counter(), 0.0
+        for name, us in profiled(fn, calls) or []:
+            if match in name and us > 0:
+                counts[name] += 1
+                total += us
+        if counts and all(n % calls == 0 for n in counts.values()):
+            return total / 1e3 / calls
+        print(f"[profiler] capture {attempt}/{attempts}: kernel counts "
+              f"{sorted(counts.values())} for {calls} calls")
+    return None
 
 
 def ptxas_facts(log: Path, *parts: str) -> str:
@@ -265,10 +311,131 @@ def gemm_tolerance(a, b) -> float:
     return 2 * a.shape[1] * 2.0**-24 * float(torch.matmul(a.abs(), b.abs()).max())
 
 
+def matvec_row(g, x, err: float) -> dict:
+    """B1's times at (nb, kb) x (kb, N): host-paced and device, its plain
+    version and ``torch.matmul``; the bound."""
+    import torch
+
+    from repro_torch.kernels.coded_matvec import ops as cmv
+
+    m, k, n = g.shape[0], g.shape[1], x.shape[1]
+    return dict(
+        err=err, ms=cuda_ms(lambda: cmv.blocked_matvec(g, x), 200),
+        plain_ms=cuda_ms(lambda: cmv.blocked_matvec_plain(g, x), 200),
+        library_ms=cuda_ms(lambda: torch.matmul(g, x), 200),
+        device_ms=device_ms(lambda: cmv.blocked_matvec(g, x)),
+        library_device_ms=device_ms(lambda: torch.matmul(g, x)),
+        bound=bound_ms(4 * (m * k + k * n + m * n), 2 * m * n * k, "float32"),
+    )
+
+
+def encode_row(g, a, err: float) -> dict:
+    """B3's times at (nb, kb) x (kb, R D), its plain version and
+    ``torch.matmul``; the bound."""
+    import torch
+
+    from repro_torch.kernels.mds_encode import ops as mds
+
+    m, k, n = g.shape[0], g.shape[1], a.shape[1]
+    return dict(
+        err=err, ms=cuda_ms(lambda: mds.mds_encode(g, a), 5),
+        plain_ms=cuda_ms(lambda: mds.mds_encode_plain(g, a), 5),
+        library_ms=cuda_ms(lambda: torch.matmul(g, a), 5),
+        bound=bound_ms(4 * (m * k + k * n + m * n), 2 * m * n * k, "float32"),
+    )
+
+
+#: B2's table width: the serve loop's pool for the serve trace (72 blocks)
+PAGED_TABLE = 72
+
+
+def paged_inputs(gen, kv: int, grp: int, hd: int):
+    """B2's bf16 (q, k_pool, v_pool) at one shape: S slots, a pool of
+    PAGED_TABLE + 1 blocks of BLOCK_LEN with NaN in the sink block (a kernel
+    that reads it poisons every slot)."""
+    import torch
+
+    shape = (PAGED_TABLE + 1, BLOCK_LEN, kv, hd)
+    k_pool = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    v_pool = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    k_pool[PAGED_TABLE] = float("nan")
+    v_pool[PAGED_TABLE] = float("nan")
+    q = torch.randn((SLOTS, kv, grp, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    return q, k_pool, v_pool
+
+
+def paged_table(gen):
+    """Scattered block tables with a hole, and one slot with no valid entry."""
+    import torch
+
+    pos = torch.tensor([255, 100, 16, 40], dtype=torch.int32, device="cuda")
+    table = torch.full((SLOTS, PAGED_TABLE), -1, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(PAGED_TABLE, generator=gen, device="cuda").to(torch.int32)
+    table[0, :16], table[1, :7], table[2, :2] = perm[:16], perm[16:23], perm[23:25]
+    table[0, 5] = -1  # an unallocated hole inside slot 0's history
+    return table, pos
+
+
+def paged_hold(tag: str, q, k_pool, v_pool, table, pos):
+    """B2 against its plain version: finite, zeros for the empty slot, and
+    per element at most one bf16 rounding step apart. Returns (the
+    kernel's output, max_abs_err)."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import ops as pa
+
+    got = pa.paged_decode_attend(q, k_pool, v_pool, table, pos)
+    want = pa.paged_decode_attend_plain(q, k_pool, v_pool, table, pos)
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    # per element: at most one bf16 rounding step apart, |d| <= 2^-7 |want| + 1e-6
+    worst = float((diff / (2.0**-7 * want.float().abs() + 1e-6)).max())
+    _, kv, grp, hd = q.shape
+    print(f"[{tag}] paged_decode S={SLOTS} KV={kv} G={grp} hd={hd} MB={table.shape[1]}: "
+          f"max_abs_err {err:.3e}; max |d| / (2^-7 |want| + 1e-6) {worst:.3e} <= 1 (one "
+          f"bf16 rounding step per element); finite {bool(torch.isfinite(got).all())}, "
+          f"empty slot zeros {bool((got[3] == 0).all())}")
+    check(bool(torch.isfinite(got).all()), f"paged_decode KV={kv} G={grp} hd={hd}: not finite")
+    check(bool((got[3] == 0).all()), "paged_decode: empty slot must return zeros")
+    check(worst <= 1.0, f"paged_decode KV={kv} G={grp} hd={hd} disagrees with its plain "
+                        f"version")
+    return got, err
+
+
+def paged_row(q, k_pool, v_pool, table, pos, err: float) -> dict:
+    """B2's times at one shape (host-paced and device), its plain version and
+    SDPA over the gathered KV of the valid positions; the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import ops as pa
+
+    _, kv, grp, hd = q.shape
+    valid = pa.valid_mask(table, BLOCK_LEN, pos)  # (S, L)
+    n_tok = int(valid.sum())
+    kg = pa.gather_kv(k_pool, table).permute(0, 2, 1, 3).repeat_interleave(grp, 1)
+    vg = pa.gather_kv(v_pool, table).permute(0, 2, 1, 3).repeat_interleave(grp, 1)
+    qs = q.reshape(SLOTS, kv * grp, 1, hd)
+    mask = valid[:, None, None, :]
+    nbytes = 2 * (q.numel() * 2 + 2 * n_tok * kv * hd) + 4 * (table.numel() + SLOTS)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask)
+
+    return dict(
+        err=err,
+        ms=cuda_ms(lambda: pa.paged_decode_attend(q, k_pool, v_pool, table, pos), 200),
+        plain_ms=cuda_ms(
+            lambda: pa.paged_decode_attend_plain(q, k_pool, v_pool, table, pos), 50),
+        library_ms=cuda_ms(sdpa, 200),
+        device_ms=device_ms(lambda: pa.paged_decode_attend(q, k_pool, v_pool, table, pos)),
+        library_device_ms=device_ms(sdpa),
+        bound=bound_ms(nbytes, 4 * n_tok * kv * grp * hd, "bfloat16"),
+    )
+
+
 def kernel_phase(nb: int, kb: int) -> dict:
     """Each kernel vs its plain version at the serving shapes; times."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.core.coding import make_generator
     from repro_torch.kernels.coded_matvec import ops as cmv
@@ -300,15 +467,7 @@ def kernel_phase(nb: int, kb: int) -> dict:
           f"by registers x {sms} SMs: {in_flight} in flight; ptxas: {facts}; "
           f"a second launch bit-identical: {same}")
     check(same, "coded_matvec is not deterministic")
-    rows["coded_matvec"] = dict(
-        err=err, ms=cuda_ms(lambda: cmv.blocked_matvec(g, x), 200),
-        plain_ms=cuda_ms(lambda: cmv.blocked_matvec_plain(g, x), 200),
-        library_ms=cuda_ms(lambda: torch.matmul(g, x), 200),
-        device_ms=device_ms(lambda: cmv.blocked_matvec(g, x)),
-        library_device_ms=device_ms(lambda: torch.matmul(g, x)),
-        bound=bound_ms(4 * (m * k + k * n + m * n), 2 * m * n * k, "float32"),
-    )
-    r = rows["coded_matvec"]
+    rows["coded_matvec"] = r = matvec_row(g, x, err)
     ratio = (None if r["device_ms"] is None or r["library_device_ms"] is None
              else r["device_ms"] / r["library_device_ms"])
     print(f"[kernels] coded_matvec device time {fmt_ms(r['device_ms'])} per call (2 launches "
@@ -327,13 +486,7 @@ def kernel_phase(nb: int, kb: int) -> dict:
           f"max_abs_err {err:.3e} <= tol {tol:.3e} (2 K u max|G||A|)")
     check(err <= tol, "mds_encode disagrees with its plain version")
     m, k, n = nb, kb, a.shape[1]
-    rows["mds_encode"] = dict(
-        err=err, ms=cuda_ms(lambda: mds.mds_encode(g, a), 5),
-        plain_ms=cuda_ms(lambda: mds.mds_encode_plain(g, a), 5),
-        library_ms=cuda_ms(lambda: torch.matmul(g, a), 5),
-        bound=bound_ms(4 * (m * k + k * n + m * n), 2 * m * n * k, "float32"),
-    )
-    r = rows["mds_encode"]
+    rows["mds_encode"] = r = encode_row(g, a, err)
     print(f"[kernels] mds_encode: {r['ms']:.3f} ms ({2 * m * n * k / r['ms'] / 1e9:.1f} "
           f"TFLOP/s, {r['ms'] / r['bound'][0]:.2f}x bound, {r['ms'] / r['library_ms']:.2f}x "
           f"cuBLAS), plain {r['plain_ms']:.3f} ms, cuBLAS SGEMM {r['library_ms']:.3f} ms "
@@ -344,31 +497,10 @@ def kernel_phase(nb: int, kb: int) -> dict:
     # B2: decode attend, S=4 slots over a pool as wide as the serve loop's;
     # scattered tables with a hole, one slot with no valid entry, and NaN
     # in the sink block (a kernel that reads it poisons every slot)
-    kv, grp, hd, nblk = 8, 2, 128, 72
-    k_pool = torch.randn((nblk + 1, BLOCK_LEN, kv, hd), generator=gen,
-                         device=dev).to(torch.bfloat16)
-    v_pool = torch.randn((nblk + 1, BLOCK_LEN, kv, hd), generator=gen,
-                         device=dev).to(torch.bfloat16)
-    k_pool[nblk] = float("nan")
-    v_pool[nblk] = float("nan")
-    q = torch.randn((SLOTS, kv, grp, hd), generator=gen, device=dev).to(torch.bfloat16)
-    pos = torch.tensor([255, 100, 16, 40], dtype=torch.int32, device=dev)
-    table = torch.full((SLOTS, nblk), -1, dtype=torch.int32, device=dev)
-    perm = torch.randperm(nblk, generator=gen, device=dev).to(torch.int32)
-    table[0, :16], table[1, :7], table[2, :2] = perm[:16], perm[16:23], perm[23:25]
-    table[0, 5] = -1  # an unallocated hole inside slot 0's history
-    got = pa.paged_decode_attend(q, k_pool, v_pool, table, pos)
-    want = pa.paged_decode_attend_plain(q, k_pool, v_pool, table, pos)
-    check(bool(torch.isfinite(got).all()), "paged_decode output not finite")
-    check(bool((got[3] == 0).all()), "paged_decode: empty slot must return zeros")
-    diff = (got.float() - want.float()).abs()
-    err = float(diff.max())
-    # per element: at most one bf16 rounding step apart, |d| <= 2^-7 |want| + 1e-6
-    worst = float((diff / (2.0**-7 * want.float().abs() + 1e-6)).max())
-    print(f"[kernels] paged_decode S={SLOTS} KV={kv} G={grp} hd={hd} "
-          f"MB={nblk}: max_abs_err {err:.3e}; max |d| / (2^-7 |want| + 1e-6) "
-          f"{worst:.3e} <= 1 (one bf16 rounding step per element)")
-    check(worst <= 1.0, "paged_decode disagrees with its plain version")
+    kv, grp, hd, nblk = 8, 2, 128, PAGED_TABLE
+    q, k_pool, v_pool = paged_inputs(gen, kv, grp, hd)
+    table, pos = paged_table(gen)
+    got, err = paged_hold("kernels", q, k_pool, v_pool, table, pos)
     same = torch.equal(pa.paged_decode_attend(q, k_pool, v_pool, table, pos), got)
     nsplit = pa.decode_splits(nblk)
     active = kv * sum(max(0, min(int(p) // BLOCK_LEN + 1, nsplit)) for p in pos.tolist())
@@ -382,29 +514,7 @@ def kernel_phase(nb: int, kb: int) -> dict:
           f"blocks an SM by registers x {sms} SMs: {in_flight} in flight; ptxas: {facts}; "
           f"a second launch bit-identical: {same}")
     check(same, "paged_decode is not deterministic")
-    valid = pa.valid_mask(table, BLOCK_LEN, pos)  # (S, L)
-    n_tok = int(valid.sum())
-    # yardstick: SDPA over the gathered KV of the valid positions
-    kg = pa.gather_kv(k_pool, table).permute(0, 2, 1, 3).repeat_interleave(grp, 1)
-    vg = pa.gather_kv(v_pool, table).permute(0, 2, 1, 3).repeat_interleave(grp, 1)
-    qs = q.reshape(SLOTS, kv * grp, 1, hd)
-    mask = valid[:, None, None, :]
-    nbytes = 2 * (q.numel() * 2 + 2 * n_tok * kv * hd) + 4 * (table.numel() + SLOTS)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask)
-
-    rows["paged_decode"] = dict(
-        err=err,
-        ms=cuda_ms(lambda: pa.paged_decode_attend(q, k_pool, v_pool, table, pos), 200),
-        plain_ms=cuda_ms(
-            lambda: pa.paged_decode_attend_plain(q, k_pool, v_pool, table, pos), 50),
-        library_ms=cuda_ms(sdpa, 200),
-        device_ms=device_ms(lambda: pa.paged_decode_attend(q, k_pool, v_pool, table, pos)),
-        library_device_ms=device_ms(sdpa),
-        bound=bound_ms(nbytes, 4 * n_tok * kv * grp * hd, "bfloat16"),
-    )
-    r = rows["paged_decode"]
+    rows["paged_decode"] = r = paged_row(q, k_pool, v_pool, table, pos, err)
     print(f"[kernels] paged_decode device time {fmt_ms(r['device_ms'])} per call (split and "
           f"combine launches), SDPA device time {fmt_ms(r['library_device_ms'])}; host-paced "
           f"means: kernel {r['ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms; bound "
@@ -412,23 +522,9 @@ def kernel_phase(nb: int, kb: int) -> dict:
 
     # B2 at h2o-danube-3-4b's head_dim: 120 (15 vectors of 16 bytes in bf16,
     # a team of 16 lanes with one idle), KV 8, G 4, the same table and pos
-    dkv, dgrp, dhd = 8, 4, 120
-    dk = torch.randn((nblk + 1, BLOCK_LEN, dkv, dhd), generator=gen, device=dev).to(torch.bfloat16)
-    dv = torch.randn((nblk + 1, BLOCK_LEN, dkv, dhd), generator=gen, device=dev).to(torch.bfloat16)
-    dk[nblk] = float("nan")
-    dv[nblk] = float("nan")
-    dq = torch.randn((SLOTS, dkv, dgrp, dhd), generator=gen, device=dev).to(torch.bfloat16)
-    dgot = pa.paged_decode_attend(dq, dk, dv, table, pos)
-    dwant = pa.paged_decode_attend_plain(dq, dk, dv, table, pos)
-    ddiff = (dgot.float() - dwant.float()).abs()
-    dworst = float((ddiff / (2.0**-7 * dwant.float().abs() + 1e-6)).max())
-    print(f"[kernels] paged_decode S={SLOTS} KV={dkv} G={dgrp} hd={dhd} MB={nblk}: "
-          f"max_abs_err {float(ddiff.max()):.3e}; max |d| / (2^-7 |want| + 1e-6) "
-          f"{dworst:.3e} <= 1; finite {bool(torch.isfinite(dgot).all())}, empty slot zeros "
-          f"{bool((dgot[3] == 0).all())}")
-    check(dworst <= 1.0 and bool(torch.isfinite(dgot).all()) and bool((dgot[3] == 0).all()),
-          "paged_decode at hd = 120 disagrees with its plain version")
-    del dk, dv, dq, dgot, dwant, ddiff
+    dq, dk, dv = paged_inputs(gen, 8, 4, 120)
+    paged_hold("kernels", dq, dk, dv, table, pos)
+    del dk, dv, dq
 
     # as the serve path sees it: one pool per layer, taken in turn, and
     # the L2 flushed before each call (between two calls on one layer the
@@ -783,7 +879,7 @@ def matvec_phase(device: str = "cuda") -> dict:
     return counts, {"narrow": narrow, "encode": encode}
 
 
-def make_model(cfg, device: str = "cuda"):
+def make_model(cfg, device: str = "cuda", tag: str = "serve"):
     """The seeded model every serving phase shares."""
     import torch
 
@@ -793,7 +889,7 @@ def make_model(cfg, device: str = "cuda"):
     model = Model(cfg, device=device, seed=0)
     if model.device.type == "cuda":
         torch.cuda.synchronize()
-    print(f"[serve] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+    print(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"vocab {cfg.vocab_size}, params "
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
           f"(init {time.perf_counter() - t:.1f} s)")
@@ -808,9 +904,9 @@ def serve_trace(cfg):
                          out_len=(8, 16), vocab=cfg.vocab_size).trace(seed=0)
 
 
-def serve_phase(model):
+def serve_phase(model, tag: str = "serve"):
     """Coded paged serve on ``model``; returns the launch counts of the run
-    and its report."""
+    and its report. ``tag`` heads the printed lines."""
     import torch
 
     import repro_torch.kernels as kernels
@@ -829,16 +925,16 @@ def serve_phase(model):
     counts = kernels.launch_counts()
 
     head = server.coded_head
-    print(f"[serve] coded head: kb {head.kb}, nb {head.nb}, deadline "
+    print(f"[{tag}] coded head: kb {head.kb}, nb {head.nb}, deadline "
           f"{head.deadline:.6f}, loads {head.plan.loads_per_worker.tolist()}")
     done = [f for f in rep.finished if f.outcome == "done"]
-    print(f"[serve] {len(done)}/{len(trace)} done, shed {rep.shed}, tokens "
+    print(f"[{tag}] {len(done)}/{len(trace)} done, shed {rep.shed}, tokens "
           f"{rep.tokens}, decode rounds {rep.decode_rounds}, prefill rounds "
           f"{rep.prefill_rounds}")
-    print(f"[serve] wall {rep.wall_s:.3f} s, {rep.tokens_per_s:.2f} tokens/s, "
+    print(f"[{tag}] wall {rep.wall_s:.3f} s, {rep.tokens_per_s:.2f} tokens/s, "
           f"decode ok rate {rep.decode_ok}/{rep.decode_rounds}, erased rounds "
           f"{rep.erased_rounds}, KV pool bytes {rep.kv_bytes}")
-    print(f"[serve] launches {counts}")
+    print(f"[{tag}] launches {counts}")
     check(len(done) == len(trace) and rep.shed == 0, "every request done, none shed")
     check(rep.tokens == sum(r.out_len for r in trace), "tokens == sum(out_len)")
     check(all(len(rep.streams[r.rid]) == r.out_len for r in trace),
@@ -874,7 +970,7 @@ def serve_phase(model):
         cond = float(torch.linalg.cond(head.generator[order].double()))
         err = float((sel[:, : cfg.vocab_size] - want).abs().max())
         tol = cond * 2.0**-22 * scale
-        print(f"[serve] coded round, {int((~wmask).sum())} workers erased: "
+        print(f"[{tag}] coded round, {int((~wmask).sum())} workers erased: "
               f"max |decoded - uncoded| {err:.3e} <= tol {tol:.3e} "
               f"(cond(G_S) 2^-22 max|logits|, cond {cond:.3e})")
         check(err <= tol, "decoded logits disagree with the uncoded logits")
@@ -883,6 +979,17 @@ def serve_phase(model):
             break
     check(checked >= 1, "no coded round decoded through erasures")
     return counts, rep
+
+
+def with_config(model, **changes):
+    """``model`` under a changed config, its parameters shared (no copy):
+    the float32-compute twin of a bf16 model, or its int8-KV twin."""
+    import copy
+    import dataclasses
+
+    view = copy.copy(model)
+    view.config = dataclasses.replace(model.config, **changes)
+    return view
 
 
 def max_err(a, b) -> float:
@@ -919,21 +1026,18 @@ def first_round_logits(model, reqs, chunk):
     return dense[:, :v].float(), paged[:, :v].float()
 
 
-def serve_dense_phase(model, paged_rep) -> dict:
+def serve_dense_phase(model, paged_rep, tag: str = "serve-dense") -> dict:
     """The serve phase's trace through ``serve(paged=False)`` (dense per-slot
     caches), same slots, decode chunks and seed; the first-round logits of
     the two paths held against each other. Returns the launch counts and
-    the report."""
-    import dataclasses
-
+    the report. ``tag`` heads the printed lines."""
     import torch
 
     import repro_torch.kernels as kernels
     from repro_torch.core.runtime_model import ClusterSpec
-    from repro_torch.models.model import Model
     from repro_torch.runtime.serve_loop import ServeConfig, Server
 
-    cfg, device = model.config, model.device
+    cfg = model.config
     trace = serve_trace(cfg)
     kernels.reset_launch_counts()
     server = Server(model, ClusterSpec.make(*CLUSTER),
@@ -942,14 +1046,14 @@ def serve_dense_phase(model, paged_rep) -> dict:
     counts = kernels.launch_counts()
     done = [f for f in rep.finished if f.outcome == "done"]
     same = sum(rep.streams.get(r.rid) == paged_rep.streams.get(r.rid) for r in trace)
-    print(f"[serve-dense] {len(done)}/{len(trace)} done, shed {rep.shed}, tokens "
+    print(f"[{tag}] {len(done)}/{len(trace)} done, shed {rep.shed}, tokens "
           f"{rep.tokens}, decode rounds {rep.decode_rounds}, prefill rounds "
           f"{rep.prefill_rounds}, KV cache bytes {rep.kv_bytes} (paged pool "
           f"{paged_rep.kv_bytes})")
-    print(f"[serve-dense] wall {rep.wall_s:.3f} s, {rep.tokens_per_s:.2f} tokens/s "
+    print(f"[{tag}] wall {rep.wall_s:.3f} s, {rep.tokens_per_s:.2f} tokens/s "
           f"(paged {paged_rep.wall_s:.3f} s, {paged_rep.tokens_per_s:.2f} tokens/s), decode "
           f"ok rate {rep.decode_ok}/{rep.decode_rounds}, erased rounds {rep.erased_rounds}")
-    print(f"[serve-dense] launches {counts}; {same}/{len(trace)} streams equal the paged "
+    print(f"[{tag}] launches {counts}; {same}/{len(trace)} streams equal the paged "
           f"serve's")
     check(len(done) == len(trace) and rep.shed == 0, "dense: every request done, none shed")
     check(rep.tokens == sum(r.out_len for r in trace), "dense: tokens == sum(out_len)")
@@ -959,25 +1063,24 @@ def serve_dense_phase(model, paged_rep) -> dict:
 
     # the logits each path samples a request's first token from: one dense
     # prefill of the whole prompt, and the paged prefill in chunks of CHUNK
-    # tokens. The float32 model (same seed) must compute the same logits
-    # both ways; in bf16 the paths round differently (the dense attend
-    # rounds the scaled scores and the unnormalised P V to bf16, the paged
-    # one the scores and the normalised weights), and 28 layers of random
+    # tokens. The float32-compute twin (the same weights) must compute the
+    # same logits both ways; in bf16 the paths round differently (the dense
+    # attend rounds the scaled scores and the unnormalised P V to bf16, the
+    # paged one the scores and the normalised weights), and layers of random
     # weights amplify that, so each bf16 path is held against float32 and
     # the dense one may be no noisier than the paged one.
     reqs = trace[:SLOTS]
-    m32 = Model(dataclasses.replace(cfg, compute_dtype="float32"), device=device, seed=0)
-    dense32, paged32 = first_round_logits(m32, reqs, CHUNK)
-    del m32
+    dense32, paged32 = first_round_logits(with_config(model, compute_dtype="float32"),
+                                          reqs, CHUNK)
     err32, tol32 = max_err(dense32, paged32), 2.0**-14 * float(paged32.abs().max())
-    print(f"[serve-dense] first-round logits (f32 compute, same weights): dense prefill "
+    print(f"[{tag}] first-round logits (f32 compute, same weights): dense prefill "
           f"vs paged chunks of {CHUNK}: max_abs_err {err32:.3e} <= tol {tol32:.3e} "
           f"(2^-14 max|logits|)")
     check(err32 <= tol32, "dense and paged first-round logits disagree in float32")
     dense, paged = first_round_logits(model, reqs, CHUNK)
     scale = float(paged32.abs().max())
     err, e_dense, e_paged = max_err(dense, paged), max_err(dense, dense32), max_err(paged, paged32)
-    print(f"[serve-dense] first-round logits (bf16): dense vs paged max_abs_err {err:.3e} "
+    print(f"[{tag}] first-round logits (bf16): dense vs paged max_abs_err {err:.3e} "
           f"({err / (2.0**-6 * scale):.2f} x 2^-6 max|logits|); against float32: dense "
           f"{e_dense:.3e}, paged {e_paged:.3e} (dense <= 2 paged + 2^-8 max|logits| = "
           f"{2 * e_paged + 2.0**-8 * scale:.3e}); argmax equal "
@@ -1887,6 +1990,233 @@ def obsreport_cli(jsonl: str) -> None:
           "the ops report CLI prints its span coverage")
 
 
+#: [families]: each config, the depth kept (None: the config's own) and its
+#: serving paths. moonshot-v1-16b-a3b's 48 layers are 27.7 B parameters,
+#: 111 GB in float32, past the card's 80 GB: 24 layers (14.0 B) are kept.
+FAMILY_RUNS = (("granite-3-2b", None, ("paged",)),
+               ("yi-9b", None, ("paged", "dense")),
+               ("moonshot-v1-16b-a3b", 24, ("paged",)),
+               ("h2o-danube-3-4b", None, ("generate",)))
+#: the reduced h2o-danube-3-4b generates past its 64-token window
+WRAP_PROMPT, WRAP_NEW = 70, 8
+
+
+def family_kernels(tag: str, nb: int, kb: int, d: int, attn) -> dict:
+    """B1 and B3 at one config's coded head, (nb, kb) x (kb, S R) and (nb,
+    kb) x (kb, R D), and B2 at its serve shape (``attn`` = (KV, G, hd); None
+    for a config that is not served paged), each held against its plain
+    version and timed beside its library call. Returns the rows with their
+    shapes."""
+    import torch
+
+    from repro_torch.core.coding import make_generator
+    from repro_torch.kernels.coded_matvec import ops as cmv
+    from repro_torch.kernels.mds_encode import ops as mds
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    g = make_generator(nb, kb, device="cuda")
+    rows = {}
+    x = torch.randn((kb, SLOTS * 256), generator=gen, device="cuda")
+    err = max_err(cmv.blocked_matvec(g, x), cmv.blocked_matvec_plain(g, x))
+    tol = gemm_tolerance(g, x)
+    print(f"[{tag}] coded_matvec ({nb},{kb})x({kb},{x.shape[1]}): max_abs_err {err:.3e} "
+          f"<= tol {tol:.3e} (2 K u max|G||X|)")
+    check(err <= tol, f"{tag}: coded_matvec disagrees with its plain version")
+    rows["coded_matvec"] = dict(shape=[[nb, kb], [kb, x.shape[1]]], **matvec_row(g, x, err))
+    del x
+    a = torch.randn((kb, 256 * d), generator=gen, device="cuda").mul_(0.02)
+    err = max_err(mds.mds_encode(g, a), mds.mds_encode_plain(g, a))
+    tol = gemm_tolerance(g, a)
+    print(f"[{tag}] mds_encode ({nb},{kb})x({kb},{a.shape[1]}): max_abs_err {err:.3e} "
+          f"<= tol {tol:.3e} (2 K u max|G||A|)")
+    check(err <= tol, f"{tag}: mds_encode disagrees with its plain version")
+    rows["mds_encode"] = dict(shape=[[nb, kb], [kb, a.shape[1]]], **encode_row(g, a, err))
+    del a
+    torch.cuda.empty_cache()
+    if attn is not None:
+        kv, grp, hd = attn
+        q, k_pool, v_pool = paged_inputs(gen, kv, grp, hd)
+        table, pos = paged_table(gen)
+        _, err = paged_hold(tag, q, k_pool, v_pool, table, pos)
+        rows["paged_decode"] = dict(shape=[SLOTS, kv, grp, hd, PAGED_TABLE],
+                                    **paged_row(q, k_pool, v_pool, table, pos, err))
+        del q, k_pool, v_pool
+    for name, r in rows.items():
+        print(f"[{tag}] {name} {r['shape']}: device {fmt_ms(r.get('device_ms'))}, "
+              f"host-paced {r['ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; library "
+              f"{fmt_ms(r.get('library_device_ms'))} device, {r['library_ms']:.4f} ms "
+              f"host-paced; bound {r['bound'][0]:.6f} ms ({r['bound'][1]})")
+    return rows
+
+
+def family_generate(model, tag: str, card: str):
+    """``Server.generate`` of [generate]'s prompts (GEN_BATCH x GEN_PROMPT,
+    GEN_NEW new) with the coded head through the sequential prefill, with
+    the model's cache and then the int8 one: each coded run held against
+    its uncoded run (tokens as [generate]; each decoded round's logits
+    within cond(G_S) 2^-22 max|logits| of the uncoded ones); the int8 run's
+    tokens reported against the plain ones. Returns the plain coded run's
+    launch counts and (wall, tokens/s, decode ok)."""
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.core.runtime_model import ClusterSpec
+    from repro_torch.runtime.serve_loop import ServeConfig, Server
+
+    v = model.config.vocab_size
+    prompts = gen_prompts(v)
+    outs, result = {}, None
+    for quant in (False, True):
+        m = with_config(model, kv_quant=True) if quant else model
+        label = "int8 KV" if quant else "bf16 KV"
+        _, plain_new, margins, scales = uncoded_reference(m, prompts, GEN_NEW)
+        kernels.reset_launch_counts()
+        server = Server(m, ClusterSpec.make(*CLUSTER),
+                        ServeConfig(block_rows=256, deadline_safety=SAFETY, scheme="optimal"))
+        rounds = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = server.generate(prompts, GEN_NEW, seed=1, observe=lambda step, lg, sel, ok,
+                              mask: rounds.append((lg, sel, ok, mask)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = kernels.launch_counts()
+        head = server.coded_head
+        conds = [round_cond(head, ok, mask) for _, _, ok, mask in rounds]
+        worst = 0.0
+        for (lg, sel, ok, _), cond in zip(rounds, conds):
+            if bool(ok):
+                want = lg[:, :v].float()
+                err = max_err(sel[:, :v].float(), want)
+                worst = max(worst, err / (cond * 2.0**-22 * float(want.abs().max())))
+        equal, covered = held_tokens(f"{tag} {label}", out[:, GEN_PROMPT:].cpu(), plain_new,
+                                     margins, scales, conds)
+        ok_n = sum(int(ok) for _, _, ok, _ in rounds)
+        print(f"[{tag}] {label}: generate {GEN_BATCH} x {GEN_PROMPT} + {GEN_NEW} (sequential "
+              f"prefill): wall {wall:.3f} s, {GEN_BATCH * GEN_NEW / wall:.1f} tokens/s "
+              f"({card}); decode ok {ok_n}/{GEN_NEW}; decoded rounds within "
+              f"{worst:.3f} x cond(G_S) 2^-22 max|logits| of the uncoded logits; "
+              f"{equal}/{GEN_BATCH * GEN_NEW} tokens equal the uncoded run's before any "
+              f"difference, {covered} checked; launches {counts}")
+        check(tuple(out.shape) == (GEN_BATCH, GEN_PROMPT + GEN_NEW), f"{tag}: output shape")
+        check(int(out.max()) < v and int(out.min()) >= 0, f"{tag}: tokens < vocab_size")
+        check(worst <= 1.0, f"{tag} {label}: decoded logits disagree with the uncoded ones")
+        check(counts["coded_matvec"] == GEN_NEW and counts["mds_encode"] == 1
+              and counts["paged_decode"] == 0, f"{tag} {label}: launches")
+        outs[quant] = out[:, GEN_PROMPT:].cpu()
+        if not quant:
+            result = counts, (wall, GEN_BATCH * GEN_NEW / wall, f"{ok_n}/{GEN_NEW}")
+        del server, head, rounds, m
+    same = int((outs[True] == outs[False]).sum())
+    print(f"[{tag}] int8 KV against bf16 KV: {same}/{outs[True].numel()} generated tokens "
+          f"equal (reported, not required)")
+    return result
+
+
+def family_wrap(card: str) -> None:
+    """The rolling cache past its wrap: the reduced h2o-danube-3-4b (window
+    64, float32) generates WRAP_NEW tokens after WRAP_PROMPT-token prompts on
+    the card and on the CPU, the same weights in both; every step's logits
+    within the decode tolerance (2e-4 + 2e-4 |want|) and the tokens equal.
+    The int8 cache's run is reported alike, not required."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.serve_loop import Server
+
+    cfg = get_arch("h2o-danube-3-4b").reduced()
+    cpu = Model(cfg, device="cpu", seed=0)
+    card_model = Model(cfg, device="cuda", seed=0)
+    card_model.load_state_dict(cpu.state_dict())
+    prompts = torch.randint(0, cfg.vocab_size, (GEN_BATCH, WRAP_PROMPT), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(4))
+    check(cpu.init_cache(1, WRAP_PROMPT + WRAP_NEW)["k"].shape[2] == cfg.sliding_window
+          < WRAP_PROMPT + WRAP_NEW, "the reduced danube's cache rolls")
+    for quant in (False, True):
+        runs = []
+        for m in (card_model, cpu):
+            view = with_config(m, kv_quant=True) if quant else m
+            logits = []
+            out = Server(view).generate(prompts, WRAP_NEW, observe=lambda step, lg, *_:
+                                        logits.append(lg.float().cpu()))
+            runs.append((out.cpu(), torch.stack(logits)))
+        (out, got), (want_out, want) = runs
+        diff = (got - want).abs()
+        worst = float((diff / (2e-4 + 2e-4 * want.abs())).max())
+        same = int((out == want_out).sum())
+        label = "int8 KV" if quant else "float32 KV"
+        print(f"[families] reduced h2o-danube-3-4b, {label}, window {cfg.sliding_window}: "
+              f"{WRAP_PROMPT} + {WRAP_NEW} positions, card against CPU: max_abs_err "
+              f"{float(diff.max()):.3e}, max |d| / (2e-4 + 2e-4 |want|) {worst:.3f}; "
+              f"{same}/{out.numel()} tokens equal ({card})")
+        if not quant:
+            check(worst <= 1.0 and torch.equal(out, want_out),
+                  "the rolling cache on the card disagrees with the CPU run")
+
+
+def families_phase(card: str):
+    """[families]: per config of FAMILY_RUNS, B1-B3 at its shapes, then the
+    model (its own seeded init) through its paths with the coded head,
+    counters reset before each and read after; each model freed before the
+    next is built. Then the reduced danube's rolling cache. Returns the
+    paths' launch counts and the kernel rows by config."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.planner import deploy
+    from repro_torch.core.runtime_model import ClusterSpec
+    from repro_torch.core.schemes import make_scheme
+    from repro_torch.models.model import padded_vocab
+
+    paths, rows = {}, {}
+    for name, depth, runs in FAMILY_RUNS:
+        cfg = get_arch(name)
+        tag = f"families {name}"
+        if depth is not None:
+            print(f"[{tag}] depth cut {cfg.num_layers} -> {depth} layers (full width)")
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+        kb = -(-padded_vocab(cfg.vocab_size) // 256)
+        nb = deploy(make_scheme("optimal"), ClusterSpec.make(*CLUSTER), kb).n
+        attn = None
+        if "paged" in runs:
+            attn = (cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.resolved_head_dim)
+        rows[name] = r = family_kernels(tag, nb, kb, cfg.d_model, attn)
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = make_model(cfg, tag=tag)
+        n_params = model.param_count()
+        if "paged" in runs:
+            counts, rep = serve_phase(model, tag)
+            summary = (rep.wall_s, rep.tokens_per_s, f"{rep.decode_ok}/{rep.decode_rounds}")
+            paths[f"families_{name}"] = counts
+        if "dense" in runs:
+            paths[f"families_{name}_dense"], _ = serve_dense_phase(model, rep, f"{tag} dense")
+        if "generate" in runs:
+            counts, summary = family_generate(model, tag, card)
+            paths[f"families_{name}"] = counts
+        peak = torch.cuda.max_memory_allocated()
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        after = torch.cuda.memory_allocated()
+        times = "; ".join(
+            f"{k} device {fmt_ms(x.get('device_ms'))} ({fmt_ms(x.get('library_device_ms'))} "
+            f"library), host-paced {x['ms']:.4f} ms ({x['library_ms']:.4f} library)"
+            for k, x in r.items())
+        print(f"[{tag}] {n_params / 1e9:.2f} B params, {cfg.num_layers} layers; peak "
+              f"{peak / 2**30:.1f} GiB allocated; launches {paths[f'families_{name}']}; "
+              f"{times}; wall {summary[0]:.3f} s, {summary[1]:.2f} tokens/s, decode ok "
+              f"{summary[2]}; {card}")
+        check(after <= before + (64 << 20), f"{tag}: the model's memory was not freed "
+                                            f"({before} -> {after} bytes)")
+    family_wrap(card)
+    return paths, rows
+
+
 def profile_step(trainer, opt_state, top: int = 16):
     """One more steady coded step (every worker finishing) under
     ``torch.profiler``, outside the timed steps: the kernels that take the
@@ -2105,6 +2435,9 @@ def main() -> int:
         ])
         obsreport_cli(jsonl)
     lap("cli")
+    fam_paths, fam_rows = families_phase(card)
+    paths.update(fam_paths)
+    lap("families")
     paths["train"] = train_phase(get_arch("qwen3-0.6b"))
     torch.cuda.empty_cache()
     lap("train")
@@ -2139,6 +2472,10 @@ def main() -> int:
         extra = {"coded_matvec": "narrow", "mds_encode": "encode"}.get(k.name)
         if extra is not None:
             entry["path_m"] = {"shape": path_m[extra]["shape"], **timing(path_m[extra])}
+        by_config = {name: {"shape": r[k.name]["shape"], **timing(r[k.name])}
+                     for name, r in fam_rows.items() if k.name in r}
+        if by_config:
+            entry["families"] = by_config
         line["kernels"].append(entry)
     print(card)
     print(json.dumps(line))

@@ -39,7 +39,7 @@ class SyntheticLMData:
     def __init__(self, config: ModelConfig, shape: ShapeConfig, seed: int = 0,
                  start_step: int = 0, learnable: bool = True, *,
                  device: str | torch.device = "cuda"):
-        if config.family != "dense":
+        if config.family not in ("dense", "moe"):
             raise NotImplementedError("family extras are not ported")
         self.config = config
         self.shape = shape

@@ -1,7 +1,7 @@
 """Serving entry point: ``python -m repro_torch.launch.serve --arch qwen3-0.6b --coded``
 
 Counterpart of ``repro/launch/serve.py``: batched greedy generation on
-the port's dense model (seeded random weights), on the card unless
+the port's model (seeded random weights), on the card unless
 ``--device cpu``. With ``--coded`` the LM head's matvec is MDS-coded over
 a simulated heterogeneous fleet (``--groups``) under any registered
 allocation scheme (``--scheme``); workers that miss the deadline are
@@ -26,6 +26,11 @@ it to ``python -m repro_torch.launch.obsreport``), and ``--chrome-trace
 PATH`` exports the run's spans as Chrome ``trace_event`` JSON (it prints
 ``chrome trace: PATH (N spans)``). ``--slots auto`` asks an
 ``AdaptiveController`` on the coded fleet for the ``--trace`` width.
+
+``--arch`` takes every registered config; one of a family the port does
+not implement yet exits non-zero with ``Model``'s message, and
+``--trace`` on a sliding-window or ``kv_quant`` config with the
+reference's refusal (those configs only ``generate``).
 
 Not ported (argparse refuses them): the reference's numpy host loop
 (``--legacy-decode``) and ``--use-kernel`` (on the card the head always
@@ -160,7 +165,10 @@ def main(argv=None):
     config = get_arch(args.arch)
     if args.reduced:
         config = config.reduced()
-    model = Model(config, device=args.device, seed=0)
+    try:
+        model = Model(config, device=args.device, seed=0)
+    except NotImplementedError as err:  # a family the port does not implement
+        raise SystemExit(str(err)) from None
     scheme = make_scheme(args.scheme, n=args.scheme_n, r=args.scheme_r,
                          upload=args.comm_upload, download=args.comm_download)
     cluster = ClusterSpec.parse(args.groups, args.bandwidth) if args.coded else None
@@ -236,11 +244,15 @@ def _serve_trace(server: Server, args, config):
         tracer = _attach_tracer(server, args, telemetry=tel)
         clock = RoundClock(server.coded_head.executor, telemetry=tel) \
             if args.measure_times else None
-        rep = server.serve(trace, slots=slots,
-                           admission_threshold=args.admission_threshold, telemetry=tel,
-                           clock=clock, tracer=tracer, paged=not args.dense_kv,
-                           block_len=args.block_len, num_blocks=args.num_blocks,
-                           prefill_chunk=args.prefill_chunk)
+        try:
+            rep = server.serve(trace, slots=slots,
+                               admission_threshold=args.admission_threshold,
+                               telemetry=tel, clock=clock, tracer=tracer,
+                               paged=not args.dense_kv, block_len=args.block_len,
+                               num_blocks=args.num_blocks,
+                               prefill_chunk=args.prefill_chunk)
+        except NotImplementedError as err:  # sliding window or int8 KV: generate only
+            raise SystemExit(str(err)) from None
     _export_chrome(tracer, args)
     if clock is not None:
         _print_measured(clock)

@@ -1,7 +1,8 @@
 """Training entry point: ``python -m repro_torch.launch.train --arch qwen3-0.6b ...``
 
-Counterpart of ``repro/launch/train.py``: trains the port's dense model on
-the synthetic pipeline, on the card unless ``--device cpu``. Supports
+Counterpart of ``repro/launch/train.py``: trains the port's model (any
+registered dense or moe config; another family exits non-zero naming
+it) on the synthetic pipeline, on the card unless ``--device cpu``. Supports
 checkpoint/restart (``--resume`` picks up the latest step) and coded
 execution: ``--hetero-groups`` plans a straggler fleet and runs
 gradient-coded training (``--scheme``, any registered allocation scheme,
@@ -106,7 +107,10 @@ def main(argv=None):
             raise SystemExit(f"{args.checkpoint_dir} already has step_{last}; "
                              f"pass --resume to continue it")
 
-    model = Model(config, device=args.device)
+    try:
+        model = Model(config, device=args.device)
+    except NotImplementedError as err:  # a family the port does not implement
+        raise SystemExit(str(err)) from None
     data = SyntheticLMData(config, shape, device=args.device)
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(args.steps // 20, 1))

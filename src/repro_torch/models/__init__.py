@@ -1,1 +1,1 @@
-"""Dense model family: layers, paged attention, the Model module."""
+"""Dense and MoE decoder families: layers, attention (paged, windowed, int8 KV), routed experts, the Model module."""

@@ -4,9 +4,12 @@ The paged serving paths, ``decode_attention_paged`` (one query per slot,
 the B2 kernel on the card) and ``prefill_attention_paged`` (a chunk of C
 queries per slot); the training and prefill path, ``attention`` over
 ``chunked_attention`` (causal, flash-style online softmax over key
-blocks, no sliding window; ``return_kv`` hands back the post-rope K/V a
-batched prefill splices into a dense cache); and the dense-cache decode
-paths, ``decode_attention`` (one position for the whole batch) and
+blocks, an optional sliding window, and ``causal_skip``: key blocks
+wholly above the diagonal or outside the window left out; ``return_kv``
+hands back the post-rope K/V a batched prefill splices into a dense
+cache); and the dense-cache decode paths, ``decode_attention`` (one
+position for the whole batch; a rolling cache for sliding-window models
+and an int8 cache with per-(token, head) float16 scales) and
 ``decode_attention_slots`` (a position per row). The reference computes
 all but the paged decode attend in jnp outside any Pallas kernel, so
 they are plain torch here. The dense caches (``init_attn_cache``) are
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.paged_attention import ops as paged_ops
@@ -93,14 +97,37 @@ def prefill_attention_paged(p: dict, x, k_pool, v_pool, table, start,
     return out @ p["wo"].to(x.dtype)
 
 
+def needed_blocks(q_pos, kv_pos, *, causal=True, window=None) -> list:
+    """(nq, nk) nested list: may key block j hold a key query block i sees?
+
+    q_pos: (nq, qb), kv_pos: (nk, kb) host integer arrays of positions
+    (kv_pos < 0: a padded key). A block is left out when all of it lies
+    above the causal diagonal or outside the window, the reference's
+    ``causal_skip`` rule.
+    """
+    q_pos, kv_pos = np.asarray(q_pos), np.asarray(kv_pos)
+    need = np.ones((q_pos.shape[0], kv_pos.shape[0]), bool)
+    if causal:
+        need &= kv_pos.min(1)[None, :] <= q_pos.max(1)[:, None]
+    if window is not None:
+        need &= kv_pos.max(1)[None, :] >= q_pos.min(1)[:, None] - window + 1
+    return need.tolist()
+
+
 def chunked_attention(q, k, v, q_pos, kv_pos, *, num_heads, num_kv_heads, head_dim,
-                      causal=True, q_block=512, kv_block=1024):
+                      causal=True, window=None, q_block=512, kv_block=1024,
+                      causal_skip=False, host_pos=None):
     """Flash-style attention. q: (B, S, H, hd); k, v: (B, Skv, KV, hd).
 
     q_pos: (S,), kv_pos: (Skv,) absolute positions (kv_pos < 0 marks a
     padded key). Blocks must divide S and Skv. Scores are taken in q's
     dtype and then f32, the weights cast to v's dtype for the P V
-    product, as the reference promotes. Returns (B, S, H, hd).
+    product, as the reference promotes. ``window``: a query sees keys
+    with ``q_pos - kv_pos < window``. ``causal_skip`` leaves out key
+    blocks no query of a block can see (``needed_blocks``); the result
+    equals the unskipped one. The decision reads the positions once per
+    call, from ``host_pos`` (host copies of ``(q_pos, kv_pos)``) when the
+    caller has them, else by one device-to-host copy. Returns (B, S, H, hd).
     """
     b, s = q.shape[:2]
     skv = k.shape[1]
@@ -114,6 +141,14 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, num_heads, num_kv_heads, head_d
     vr = v.reshape(b, skv // kb, kb, num_kv_heads, head_dim)
     qp = q_pos.reshape(-1, qb)
     kp = kv_pos.reshape(-1, kb)
+    needed = None
+    if causal_skip:
+        if host_pos is None:
+            both = torch.cat([q_pos, kv_pos]).cpu().numpy()
+            host_pos = both[:s], both[s:]
+        needed = needed_blocks(np.asarray(host_pos[0]).reshape(-1, qb),
+                               np.asarray(host_pos[1]).reshape(-1, kb),
+                               causal=causal, window=window)
     outs = []
     for qi in range(s // qb):
         m = torch.full((b, num_kv_heads, g, qb), NEG_INF, dtype=torch.float32,
@@ -122,10 +157,14 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, num_heads, num_kv_heads, head_d
         acc = torch.zeros((b, num_kv_heads, g, qb, head_dim), dtype=torch.float32,
                           device=q.device)
         for kj in range(skv // kb):
+            if needed is not None and not needed[qi][kj]:
+                continue
             sc = (torch.einsum("bqkgh,bskh->bkgqs", qr[:, qi], kr[:, kj]) * scale).float()
             mask = (kp[kj][None, :] >= 0).expand(qb, kb)
             if causal:
                 mask = mask & (qp[qi][:, None] >= kp[kj][None, :])
+            if window is not None:
+                mask = mask & (qp[qi][:, None] - kp[kj][None, :] < window)
             sc = sc.masked_fill(~mask, NEG_INF)
             m_new = torch.maximum(m, sc.amax(-1))
             p = torch.exp(sc - m_new[..., None])
@@ -141,15 +180,19 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, num_heads, num_kv_heads, head_d
 
 
 def attention(p: dict, x, positions, *, num_heads, num_kv_heads, head_dim,
-              causal=True, rope_theta=10_000.0, q_block=512, kv_block=1024,
-              return_kv=False):
+              causal=True, window=None, rope_theta=10_000.0, q_block=512,
+              kv_block=1024, causal_skip=False, host_positions=None, return_kv=False):
     """Full attention layer (train/prefill path). x: (B, S, D); positions: (S,).
 
     Sequences that do not divide the blocks are padded: queries with
     continuation positions (sliced back), keys with position -1 (masked).
-    Returns y (B, S, D); with ``return_kv`` also the post-rope (B, S, KV,
-    hd) keys and values, what ``decode_attention`` would have written
-    into its cache one position at a time.
+    ``window`` and ``causal_skip`` as in ``chunked_attention``;
+    ``host_positions`` is a host copy of ``positions`` (a caller that
+    knows them, such as a forward over ``arange``, saves the skip
+    decision its device read). Returns y (B, S, D); with ``return_kv``
+    also the post-rope (B, S, KV, hd) keys and values, what
+    ``decode_attention`` would have written into its cache one position
+    at a time.
     """
     b, s = x.shape[:2]
     q, k, v = _qkv(p, x, num_heads, num_kv_heads, head_dim)
@@ -161,18 +204,26 @@ def attention(p: dict, x, positions, *, num_heads, num_kv_heads, head_dim,
     qb, kb = min(q_block, s), min(kv_block, s)
     pad_q, pad_k = (-s) % qb, (-s) % kb
     q_pos, kv_pos = positions, positions
+    host = None if host_positions is None else np.asarray(host_positions)
+    host_q, host_k = host, host
     if pad_q:
         q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
         q_pos = torch.cat([positions, positions[-1] + 1 + torch.arange(
             pad_q, dtype=positions.dtype, device=x.device)])
+        if host is not None:
+            host_q = np.concatenate([host, host[-1] + 1 + np.arange(pad_q)])
     if pad_k:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
         kv_pos = torch.cat([positions, torch.full((pad_k,), -1, dtype=positions.dtype,
                                                   device=x.device)])
+        if host is not None:
+            host_k = np.concatenate([host, np.full(pad_k, -1)])
     out = chunked_attention(q, k, v, q_pos, kv_pos, num_heads=num_heads,
                             num_kv_heads=num_kv_heads, head_dim=head_dim,
-                            causal=causal, q_block=qb, kv_block=kb)[:, :s]
+                            causal=causal, window=window, q_block=qb, kv_block=kb,
+                            causal_skip=causal_skip,
+                            host_pos=None if host is None else (host_q, host_k))[:, :s]
     y = out.reshape(b, s, num_heads * head_dim) @ p["wo"].to(x.dtype)
     if return_kv:
         return y, k_cache, v_cache
@@ -180,13 +231,35 @@ def attention(p: dict, x, positions, *, num_heads, num_kv_heads, head_dim,
 
 
 def init_attn_cache(batch: int, cache_len: int, num_kv_heads: int, head_dim: int,
-                    dtype: torch.dtype, device) -> dict:
+                    dtype: torch.dtype, device, quantized: bool = False) -> dict:
     """Dense KV cache: ``k``, ``v`` (B, S, KV, hd) and ``pos`` (S,) int32,
-    the absolute position each entry holds (-1 = empty)."""
+    the absolute position each entry holds (-1 = empty). ``cache_len`` is
+    the context, or the window of a sliding-window model (a rolling
+    cache). ``quantized``: int8 ``k``/``v`` with float16 ``k_scale`` /
+    ``v_scale`` (B, S, KV), one scale per (token, head)."""
     shape = (batch, cache_len, num_kv_heads, head_dim)
+    pos = torch.full((cache_len,), -1, dtype=torch.int32, device=device)
+    if quantized:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], dtype=torch.float16, device=device),
+                "v_scale": torch.zeros(shape[:3], dtype=torch.float16, device=device),
+                "pos": pos}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.full((cache_len,), -1, dtype=torch.int32, device=device)}
+            "pos": pos}
+
+
+def _quantize_kv(t: torch.Tensor):
+    """(B, 1, KV, hd) -> int8 values and (B, 1, KV) float16 scales.
+
+    Symmetric per (token, head): scale = max(amax / 127, 1e-8), values
+    round(t / scale) (half to even, as ``jnp.round``) clipped to +-127.
+    """
+    t32 = t.float()
+    scale = torch.clamp(t32.abs().amax(-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(t32 / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale.to(torch.float16)
 
 
 def _attend_cache(p: dict, q, k, v, valid, num_heads, num_kv_heads, head_dim):
@@ -210,23 +283,38 @@ def _project_rope(p: dict, x, positions, num_heads, num_kv_heads, head_dim, rope
 
 
 def decode_attention(p: dict, x, cache: dict, pos: int, *, num_heads, num_kv_heads,
-                     head_dim, rope_theta=10_000.0):
+                     head_dim, window=None, rope_theta=10_000.0):
     """Single-token decode at one position for the whole batch, in place.
 
     x: (B, 1, D); cache: ``init_attn_cache``'s (this layer's views);
-    pos: int. Writes the new K/V and ``pos`` at entry ``pos % S``, then
-    attends every entry holding a position in [0, pos]. Returns y (B, 1, D).
+    pos: int. Writes the new K/V and ``pos`` at entry ``pos % S`` (rolling
+    when the cache is shorter than the context), then attends every entry
+    holding a position in [0, pos] (and, with ``window``, within the last
+    ``window`` positions). An int8 cache stores the quantized K/V and
+    their scales and attends the whole cache dequantized in x's dtype.
+    Returns y (B, 1, D).
     """
     b = x.shape[0]
     pp = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_rope(p, x, pp, num_heads, num_kv_heads, head_dim,
                                     rope_theta)
     slot = pos % cache["k"].shape[1]
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    if "k_scale" in cache:
+        for name, t in (("k", k_new), ("v", v_new)):
+            vals, scales = _quantize_kv(t)
+            cache[name][:, slot] = vals[:, 0]
+            cache[f"{name}_scale"][:, slot] = scales[:, 0]
+        k = cache["k"].to(x.dtype) * cache["k_scale"][..., None].to(x.dtype)
+        v = cache["v"].to(x.dtype) * cache["v_scale"][..., None].to(x.dtype)
+    else:
+        cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+        k, v = cache["k"], cache["v"]
     cache["pos"][slot] = pos
     valid = (cache["pos"] >= 0) & (cache["pos"] <= pos)
-    return _attend_cache(p, q, cache["k"], cache["v"], valid[None, :].expand(b, -1),
+    if window is not None:
+        valid = valid & (pos - cache["pos"] < window)
+    return _attend_cache(p, q, k, v, valid[None, :].expand(b, -1),
                          num_heads, num_kv_heads, head_dim)
 
 

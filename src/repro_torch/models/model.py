@@ -1,28 +1,37 @@
-"""Dense decoder model on a paged KV pool (counterpart of ``repro/models/model.py``).
+"""Decoder model on a paged KV pool (counterpart of ``repro/models/model.py``).
 
-``Model`` is an ``nn.Module`` for ``family == "dense"`` (llama-style
-pre-norm GQA + SwiGLU, tied embedding). Its parameters are the
-reference's pytree with layers stacked on axis 0 (``scan_layers``):
-``embed`` (Vp, D), ``final_norm`` (D,), and per layer ``ln1``, ``ln2``,
-``wq``, ``wk``, ``wv``, ``wo``, ``q_norm``, ``k_norm``, ``w_gate``,
-``w_up``, ``w_down``. A Python loop over layers takes the place of
-``lax.scan``. ``params_from_jax`` carries the reference's
-``Model.init_params`` tree across; otherwise the module draws its own
-seeded init on its device at any width.
+``Model`` is an ``nn.Module`` for the attention-cache families the port
+implements: ``dense`` (llama-style pre-norm GQA + SwiGLU, tied
+embedding) and ``moe`` (the same attention; the FFN is top-k routed
+experts, ``models/moe.py``). Every other family is refused by name. Its
+parameters are the reference's pytree with layers stacked on axis 0
+(``scan_layers``): ``embed`` (Vp, D), ``final_norm`` (D,), and per layer
+``ln1``, ``ln2``, ``wq``, ``wk``, ``wv``, ``wo``, ``q_norm``, ``k_norm``,
+then ``w_gate``, ``w_up``, ``w_down`` (dense) or ``w_router``,
+``expert_gate``, ``expert_up``, ``expert_down`` (moe: the reference's
+``blocks/moe/*``). A Python loop over layers takes the place of
+``lax.scan``; ``_ffn`` is the one FFN dispatch every path takes.
+``params_from_jax`` carries the reference's ``Model.init_params`` tree
+across; otherwise the module draws its own seeded init on its device at
+any width.
 
 The paged KV cache is ``{"k", "v"}`` of shape (L, NB+1, BL, KV, hd);
 both paged entry points update it in place and return it (under
 ``torch.no_grad``). The dense caches are ``{"k", "v"}`` of shape
 (L, B, S, KV, hd) plus ``pos``: (L, S) for ``decode_step`` (one position
-for the whole batch, ``init_cache``), (B, S) for ``decode_step_slots``
-(a position per row, ``init_slot_cache``); ``prefill`` is one batched
-forward that returns every layer's post-rope prompt K/V for a splice.
-They too are updated in place. The parameters are trainable: ``hidden`` runs the
-training forward (causal chunked attention, each layer under
-``torch.utils.checkpoint`` when ``config.remat``, as the reference's
-``jax.checkpoint``), and ``loss_fn`` takes the cross entropy through the
-B4 fused kernel on the card, so no (T, V) logits are materialized.
-``lm_logits`` is the materialized oracle.
+for the whole batch, ``init_cache``: a rolling cache of ``min(S,
+window)`` entries for a sliding-window model, int8 with per-(token,
+head) float16 ``k_scale`` / ``v_scale`` for ``kv_quant``), (B, S) for
+``decode_step_slots`` (a position per row, ``init_slot_cache``);
+``prefill`` is one batched forward that returns every layer's post-rope
+prompt K/V for a splice. They too are updated in place. The slot and
+paged paths refuse ``kv_quant`` and sliding windows, as the reference's.
+The parameters are trainable: ``hidden`` runs the training forward
+(causal chunked attention, windowed and block-skipped as the config
+says, each layer under ``torch.utils.checkpoint`` when ``config.remat``,
+as the reference's ``jax.checkpoint``), and ``loss_fn`` takes the cross
+entropy through the B4 fused kernel on the card, so no (T, V) logits are
+materialized. ``lm_logits`` is the materialized oracle.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from repro_torch.models.attention import (
     decode_attention_slots,
     prefill_attention_paged,
 )
+from repro_torch.models.moe import init_moe, moe_ffn
 
 NEG_INF = -1e30
 
@@ -62,11 +72,17 @@ _JAX_PATHS = {
     ("blocks", "mlp", "w_gate"): "w_gate",
     ("blocks", "mlp", "w_up"): "w_up",
     ("blocks", "mlp", "w_down"): "w_down",
+    ("blocks", "moe", "w_router"): "w_router",
+    ("blocks", "moe", "w_gate"): "expert_gate",
+    ("blocks", "moe", "w_up"): "expert_up",
+    ("blocks", "moe", "w_down"): "expert_down",
 }
 #: port parameter name -> reference tree path ("blocks/attn/wq", ...)
 JAX_NAMES = {name: "/".join(path) for path, name in _JAX_PATHS.items()}
-_LAYER_PARAMS = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
-_BLOCK_PARAMS = _LAYER_PARAMS + ("ln1", "ln2", "w_gate", "w_up", "w_down")
+_BLOCK_PARAMS = ("wq", "wk", "wv", "wo", "q_norm", "k_norm", "ln1", "ln2", "w_gate",
+                 "w_up", "w_down", "w_router", "expert_gate", "expert_up", "expert_down")
+#: the families ``Model`` implements
+FAMILIES = ("dense", "moe")
 
 
 def padded_vocab(v: int, multiple: int = 256) -> int:
@@ -75,14 +91,15 @@ def padded_vocab(v: int, multiple: int = 256) -> int:
 
 
 class Model(nn.Module):
-    """Dense decoder with paged decode and chunked paged prefill."""
+    """Dense or MoE decoder with paged decode and chunked paged prefill."""
 
     def __init__(self, config: ModelConfig, *, device: str | torch.device = "cuda",
                  seed: int = 0):
         super().__init__()
-        if config.family != "dense":
+        if config.family not in FAMILIES:
             raise NotImplementedError(
-                f"the port implements the dense family, not {config.family!r}"
+                f"the {config.family!r} family ({config.name}) is not ported yet; "
+                f"the port implements {'/'.join(FAMILIES)}"
             )
         self.config = c = config
         self.device = dev = resolve_device(device)
@@ -93,8 +110,8 @@ class Model(nn.Module):
         def param(t: torch.Tensor) -> nn.Parameter:
             return nn.Parameter(t.to(c.pdtype))
 
-        def normal(shape, scale):
-            return param(torch.randn(shape, generator=gen, device=dev) * scale)
+        def normal(shape, scale):  # scaled in place: one full-size tensor at a time
+            return param(torch.randn(shape, generator=gen, device=dev).mul_(scale))
 
         def ones(*shape):
             return param(torch.ones(shape, device=dev))
@@ -108,16 +125,23 @@ class Model(nn.Module):
         self.wo = normal((nl, h, d), 1 / math.sqrt(h))
         if c.qk_norm:
             self.q_norm, self.k_norm = ones(nl, hd), ones(nl, hd)
-        self.w_gate = normal((nl, d, f), 1 / math.sqrt(d))
-        self.w_up = normal((nl, d, f), 1 / math.sqrt(d))
-        self.w_down = normal((nl, f, d), 1 / math.sqrt(f))
+        if c.family == "moe":
+            moe = init_moe(nl, d, f, c.num_experts, c.pdtype, generator=gen, device=dev)
+            self.w_router = nn.Parameter(moe["w_router"])  # float32, as the reference
+            self.expert_gate = nn.Parameter(moe["w_gate"])
+            self.expert_up = nn.Parameter(moe["w_up"])
+            self.expert_down = nn.Parameter(moe["w_down"])
+        else:
+            self.w_gate = normal((nl, d, f), 1 / math.sqrt(d))
+            self.w_up = normal((nl, d, f), 1 / math.sqrt(d))
+            self.w_down = normal((nl, f, d), 1 / math.sqrt(f))
 
     # ------------------------------------------------------------ params
     @torch.no_grad()
     def params_from_jax(self, tree) -> "Model":
         """Copy the reference's ``Model.init_params`` pytree (numpy leaves) in."""
         for path, name in _JAX_PATHS.items():
-            if not hasattr(self, name):  # q_norm/k_norm without qk_norm
+            if not hasattr(self, name):  # q_norm/k_norm without qk_norm; the other FFN
                 continue
             node = tree
             for key in path:
@@ -132,7 +156,8 @@ class Model(nn.Module):
         return self
 
     def _layer(self, i: int) -> dict:
-        return {n: getattr(self, n)[i] for n in _LAYER_PARAMS if hasattr(self, n)}
+        """Layer ``i``'s parameters by name (views)."""
+        return {n: getattr(self, n)[i] for n in _BLOCK_PARAMS if hasattr(self, n)}
 
     def _mask_pad_logits(self, logits: torch.Tensor) -> torch.Tensor:
         """Padded vocab slots never win argmax."""
@@ -142,9 +167,16 @@ class Model(nn.Module):
         ids = torch.arange(logits.shape[-1], device=logits.device)
         return torch.where(ids < v, logits, torch.full_like(logits, NEG_INF))
 
-    def _mlp(self, i: int, h: torch.Tensor) -> torch.Tensor:
-        return L.mlp(self.w_gate[i], self.w_up[i], self.w_down[i],
-                     L.rmsnorm(self.ln2[i], h))
+    def _ffn(self, p: dict, h: torch.Tensor) -> torch.Tensor:
+        """The FFN sublayer of layer params ``p`` on h: SwiGLU, or routed experts."""
+        c = self.config
+        x = L.rmsnorm(p["ln2"], h)
+        if c.family == "moe":
+            return moe_ffn({"w_router": p["w_router"], "w_gate": p["expert_gate"],
+                            "w_up": p["expert_up"], "w_down": p["expert_down"]}, x,
+                           num_experts=c.num_experts, top_k=c.top_k,
+                           capacity_factor=c.capacity_factor)
+        return L.mlp(p["w_gate"], p["w_up"], p["w_down"], x)
 
     def _attn_kw(self) -> dict:
         c = self.config
@@ -159,12 +191,30 @@ class Model(nn.Module):
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
-    # ----------------------------------------------------------- training
-    def _block(self, p: dict, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k of num_experts FFNs)."""
+        total = self.param_count()
         c = self.config
-        h = x + attention(p, L.rmsnorm(p["ln1"], x), positions, **self._attn_kw(),
-                          q_block=c.attn_q_block, kv_block=c.attn_kv_block)
-        return h + L.mlp(p["w_gate"], p["w_up"], p["w_down"], L.rmsnorm(p["ln2"], h))
+        if c.family != "moe" or not c.num_experts:
+            return total
+        expert_p = 3 * c.d_model * c.d_ff * c.num_experts * c.num_layers
+        return int(total - expert_p + expert_p * c.top_k / c.num_experts)
+
+    # ----------------------------------------------------------- training
+    def _full_attention(self, p: dict, x: torch.Tensor, positions: torch.Tensor,
+                        host_positions: np.ndarray, **kw):
+        """Causal attention over a whole sequence (windowed, block-skipped
+        as the config says); ``kw`` goes to ``attention``."""
+        c = self.config
+        return attention(p, L.rmsnorm(p["ln1"], x), positions, **self._attn_kw(),
+                         window=c.sliding_window, q_block=c.attn_q_block,
+                         kv_block=c.attn_kv_block, causal_skip=c.causal_block_skip,
+                         host_positions=host_positions, **kw)
+
+    def _block(self, p: dict, x: torch.Tensor, positions: torch.Tensor,
+               host_positions: np.ndarray) -> torch.Tensor:
+        h = x + self._full_attention(p, x, positions, host_positions)
+        return h + self._ffn(p, h)
 
     def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
         """(B, S) tokens -> (B, S, D) final-normed hidden states, compute dtype.
@@ -174,16 +224,18 @@ class Model(nn.Module):
         """
         c = self.config
         x = L.embed(self.embed, tokens, c.cdtype)
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
+        s = tokens.shape[1]
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)
+        host = np.arange(s)
         names = [n for n in _BLOCK_PARAMS if hasattr(self, n)]
         per_layer = zip(*(getattr(self, n).unbind(0) for n in names))
         remat = c.remat and torch.is_grad_enabled()
         for views in per_layer:
             p = dict(zip(names, views))
             if remat:
-                x = checkpoint(self._block, p, x, positions, use_reentrant=False)
+                x = checkpoint(self._block, p, x, positions, host, use_reentrant=False)
             else:
-                x = self._block(p, x, positions)
+                x = self._block(p, x, positions, host)
         return L.rmsnorm(self.final_norm, x)
 
     def lm_logits(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -220,7 +272,7 @@ class Model(nn.Module):
         """The slot and paged paths allocate full-context, full-precision
         caches: refuse ``kv_quant`` and sliding windows with the
         reference's messages (``__init__`` already refuses any family but
-        dense)."""
+        dense and moe)."""
         c = self.config
         if c.kv_quant:
             raise NotImplementedError(
@@ -239,10 +291,27 @@ class Model(nn.Module):
                 "v": torch.zeros(shape, dtype=c.cdtype, device=self.device)}
 
     def init_cache(self, batch: int, cache_len: int) -> dict:
-        """Decode state of ``decode_step``: K/V and a (L, S) position map."""
-        return {**self._dense_kv(batch, cache_len),
-                "pos": torch.full((self.config.num_layers, cache_len), -1,
-                                  dtype=torch.int32, device=self.device)}
+        """Decode state of ``decode_step``: K/V and a (L, S) position map.
+
+        A sliding-window model gets the rolling cache of ``min(cache_len,
+        window)`` entries; ``kv_quant`` stores int8 K/V with (L, B, S, KV)
+        float16 ``k_scale`` / ``v_scale``.
+        """
+        c = self.config
+        if c.sliding_window is not None:
+            cache_len = min(cache_len, c.sliding_window)
+        pos = torch.full((c.num_layers, cache_len), -1, dtype=torch.int32,
+                         device=self.device)
+        if c.kv_quant:
+            shape = (c.num_layers, batch, cache_len, c.num_kv_heads, c.resolved_head_dim)
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=self.device),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=self.device),
+                    "k_scale": torch.zeros(shape[:4], dtype=torch.float16,
+                                           device=self.device),
+                    "v_scale": torch.zeros(shape[:4], dtype=torch.float16,
+                                           device=self.device),
+                    "pos": pos}
+        return {**self._dense_kv(batch, cache_len), "pos": pos}
 
     def init_slot_cache(self, batch: int, cache_len: int) -> dict:
         """Decode state of ``decode_step_slots``: K/V and a (B, S) position
@@ -261,10 +330,11 @@ class Model(nn.Module):
         c = self.config
         x = L.embed(self.embed, tokens[:, None], c.cdtype)
         for i in range(c.num_layers):
-            layer = {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"][i]}
-            h = x + decode_attention(self._layer(i), L.rmsnorm(self.ln1[i], x), layer,
-                                     pos, **self._attn_kw())
-            x = h + self._mlp(i, h)
+            p = self._layer(i)
+            layer = {name: t[i] for name, t in cache.items()}
+            h = x + decode_attention(p, L.rmsnorm(p["ln1"], x), layer, pos,
+                                     window=c.sliding_window, **self._attn_kw())
+            x = h + self._ffn(p, h)
         return self._logits(x), cache
 
     @torch.no_grad()
@@ -282,13 +352,13 @@ class Model(nn.Module):
         b, s = tokens.shape
         x = L.embed(self.embed, tokens, c.cdtype)
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
+        host = np.arange(s)
         ks, vs = [], []
         for i in range(c.num_layers):
-            y, k, v = attention(self._layer(i), L.rmsnorm(self.ln1[i], x), positions,
-                                **self._attn_kw(), q_block=c.attn_q_block,
-                                kv_block=c.attn_kv_block, return_kv=True)
+            p = self._layer(i)
+            y, k, v = self._full_attention(p, x, positions, host, return_kv=True)
             h = x + y
-            x = h + self._mlp(i, h)
+            x = h + self._ffn(p, h)
             ks.append(k)
             vs.append(v)
         last = torch.clamp(torch.as_tensor(length, device=x.device).long() - 1, 0, s - 1)
@@ -310,10 +380,11 @@ class Model(nn.Module):
         slot = (pos % cache_len).long()
         cache["pos"][torch.arange(b, device=x.device), slot] = pos
         for i in range(c.num_layers):
+            p = self._layer(i)
             layer = {"k": cache["k"][i], "v": cache["v"][i]}
-            h = x + decode_attention_slots(self._layer(i), L.rmsnorm(self.ln1[i], x), layer,
+            h = x + decode_attention_slots(p, L.rmsnorm(p["ln1"], x), layer,
                                            cache["pos"], pos, slot, **self._attn_kw())
-            x = h + self._mlp(i, h)
+            x = h + self._ffn(p, h)
         return self._logits(x), cache
 
     # ------------------------------------------------------- paged cache
@@ -339,11 +410,12 @@ class Model(nn.Module):
         c = self.config
         x = L.embed(self.embed, tokens[:, None], c.cdtype)
         for i in range(c.num_layers):
+            p = self._layer(i)
             h = x + decode_attention_paged(
-                self._layer(i), L.rmsnorm(self.ln1[i], x), cache["k"][i],
-                cache["v"][i], table, pos, active, **self._attn_kw(),
+                p, L.rmsnorm(p["ln1"], x), cache["k"][i], cache["v"][i], table, pos,
+                active, **self._attn_kw(),
             )
-            x = h + self._mlp(i, h)
+            x = h + self._ffn(p, h)
         return self._logits(x), cache
 
     @torch.no_grad()
@@ -353,18 +425,20 @@ class Model(nn.Module):
         tokens: (S, C) int, row s holding prompt positions ``[start[s],
         start[s] + chunk_len[s])`` right-padded (``chunk_len == 0``: slot
         not prefilling). Returns the logits at each row's last real chunk
-        position, (S, V_padded), and the cache.
+        position, (S, V_padded), and the cache. An MoE layer routes all
+        S x C rows, the padded ones included, as the reference does.
         """
         self._check_slot_support()
         c = self.config
         b, cc = tokens.shape
         x = L.embed(self.embed, tokens, c.cdtype)
         for i in range(c.num_layers):
+            p = self._layer(i)
             h = x + prefill_attention_paged(
-                self._layer(i), L.rmsnorm(self.ln1[i], x), cache["k"][i],
-                cache["v"][i], table, start, chunk_len, **self._attn_kw(),
+                p, L.rmsnorm(p["ln1"], x), cache["k"][i], cache["v"][i], table, start,
+                chunk_len, **self._attn_kw(),
             )
-            x = h + self._mlp(i, h)
+            x = h + self._ffn(p, h)
         last = torch.clamp(chunk_len.long() - 1, 0, cc - 1)
         x_last = x[torch.arange(b, device=x.device), last][:, None]
         return self._logits(x_last), cache

@@ -17,10 +17,13 @@ argmax. The coded blocks are built once per plan by the B3
 ``mds_encode`` kernel, and the paged decode attend is the B2 kernel.
 
 Three entry points: ``Server.generate`` (one batched prefill into a
-dense cache, then a greedy decode in which every sampled token, the
-first included, goes through the coded head), and ``Server.serve`` with
-``paged=True`` (the block pool with chunked prefill) or ``paged=False``
-(a dense per-slot cache with a batched admit splice). The reference's
+dense cache, or, for a sliding-window or ``kv_quant`` model, a
+sequential prefill of ``decode_step`` over the prompt positions; then a
+greedy decode in which every sampled token, the first included, goes
+through the coded head), and ``Server.serve`` with ``paged=True`` (the
+block pool with chunked prefill) or ``paged=False`` (a dense per-slot
+cache with a batched admit splice); ``serve`` refuses what
+``Model._check_slot_support`` refuses. The reference's
 one compiled program per generation or chunk size becomes an eager
 Python loop here (no retrace counter is needed: nothing traces).
 
@@ -323,6 +326,12 @@ class Server:
         return torch.where(ok, dec, lf), ok, mask
 
     # ------------------------------------------------------------ generate
+    def _can_batch_prefill(self) -> bool:
+        """True when ``Model.prefill`` covers this model (the slot and paged
+        paths' envelope: no int8 cache, no sliding window)."""
+        c = self.model.config
+        return not c.kv_quant and c.sliding_window is None
+
     def _prefill_into_cache(self, cache: dict, prompts: torch.Tensor):
         """One batched ``Model.prefill`` spliced into an ``init_cache`` state:
         the prompt K/V land in positions [0, S0). Returns (logits, cache)."""
@@ -340,9 +349,11 @@ class Server:
         """Greedy decode. prompts: (B, S0) int (a tensor or numpy); returns
         (B, S0 + max_new) int32 on the server's device.
 
-        One batched prefill fills a dense cache, then ``max_new - 1``
-        decode steps. With a coded head every sampled token goes through
-        it, the first post-prefill one included; finish masks draw from a
+        One batched prefill fills a dense cache (a sliding-window or int8
+        cache: ``decode_step`` over the prompt positions in turn, as the
+        reference's fallback), then ``max_new - 1`` decode steps. With a
+        coded head every sampled token goes through it, the first
+        post-prefill one included; finish masks draw from a
         ``torch.Generator`` seeded with ``seed``. ``observe``, if given, is
         called once per sampled token as ``observe(step, logits, selected,
         ok, mask)``: the model's logits, those the token was taken from,
@@ -369,7 +380,11 @@ class Server:
             return torch.argmax(sel, -1).to(torch.int32)
 
         with self.tracer.span("dispatch", kind="generate", max_new=max_new, batch=b):
-            logits, cache = self._prefill_into_cache(cache, prompts)
+            if self._can_batch_prefill():
+                logits, cache = self._prefill_into_cache(cache, prompts)
+            else:
+                for t in range(s0):
+                    logits, cache = self.model.decode_step(cache, prompts[:, t], t)
             tok = sample(0, logits)
             out = [prompts, tok[:, None]]
             for t in range(max_new - 1):
@@ -403,17 +418,22 @@ class Server:
                           *, steps):
         """One dense serve iteration: the admit splice, then ``steps`` decodes.
 
-        ``admit`` is None or (prompts (A, P), lengths (A,), slots): this
-        round's A admissions, right-padded to the prompt capacity P, and
-        the slot each goes to. One ``Model.prefill`` pass over them; each
-        admitted slot's cache row is reset to its prompt K/V (positions
-        past its length at -1), its pending logits become the prefill's
-        and ``pos`` jumps to the prompt length. No token is sampled at
-        admission: the decode chunk samples from the pending logits.
+        ``admit`` is None or (prompts (S, P), lengths (S,), slots (A,)):
+        this round's A admissions in the first A rows, right-padded to the
+        prompt capacity P (rows past A all zeros, length 0, as the
+        reference pads them: an MoE layer routes every row), and the slot
+        each goes to. One ``Model.prefill`` pass over them; each admitted
+        slot's cache row is reset to its prompt K/V (positions past its
+        length at -1), its pending logits become the prefill's and ``pos``
+        jumps to the prompt length. No token is sampled at admission: the
+        decode chunk samples from the pending logits.
         """
         if admit is not None:
             prompts, lengths, slot_idx = admit
+            a = slot_idx.shape[0]
             plog, ks, vs = self.model.prefill(prompts, lengths)
+            plog, ks, vs, prompts, lengths = (plog[:a], ks[:, :a], vs[:, :a],
+                                              prompts[:a], lengths[:a])
             p = prompts.shape[1]
             cache["k"][:, slot_idx] = 0
             cache["v"][:, slot_idx] = 0
@@ -621,12 +641,12 @@ class Server:
                 asp.set(placed=len(placed))
                 admit = None
                 if placed:
-                    prompts_np = np.zeros((len(placed), prompt_cap), np.int32)
+                    prompts_np = np.zeros((slots, prompt_cap), np.int32)
+                    lengths_np = np.zeros((slots,), np.int32)
                     for r, (_si, req) in enumerate(placed):
                         prompts_np[r, : req.prompt_len] = req.prompt
-                    admit = (to_dev(prompts_np),
-                             to_dev(np.asarray([req.prompt_len for _, req in placed],
-                                               np.int32)),
+                        lengths_np[r] = req.prompt_len
+                    admit = (to_dev(prompts_np), to_dev(lengths_np),
                              to_dev(np.asarray([si for si, _ in placed], np.int64)))
             active = [s.busy and not s.done for s in sched.slots]
             if any(active):

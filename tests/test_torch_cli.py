@@ -12,6 +12,10 @@ trace and scenario modes, and ``--bucket-quantum`` buckets the head.
 against ``repro_torch.obs.schema`` (and feeds the ops report) and a
 Chrome trace that loads, and the ``--slots`` refusals print the
 reference's messages.
+The other configs: reduced granite-3-2b, h2o-danube-3-4b and
+moonshot-v1-16b-a3b generate coded (and the MoE and sliding-window ones
+train), an unported family exits non-zero naming itself, and ``--trace``
+on danube exits with the reference's refusal.
 Without ``--device`` the CLI runs on CUDA, and raises where there is none
 (``tests/test_torch_plan.py``).
 """
@@ -252,3 +256,50 @@ def test_cli_slots_refusals_match_reference(flags):
     with pytest.raises(SystemExit) as ours:
         launch_serve.main(BASE + ["--trace", "poisson"] + flags)
     assert str(ours.value) == str(ref.value) and "--slots" in str(ours.value)
+
+
+# ------------------------------------------------------ the other configs
+@pytest.mark.parametrize("arch,kb", [("granite-3-2b", 2), ("h2o-danube-3-4b", 2),
+                                     ("moonshot-v1-16b-a3b", 2)])
+def test_cli_coded_generate_on_the_other_configs(capsys, arch, kb):
+    """Each new config's reduced variant (vocab 512: kb 2) prints the
+    coded-head line and generates; danube through its sequential prefill."""
+    out = launch_serve.main(["--arch", arch] + BASE[2:] + ["--coded"])
+    text = capsys.readouterr().out
+    head = HEAD.search(text)
+    assert head is not None and head[1] == "optimal" and int(head[4]) == kb, text
+    assert re.search(r"generated \(2, 8\) in [\d.]+s \([\d.]+ tok/s\)", text), text
+    assert out.shape == (2, 8) and int(out.max()) < 512
+
+
+def test_cli_refuses_a_family_not_ported_and_a_trace_on_danube():
+    """``--arch zamba2-1.2b`` exits non-zero naming its family; ``--trace``
+    on danube (sliding window) exits with the reference's refusal."""
+    from repro.configs import ARCHS as REF_ARCHS
+    from repro.models.model import Model as RefModel
+
+    with pytest.raises(SystemExit) as err:
+        launch_serve.main(["--arch", "zamba2-1.2b"] + BASE[2:])
+    assert "'hybrid' family" in str(err.value) and "not ported yet" in str(err.value)
+    with pytest.raises(NotImplementedError) as ref:
+        RefModel(REF_ARCHS["h2o-danube-3-4b"].reduced()).init_slot_cache(2, 8)
+    for flags in ([], ["--dense-kv"]):
+        with pytest.raises(SystemExit) as err:
+            launch_serve.main(["--arch", "h2o-danube-3-4b"] + BASE[2:]
+                              + ["--trace", "poisson", "--num-requests", "2"] + flags)
+        assert str(err.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "h2o-danube-3-4b"])
+def test_cli_trains_the_other_configs(capsys, arch):
+    """The training CLI on a reduced MoE and a sliding-window config; an
+    unported family exits non-zero naming it."""
+    from repro_torch.launch import train as train_cli
+
+    model = train_cli.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "2",
+                            "--seq-len", "16", "--batch", "4"])
+    out = capsys.readouterr().out
+    assert f"training {arch}-smoke" in out and "loss" in out
+    assert model.config.name == f"{arch}-smoke" and model.device.type == "cpu"
+    with pytest.raises(SystemExit, match="'ssm' family"):
+        train_cli.main(["--arch", "xlstm-125m", "--reduced", "--device", "cpu"])

@@ -345,6 +345,64 @@ def test_paged_decode_head_dims_off_32(dev, dtype, hd):
     assert torch.equal(got, pa.paged_decode_attend(q, k_pool, v_pool, table, pos))
 
 
+#: (KV, G, hd) of the paged serves of granite-3-2b, yi-9b (G = MAX_G) and
+#: moonshot-v1-16b-a3b (G 1)
+_SERVE_ATTN = {"granite-3-2b": (8, 4, 64), "yi-9b": (4, 8, 128),
+               "moonshot-v1-16b-a3b": (16, 1, 128)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch", sorted(_SERVE_ATTN))
+def test_paged_decode_at_the_new_serve_shapes(dev, dtype, arch):
+    """B2 at each new paged config's serve shape: 4 slots over a 72-block
+    table of 16-token blocks (the serve trace's pool), a hole, a slot with
+    no entry, NaN in the sink; a second launch bit-identical."""
+    kv, g, hd = _SERVE_ATTN[arch]
+    gen = torch.Generator(device=dev).manual_seed(kv * g + hd)
+    s, bl, nblk = 4, 16, 72
+    k_pool = torch.randn((nblk + 1, bl, kv, hd), generator=gen, device=dev).to(dtype)
+    v_pool = torch.randn((nblk + 1, bl, kv, hd), generator=gen, device=dev).to(dtype)
+    k_pool[nblk] = float("nan")
+    v_pool[nblk] = float("nan")
+    q = torch.randn((s, kv, g, hd), generator=gen, device=dev).to(dtype)
+    table = torch.full((s, nblk), -1, dtype=torch.int32, device=dev)
+    perm = torch.randperm(nblk, generator=gen, device=dev).to(torch.int32)
+    table[0, :16], table[1, :7], table[2, :2] = perm[:16], perm[16:23], perm[23:25]
+    table[0, 5] = -1
+    pos = torch.tensor([255, 100, 16, 40], dtype=torch.int32, device=dev)
+    got = pa.paged_decode_attend(q, k_pool, v_pool, table, pos)
+    want = pa.paged_decode_attend_plain(q, k_pool, v_pool, table, pos)
+    assert bool(torch.isfinite(got).all()) and bool((got[3] == 0).all())
+    assert _decode_close(got, want, dtype)
+    assert torch.equal(got, pa.paged_decode_attend(q, k_pool, v_pool, table, pos))
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "yi-9b", "h2o-danube-3-4b",
+                                  "moonshot-v1-16b-a3b"])
+def test_gemm_kernels_at_the_new_heads(dev, arch):
+    """B1 and B3 at each new config's coded head on the serve fleet: the
+    block mix (nb, kb) x (kb, 4 x 256) and the encode (nb, kb) x (kb, 256 D),
+    kb = ceil(padded vocab / 256) from 125 to 640."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.coding import make_generator
+    from repro_torch.core.planner import deploy
+    from repro_torch.core.runtime_model import ClusterSpec
+    from repro_torch.core.schemes import make_scheme
+    from repro_torch.models.model import padded_vocab
+
+    cfg = get_arch(arch)
+    kb = -(-padded_vocab(cfg.vocab_size) // 256)
+    nb = deploy(make_scheme("optimal"), ClusterSpec.make([6, 6], [8.0, 0.7]), kb).n
+    g = make_generator(nb, kb, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(kb)
+    x = torch.randn((kb, 4 * 256), generator=gen, device=dev)
+    assert (cmv.blocked_matvec(g, x) - cmv.blocked_matvec_plain(g, x)).abs().max().item() \
+        <= _gemm_tol(g, x)
+    a = torch.randn((kb, 256 * cfg.d_model), generator=gen, device=dev) * 0.02
+    assert (mds.mds_encode(g, a) - mds.mds_encode_plain(g, a)).abs().max().item() \
+        <= _gemm_tol(g, a)
+
+
 def test_paged_decode_refusals(dev):
     q = torch.randn((1, 1, 9, 32), device=dev)  # G = 9 > MAX_G
     pool = torch.randn((2, 4, 1, 32), device=dev)
