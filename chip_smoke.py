@@ -6,10 +6,11 @@ baseline allocation scheme, profile those serving paths phase by phase with
 their spans on a telemetry stream, generate under a drifting fleet with
 closed-loop replanning (simulated, then measured by a round clock with plan
 buckets), run the serving CLI and its ops report, serve the other configs of
-the port's envelope (granite-3-2b, yi-9b, moonshot-v1-16b-a3b at full width,
-h2o-danube-3-4b through its sequential prefill, plain and int8 KV), then
-train qwen3-0.6b with gradient coding, plain and then adaptive under
-measured round times.
+the port's envelope at full width (granite-3-2b, yi-9b, moonshot-v1-16b-a3b
+and paligemma-3b paged; h2o-danube-3-4b, plain and int8 KV, whisper-tiny,
+zamba2-1.2b and xlstm-125m through the sequential prefill), then train
+qwen3-0.6b with gradient coding, plain and then adaptive under measured
+round times.
 
 Run from the repository root with no arguments:
 
@@ -97,12 +98,20 @@ Phases (any failure raises, and the script exits non-zero):
    serve phase's trace paged (yi also dense, with the serve-dense phase's
    checks), moonshot-v1-16b-a3b (MoE, 64 experts top-6) at 24 of its 48
    layers (27.7 B parameters do not fit in 80 GB in float32) paged, each
-   with the serve phase's coded-round check; h2o-danube-3-4b (24 layers,
-   window 4,096) ``generate`` of [generate]'s prompts through the
-   sequential prefill, with its cache and with the int8 one, each held
-   against its uncoded run; counters reset before each path and read
-   after; then the reduced danube (window 64) generates past its window on
-   the card and on the CPU, the same weights, the logits held together;
+   with the serve phase's coded-round check; paligemma-3b (vlm: 18 layers,
+   MQA, hd 256, GELU) paged as well (B2 at KV 1, G 8, hd 256), and its
+   ``lm_logits`` with random image embeddings against zero ones (the
+   logits must differ); h2o-danube-3-4b (24 layers, window 4,096)
+   ``generate`` of [generate]'s prompts through the sequential prefill,
+   with its cache and with the int8 one, and whisper-tiny (from the
+   encoder output of random frames), zamba2-1.2b (38 Mamba2 layers, the
+   shared block every 6) and xlstm-125m (sLSTM at layers 6 and 12) alike,
+   each held against its uncoded run; counters reset before each path and
+   read after; then the reduced danube (window 64) generates past its
+   window on the card and on the CPU, the same weights, the logits held
+   together, and the reduced paligemma, whisper, zamba and xlstm (sLSTM
+   every 2nd layer) likewise: ``lm_logits`` within 2e-4 + 2e-4 |want| and
+   a 24 + 8 generate with equal tokens;
 10. train   — launch counters reset, then ``Trainer.run`` of 4 gradient-
    coded steps of full-width qwen3-0.6b (seeded init, batch 16 x 512) on
    the same fleet; counters read right after; then one more steady step
@@ -1357,14 +1366,15 @@ def held_tokens(name, new, plain_new, margins, scales, conds) -> tuple[int, int]
     return equal, covered
 
 
-def uncoded_reference(model, prompts, max_new):
+def uncoded_reference(model, prompts, max_new, extras=None):
     """The uncoded generate's tokens (after the prompt, on the host) and,
     per step, each row's top-2 margin and max|logits|."""
     from repro_torch.runtime.serve_loop import Server
 
     v = model.config.vocab_size
     logits = []
-    out = Server(model).generate(prompts, max_new, observe=lambda step, lg, sel, ok, mask:
+    out = Server(model).generate(prompts, max_new, extras=extras,
+                                 observe=lambda step, lg, sel, ok, mask:
                                  logits.append(lg[:, :v].float()))
     tops = [lg.topk(2, dim=1).values for lg in logits]
     margins = [(m[:, 0] - m[:, 1]).cpu() for m in tops]
@@ -1991,14 +2001,28 @@ def obsreport_cli(jsonl: str) -> None:
 
 
 #: [families]: each config, the depth kept (None: the config's own) and its
-#: serving paths. moonshot-v1-16b-a3b's 48 layers are 27.7 B parameters,
-#: 111 GB in float32, past the card's 80 GB: 24 layers (14.0 B) are kept.
+#: serving paths ("image": the vlm's image prefix through ``lm_logits``;
+#: "generate": [generate]'s prompts through the sequential prefill, "int8"
+#: also with an int8 KV cache). moonshot-v1-16b-a3b's 48 layers are 27.7 B
+#: parameters, 111 GB in float32, past the card's 80 GB: 24 layers (14.0
+#: B) are kept.
 FAMILY_RUNS = (("granite-3-2b", None, ("paged",)),
                ("yi-9b", None, ("paged", "dense")),
                ("moonshot-v1-16b-a3b", 24, ("paged",)),
-               ("h2o-danube-3-4b", None, ("generate",)))
+               ("h2o-danube-3-4b", None, ("generate", "int8")),
+               ("paligemma-3b", None, ("paged", "image")),
+               ("whisper-tiny", None, ("generate",)),
+               ("zamba2-1.2b", None, ("generate",)),
+               ("xlstm-125m", None, ("generate",)))
 #: the reduced h2o-danube-3-4b generates past its 64-token window
 WRAP_PROMPT, WRAP_NEW = 70, 8
+#: the reduced vlm, audio, hybrid and ssm configs held card against CPU:
+#: lm_logits over REDUCED_SEQ tokens (a multiple of the reduced mamba
+#: chunk, 16), then a generate of REDUCED_PROMPT + REDUCED_NEW positions;
+#: the xLSTM at slstm_every 2 (its reduced four layers hold no sLSTM at 6)
+REDUCED_RUNS = (("paligemma-3b", {}), ("whisper-tiny", {}), ("zamba2-1.2b", {}),
+                ("xlstm-125m", {"slstm_every": 2}))
+REDUCED_SEQ, REDUCED_PROMPT, REDUCED_NEW = 32, 24, 8
 
 
 def family_kernels(tag: str, nb: int, kb: int, d: int, attn) -> dict:
@@ -2049,14 +2073,34 @@ def family_kernels(tag: str, nb: int, kb: int, d: int, attn) -> dict:
     return rows
 
 
-def family_generate(model, tag: str, card: str):
+def family_extras(model, batch: int, seed: int = 5):
+    """Seeded random extras on the model's device: a vlm's image embeddings
+    {"image_embeds"}, an audio model's encoder output {"enc_out"} of
+    random frames (``Model.encode``); None for the other families."""
+    import torch
+
+    c = model.config
+    length = {"vlm": c.num_image_tokens, "audio": c.encoder_seq}.get(c.family)
+    if length is None:
+        return None
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((batch, length, c.d_model), generator=gen).to(model.device, c.cdtype)
+    if c.family == "vlm":
+        return {"image_embeds": x}
+    with torch.no_grad():
+        return {"enc_out": model.encode(x)}
+
+
+def family_generate(model, tag: str, card: str, quants=(False,)):
     """``Server.generate`` of [generate]'s prompts (GEN_BATCH x GEN_PROMPT,
-    GEN_NEW new) with the coded head through the sequential prefill, with
-    the model's cache and then the int8 one: each coded run held against
-    its uncoded run (tokens as [generate]; each decoded round's logits
-    within cond(G_S) 2^-22 max|logits| of the uncoded ones); the int8 run's
-    tokens reported against the plain ones. Returns the plain coded run's
-    launch counts and (wall, tokens/s, decode ok)."""
+    GEN_NEW new) with the coded head through the sequential prefill (an
+    audio model from its encoder output, ``family_extras``), with the
+    model's cache and, where ``quants`` holds True, the int8 one: each
+    coded run held against its uncoded run (tokens as [generate]; each
+    decoded round's logits within cond(G_S) 2^-22 max|logits| of the
+    uncoded ones); an int8 run's tokens reported against the plain ones.
+    Returns the plain coded run's launch counts and (wall, tokens/s,
+    decode ok)."""
     import torch
 
     import repro_torch.kernels as kernels
@@ -2065,19 +2109,21 @@ def family_generate(model, tag: str, card: str):
 
     v = model.config.vocab_size
     prompts = gen_prompts(v)
+    extras = family_extras(model, GEN_BATCH)
     outs, result = {}, None
-    for quant in (False, True):
+    for quant in quants:
         m = with_config(model, kv_quant=True) if quant else model
-        label = "int8 KV" if quant else "bf16 KV"
-        _, plain_new, margins, scales = uncoded_reference(m, prompts, GEN_NEW)
+        label = "int8 KV" if quant else f"{str(model.config.cdtype)[6:]} compute"
+        _, plain_new, margins, scales = uncoded_reference(m, prompts, GEN_NEW, extras)
         kernels.reset_launch_counts()
         server = Server(m, ClusterSpec.make(*CLUSTER),
                         ServeConfig(block_rows=256, deadline_safety=SAFETY, scheme="optimal"))
         rounds = []
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = server.generate(prompts, GEN_NEW, seed=1, observe=lambda step, lg, sel, ok,
-                              mask: rounds.append((lg, sel, ok, mask)))
+        out = server.generate(prompts, GEN_NEW, seed=1, extras=extras,
+                              observe=lambda step, lg, sel, ok, mask:
+                              rounds.append((lg, sel, ok, mask)))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         counts = kernels.launch_counts()
@@ -2107,9 +2153,10 @@ def family_generate(model, tag: str, card: str):
         if not quant:
             result = counts, (wall, GEN_BATCH * GEN_NEW / wall, f"{ok_n}/{GEN_NEW}")
         del server, head, rounds, m
-    same = int((outs[True] == outs[False]).sum())
-    print(f"[{tag}] int8 KV against bf16 KV: {same}/{outs[True].numel()} generated tokens "
-          f"equal (reported, not required)")
+    if True in outs:
+        same = int((outs[True] == outs[False]).sum())
+        print(f"[{tag}] int8 KV against bf16 KV: {same}/{outs[True].numel()} generated "
+              f"tokens equal (reported, not required)")
     return result
 
 
@@ -2155,11 +2202,86 @@ def family_wrap(card: str) -> None:
                   "the rolling cache on the card disagrees with the CPU run")
 
 
+def family_image(model, tag: str) -> None:
+    """The reference's ``test_vlm_image_prefix_changes_logits`` at full width:
+    ``lm_logits`` of seeded tokens with seeded random image embeddings
+    (GEN_BATCH, num_image_tokens, D) against zero embeddings: finite, and
+    the text logits differ."""
+    import torch
+
+    c = model.config
+    toks = torch.randint(0, c.vocab_size, (GEN_BATCH, 16), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(6)).to(model.device)
+    img = family_extras(model, GEN_BATCH)
+    with torch.no_grad():
+        l1 = model.lm_logits(toks, img)[..., : c.vocab_size]
+        l0 = model.lm_logits(toks, {"image_embeds": torch.zeros_like(img["image_embeds"])})
+        l0 = l0[..., : c.vocab_size]
+    diff = float((l1 - l0).abs().max())
+    print(f"[{tag}] lm_logits {tuple(l1.shape)} with random image embeddings "
+          f"{tuple(img['image_embeds'].shape)} against zero ones: max |d| {diff:.3e} "
+          f"(max |logits| {float(l1.abs().max()):.3e})")
+    check(bool(torch.isfinite(l1).all() and torch.isfinite(l0).all()),
+          f"{tag}: image-prefix logits not finite")
+    check(diff > 0, f"{tag}: the image prefix does not change the logits")
+
+
+def family_reduced(card: str) -> None:
+    """Each reduced vlm, audio, hybrid and ssm config (REDUCED_RUNS, float32)
+    with the same weights on the card and on the CPU: ``lm_logits`` of
+    REDUCED_SEQ tokens (with seeded extras) within 2e-4 + 2e-4 |want|, and
+    a ``generate`` of REDUCED_PROMPT + REDUCED_NEW positions with equal
+    tokens. The only place the scans of ``models/ssm.py`` (chunked) and
+    ``models/xlstm.py`` (sLSTM included) run on the card."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.serve_loop import Server
+
+    for name, changes in REDUCED_RUNS:
+        cfg = dataclasses.replace(get_arch(name).reduced(), **changes)
+        cpu = Model(cfg, device="cpu", seed=0)
+        card_model = Model(cfg, device="cuda", seed=0)
+        card_model.load_state_dict(cpu.state_dict())
+        gen = torch.Generator().manual_seed(7)
+        toks = torch.randint(0, cfg.vocab_size, (GEN_BATCH, REDUCED_SEQ), dtype=torch.int32,
+                             generator=gen)
+        prompts = toks[:, :REDUCED_PROMPT]
+        frames = torch.randn((GEN_BATCH, cfg.encoder_seq or cfg.num_image_tokens,
+                              cfg.d_model), generator=gen)
+        runs = []
+        for m in (card_model, cpu):
+            key = {"vlm": "image_embeds", "audio": "frames"}.get(cfg.family)
+            extras = None if key is None else {key: frames.to(m.device)}
+            with torch.no_grad():
+                logits = m.lm_logits(toks.to(m.device), extras).float().cpu()
+                gen_extras = ({"enc_out": m.encode(extras["frames"])}
+                              if cfg.family == "audio" else None)
+            out = Server(m).generate(prompts, REDUCED_NEW, extras=gen_extras)
+            runs.append((logits, out.cpu()))
+        (got, out), (want, want_out) = runs
+        diff = (got - want).abs()
+        worst = float((diff / (2e-4 + 2e-4 * want.abs())).max())
+        same = int((out == want_out).sum())
+        note = f", {changes}" if changes else ""
+        print(f"[families] reduced {cfg.name} ({cfg.family}{note}): lm_logits "
+              f"{tuple(got.shape)} card against CPU: max_abs_err {float(diff.max()):.3e}, "
+              f"max |d| / (2e-4 + 2e-4 |want|) {worst:.3f}; generate "
+              f"{REDUCED_PROMPT} + {REDUCED_NEW}: {same}/{out.numel()} tokens equal ({card})")
+        check(worst <= 1.0, f"reduced {name}: lm_logits on the card disagree with the CPU")
+        check(torch.equal(out, want_out), f"reduced {name}: generated tokens differ")
+        del cpu, card_model
+
+
 def families_phase(card: str):
     """[families]: per config of FAMILY_RUNS, B1-B3 at its shapes, then the
     model (its own seeded init) through its paths with the coded head,
     counters reset before each and read after; each model freed before the
-    next is built. Then the reduced danube's rolling cache. Returns the
+    next is built. Then the reduced danube's rolling cache and the reduced
+    vlm, audio, hybrid and ssm configs, card against CPU. Returns the
     paths' launch counts and the kernel rows by config."""
     import dataclasses
     import gc
@@ -2195,8 +2317,11 @@ def families_phase(card: str):
             paths[f"families_{name}"] = counts
         if "dense" in runs:
             paths[f"families_{name}_dense"], _ = serve_dense_phase(model, rep, f"{tag} dense")
+        if "image" in runs:
+            family_image(model, tag)
         if "generate" in runs:
-            counts, summary = family_generate(model, tag, card)
+            counts, summary = family_generate(model, tag, card,
+                                              (False, True) if "int8" in runs else (False,))
             paths[f"families_{name}"] = counts
         peak = torch.cuda.max_memory_allocated()
         del model
@@ -2214,6 +2339,7 @@ def families_phase(card: str):
         check(after <= before + (64 << 20), f"{tag}: the model's memory was not freed "
                                             f"({before} -> {after} bytes)")
     family_wrap(card)
+    family_reduced(card)
     return paths, rows
 
 

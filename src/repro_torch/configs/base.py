@@ -3,9 +3,7 @@
 Counterpart of ``repro/configs/base.py``: every field of the reference's
 ``ModelConfig`` with its default, so a registered config and its
 ``reduced()`` variant equal the reference's field for field. Dtypes
-resolve to torch dtypes. The port implements the dense and moe families
-(``Model`` refuses the others by name); the ssm, hybrid, audio and vlm
-fields are carried as data.
+resolve to torch dtypes. ``Model`` implements every family.
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 
 The reference stubs the SigLIP vision tower with precomputed patch
 embeddings (B, 256, d_model); the decoder is the Gemma-style transformer
-below (MQA: kv=1). The port does not implement the vlm family yet.
+below (MQA: kv=1), with the plain GELU MLP.
 """
 from repro_torch.configs.base import ModelConfig
 

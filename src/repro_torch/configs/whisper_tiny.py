@@ -2,8 +2,8 @@
 
 The reference stubs the conv frontend with precomputed frame embeddings
 (B, 1500, d_model). 4 encoder + 4 decoder layers, LayerNorm + GELU,
-sinusoidal positions (no RoPE). The port does not implement the audio
-family yet.
+sinusoidal positions in the encoder (no RoPE; the decoder has no
+positional signal, as the reference's).
 """
 from repro_torch.configs.base import ModelConfig
 

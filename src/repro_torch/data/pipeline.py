@@ -5,7 +5,8 @@ position), computed with the same numpy arithmetic, so a batch here is
 identical to the reference's for the same (config, shape, seed, step).
 A Markov-ish structure gives the loss a learnable signal. The pipeline
 is seekable: ``state()`` returns {"step", "seed"} and ``start_step``
-resumes exactly. Batches land on ``device`` (CUDA by default) as int32.
+resumes exactly. Batches land on ``device`` (CUDA by default) as int32,
+with the family's ``extras`` (``make_extras``) where it has them.
 """
 from __future__ import annotations
 
@@ -39,8 +40,6 @@ class SyntheticLMData:
     def __init__(self, config: ModelConfig, shape: ShapeConfig, seed: int = 0,
                  start_step: int = 0, learnable: bool = True, *,
                  device: str | torch.device = "cuda"):
-        if config.family not in ("dense", "moe"):
-            raise NotImplementedError("family extras are not ported")
         self.config = config
         self.shape = shape
         self.seed = seed
@@ -63,4 +62,21 @@ class SyntheticLMData:
     def next_batch(self) -> dict:
         seq = torch.from_numpy(self._raw(self._step)).to(self.device)  # (B, S+1)
         self._step += 1
-        return {"tokens": seq[:, :-1].contiguous(), "labels": seq[:, 1:].contiguous()}
+        batch = {"tokens": seq[:, :-1].contiguous(), "labels": seq[:, 1:].contiguous()}
+        extras = make_extras(self.config, self.shape.global_batch, device=self.device)
+        if extras:
+            batch["extras"] = extras
+        return batch
+
+
+def make_extras(config: ModelConfig, batch: int, *, device: str | torch.device = "cuda"
+                ) -> dict | None:
+    """The reference's modality-frontend stubs: zero image embeddings (B,
+    num_image_tokens, D) for vlm, zero frame embeddings (B, encoder_seq, D)
+    for audio, in the compute dtype; None for the other families."""
+    key, length = {"vlm": ("image_embeds", config.num_image_tokens),
+                   "audio": ("frames", config.encoder_seq)}.get(config.family, (None, 0))
+    if key is None:
+        return None
+    return {key: torch.zeros((batch, length, config.d_model), dtype=config.cdtype,
+                             device=resolve_device(device))}

@@ -27,10 +27,12 @@ PATH`` exports the run's spans as Chrome ``trace_event`` JSON (it prints
 ``chrome trace: PATH (N spans)``). ``--slots auto`` asks an
 ``AdaptiveController`` on the coded fleet for the ``--trace`` width.
 
-``--arch`` takes every registered config; one of a family the port does
-not implement yet exits non-zero with ``Model``'s message, and
-``--trace`` on a sliding-window or ``kv_quant`` config with the
-reference's refusal (those configs only ``generate``).
+``--arch`` takes every registered config. A vlm config generates text
+(its stub image embeddings go to ``generate``, which serves text only,
+as the reference's), an audio one from the encoder output of stub frames
+(``Model.encode``). ``--trace`` on a hybrid, ssm, audio, sliding-window
+or ``kv_quant`` config exits non-zero with the reference's refusal (those
+configs only ``generate``).
 
 Not ported (argparse refuses them): the reference's numpy host loop
 (``--legacy-decode``) and ``--use-kernel`` (on the card the head always
@@ -47,6 +49,7 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.core.runtime_model import ClusterSpec
 from repro_torch.core.schemes import make_scheme, scheme_names
+from repro_torch.data.pipeline import make_extras
 from repro_torch.models.model import Model
 from repro_torch.obs.trace import SpanTracer
 from repro_torch.runtime.control import AdaptConfig, AdaptiveController
@@ -165,10 +168,7 @@ def main(argv=None):
     config = get_arch(args.arch)
     if args.reduced:
         config = config.reduced()
-    try:
-        model = Model(config, device=args.device, seed=0)
-    except NotImplementedError as err:  # a family the port does not implement
-        raise SystemExit(str(err)) from None
+    model = Model(config, device=args.device, seed=0)
     scheme = make_scheme(args.scheme, n=args.scheme_n, r=args.scheme_r,
                          upload=args.comm_upload, download=args.comm_download)
     cluster = ClusterSpec.parse(args.groups, args.bandwidth) if args.coded else None
@@ -187,14 +187,18 @@ def main(argv=None):
     prompts = torch.randint(0, config.vocab_size, (args.batch, args.prompt_len),
                             generator=torch.Generator().manual_seed(1),
                             dtype=torch.int32)
+    extras = make_extras(config, args.batch, device=model.device)
+    if config.family == "audio":
+        with torch.no_grad():
+            extras = {"enc_out": model.encode(extras["frames"])}
     sync = (lambda: torch.cuda.synchronize(model.device)) \
         if model.device.type == "cuda" else (lambda: None)
     if args.scenario is not None:
-        return _serve_scenario(server, prompts, args, cluster, sync)
+        return _serve_scenario(server, prompts, extras, args, cluster, sync)
     tracer = _attach_tracer(server, args)
     sync()
     t0 = time.perf_counter()
-    out = server.generate(prompts, args.max_new)
+    out = server.generate(prompts, args.max_new, extras=extras)
     sync()
     dt = time.perf_counter() - t0
     print(f"generated {tuple(out.shape)} in {dt:.2f}s "
@@ -274,7 +278,7 @@ def _print_measured(clock) -> None:
     print(f"measured: {clock.fed}/{clock.rounds} rounds fed, unit_s={unit}")
 
 
-def _serve_scenario(server: Server, prompts, args, cluster, sync):
+def _serve_scenario(server: Server, prompts, extras, args, cluster, sync):
     """Serve rounds against a drifting true fleet, optionally closed-loop.
 
     Each round sets the scenario's cluster of that round as the truth the
@@ -313,13 +317,14 @@ def _serve_scenario(server: Server, prompts, args, cluster, sync):
         server.set_true_cluster(truth)
         d = None
         if clock is not None:
-            timing = clock.measure(lambda: server.generate(prompts, args.max_new, seed=t),
+            timing = clock.measure(lambda: server.generate(prompts, args.max_new, seed=t,
+                                                           extras=extras),
                                    generator=observe, true_cluster=truth)
             out = timing.result
             if controller is not None:
                 d = controller.observe_timing(timing)
         else:
-            out = server.generate(prompts, args.max_new, seed=t)
+            out = server.generate(prompts, args.max_new, seed=t, extras=extras)
             if controller is not None:
                 d = controller.observe_truth(observe, truth)
         toks += out.shape[0] * args.max_new

@@ -1,14 +1,14 @@
 """Training entry point: ``python -m repro_torch.launch.train --arch qwen3-0.6b ...``
 
 Counterpart of ``repro/launch/train.py``: trains the port's model (any
-registered dense or moe config; another family exits non-zero naming
-it) on the synthetic pipeline, on the card unless ``--device cpu``. Supports
-checkpoint/restart (``--resume`` picks up the latest step) and coded
-execution: ``--hetero-groups`` plans a straggler fleet and runs
-gradient-coded training (``--scheme``, any registered allocation scheme,
-``grad_coding`` by default). ``--scenario`` drifts the true fleet over
-the run, ``--adapt-every`` replans against it with an
-``AdaptiveController`` (``--adapt-threshold`` its hysteresis),
+registered dense or moe config; another family exits non-zero with
+``Trainer``'s refusal, which names it) on the synthetic pipeline, on the
+card unless ``--device cpu``. Supports checkpoint/restart (``--resume``
+picks up the latest step) and coded execution: ``--hetero-groups`` plans
+a straggler fleet and runs gradient-coded training (``--scheme``, any
+registered allocation scheme, ``grad_coding`` by default). ``--scenario``
+drifts the true fleet over the run, ``--adapt-every`` replans against it
+with an ``AdaptiveController`` (``--adapt-threshold`` its hysteresis),
 ``--measure-times`` feeds the controller the steps' measured wall times
 through a ``RoundClock``, and ``--bucket-quantum`` quantizes the loads
 so that a replan within the bucket capacity keeps the coded step.
@@ -107,10 +107,7 @@ def main(argv=None):
             raise SystemExit(f"{args.checkpoint_dir} already has step_{last}; "
                              f"pass --resume to continue it")
 
-    try:
-        model = Model(config, device=args.device)
-    except NotImplementedError as err:  # a family the port does not implement
-        raise SystemExit(str(err)) from None
+    model = Model(config, device=args.device)
     data = SyntheticLMData(config, shape, device=args.device)
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(args.steps // 20, 1))
@@ -129,8 +126,11 @@ def main(argv=None):
         bucket_quantum=args.bucket_quantum,
         measure_times=args.measure_times,
     )
+    try:
+        trainer = Trainer(model, data, opt_cfg, cfg)
+    except NotImplementedError as err:  # a family the port does not train yet
+        raise SystemExit(str(err)) from None
     print(f"training {config.name}: {model.param_count():,} params on {model.device}")
-    trainer = Trainer(model, data, opt_cfg, cfg)
     if trainer.executor is not None:
         plan = trainer.executor.plan
         print(f"coded training: scheme={trainer.executor.scheme.name} "

@@ -1,1 +1,2 @@
-"""Dense and MoE decoder families: layers, attention (paged, windowed, int8 KV), routed experts, the Model module."""
+"""Every model family: layers, attention (paged, windowed, int8 KV,
+cross), routed experts, Mamba2, xLSTM cells, the Model module."""

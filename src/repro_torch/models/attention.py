@@ -10,7 +10,10 @@ hands back the post-rope K/V a batched prefill splices into a dense
 cache); and the dense-cache decode paths, ``decode_attention`` (one
 position for the whole batch; a rolling cache for sliding-window models
 and an int8 cache with per-(token, head) float16 scales) and
-``decode_attention_slots`` (a position per row). The reference computes
+``decode_attention_slots`` (a position per row). ``attention`` also
+takes cross attention (K and V from ``xkv`` at ``kv_positions``) and
+``use_rope=False``, as ``decode_attention`` does (whisper's encoder and
+decoder). The reference computes
 all but the paged decode attend in jnp outside any Pallas kernel, so
 they are plain torch here. The dense caches (``init_attn_cache``) are
 updated in place. Layer weights arrive as a dict of this layer's tensors
@@ -30,11 +33,14 @@ NEG_INF = -1e30
 
 
 def _qkv(p: dict, x: torch.Tensor, num_heads: int, num_kv_heads: int,
-         head_dim: int):
+         head_dim: int, xkv: torch.Tensor | None = None):
+    """Q from x; K and V from ``xkv`` (cross attention), else from x."""
+    xkv = x if xkv is None else xkv
     b, s, _ = x.shape
+    skv = xkv.shape[1]
     q = (x @ p["wq"].to(x.dtype)).reshape(b, s, num_heads, head_dim)
-    k = (x @ p["wk"].to(x.dtype)).reshape(b, s, num_kv_heads, head_dim)
-    v = (x @ p["wv"].to(x.dtype)).reshape(b, s, num_kv_heads, head_dim)
+    k = (xkv @ p["wk"].to(x.dtype)).reshape(b, skv, num_kv_heads, head_dim)
+    v = (xkv @ p["wv"].to(x.dtype)).reshape(b, skv, num_kv_heads, head_dim)
     return q, k, v
 
 
@@ -180,32 +186,41 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, num_heads, num_kv_heads, head_d
 
 
 def attention(p: dict, x, positions, *, num_heads, num_kv_heads, head_dim,
-              causal=True, window=None, rope_theta=10_000.0, q_block=512,
-              kv_block=1024, causal_skip=False, host_positions=None, return_kv=False):
+              causal=True, window=None, use_rope=True, rope_theta=10_000.0,
+              xkv=None, kv_positions=None, q_block=512, kv_block=1024,
+              causal_skip=False, host_positions=None, return_kv=False):
     """Full attention layer (train/prefill path). x: (B, S, D); positions: (S,).
 
-    Sequences that do not divide the blocks are padded: queries with
-    continuation positions (sliced back), keys with position -1 (masked).
-    ``window`` and ``causal_skip`` as in ``chunked_attention``;
-    ``host_positions`` is a host copy of ``positions`` (a caller that
-    knows them, such as a forward over ``arange``, saves the skip
-    decision its device read). Returns y (B, S, D); with ``return_kv``
-    also the post-rope (B, S, KV, hd) keys and values, what
-    ``decode_attention`` would have written into its cache one position
-    at a time.
+    ``xkv`` (B, Skv, D): cross attention, K and V from it at
+    ``kv_positions`` (Skv,) (default: self attention at ``positions``).
+    ``use_rope=False`` leaves Q and K unrotated. Sequences that do not
+    divide the blocks are padded: queries with continuation positions
+    (sliced back), keys with position -1 (masked). ``window`` and
+    ``causal_skip`` as in ``chunked_attention``; ``host_positions`` is a
+    host copy of ``positions`` (a caller that knows them, such as a
+    forward over ``arange``, saves the skip decision its device read).
+    Returns y (B, S, D); with ``return_kv`` also the post-rope (B, Skv,
+    KV, hd) keys and values, what ``decode_attention`` would have written
+    into its cache one position at a time.
     """
     b, s = x.shape[:2]
-    q, k, v = _qkv(p, x, num_heads, num_kv_heads, head_dim)
+    q, k, v = _qkv(p, x, num_heads, num_kv_heads, head_dim, xkv)
     q, k = _maybe_qk_norm(p, q, k)
-    pos_b = positions[None, :].expand(b, s)
-    q = rope(q, pos_b, rope_theta)
-    k = rope(k, pos_b, rope_theta)
-    k_cache, v_cache = k, v  # before padding: the decode cache's payload
-    qb, kb = min(q_block, s), min(kv_block, s)
-    pad_q, pad_k = (-s) % qb, (-s) % kb
-    q_pos, kv_pos = positions, positions
+    skv = k.shape[1]
     host = None if host_positions is None else np.asarray(host_positions)
-    host_q, host_k = host, host
+    host_kv = host
+    if kv_positions is None:
+        kv_positions = positions
+    else:
+        host_kv = None  # the skip decision reads these from the device
+    if use_rope:
+        q = rope(q, positions[None, :].expand(b, s), rope_theta)
+        k = rope(k, kv_positions[None, :].expand(b, skv), rope_theta)
+    k_cache, v_cache = k, v  # before padding: the decode cache's payload
+    qb, kb = min(q_block, s), min(kv_block, skv)
+    pad_q, pad_k = (-s) % qb, (-skv) % kb
+    q_pos, kv_pos = positions, kv_positions
+    host_q, host_k = host, host_kv
     if pad_q:
         q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
         q_pos = torch.cat([positions, positions[-1] + 1 + torch.arange(
@@ -215,15 +230,16 @@ def attention(p: dict, x, positions, *, num_heads, num_kv_heads, head_dim,
     if pad_k:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
-        kv_pos = torch.cat([positions, torch.full((pad_k,), -1, dtype=positions.dtype,
-                                                  device=x.device)])
-        if host is not None:
-            host_k = np.concatenate([host, np.full(pad_k, -1)])
+        kv_pos = torch.cat([kv_positions, torch.full(
+            (pad_k,), -1, dtype=kv_positions.dtype, device=x.device)])
+        if host_kv is not None:
+            host_k = np.concatenate([host_kv, np.full(pad_k, -1)])
+    both = host_q is not None and host_k is not None
     out = chunked_attention(q, k, v, q_pos, kv_pos, num_heads=num_heads,
                             num_kv_heads=num_kv_heads, head_dim=head_dim,
                             causal=causal, window=window, q_block=qb, kv_block=kb,
                             causal_skip=causal_skip,
-                            host_pos=None if host is None else (host_q, host_k))[:, :s]
+                            host_pos=(host_q, host_k) if both else None)[:, :s]
     y = out.reshape(b, s, num_heads * head_dim) @ p["wo"].to(x.dtype)
     if return_kv:
         return y, k_cache, v_cache
@@ -275,15 +291,19 @@ def _attend_cache(p: dict, q, k, v, valid, num_heads, num_kv_heads, head_dim):
     return out @ p["wo"].to(q.dtype)
 
 
-def _project_rope(p: dict, x, positions, num_heads, num_kv_heads, head_dim, rope_theta):
-    """q, k, v of one new token per row, rope'd at ``positions`` (B, 1)."""
+def _project_rope(p: dict, x, positions, num_heads, num_kv_heads, head_dim, rope_theta,
+                  use_rope=True):
+    """q, k, v of one new token per row, rope'd at ``positions`` (B, 1)
+    unless ``use_rope`` is False."""
     q, k_new, v_new = _qkv(p, x, num_heads, num_kv_heads, head_dim)
     q, k_new = _maybe_qk_norm(p, q, k_new)
+    if not use_rope:
+        return q, k_new, v_new
     return rope(q, positions, rope_theta), rope(k_new, positions, rope_theta), v_new
 
 
 def decode_attention(p: dict, x, cache: dict, pos: int, *, num_heads, num_kv_heads,
-                     head_dim, window=None, rope_theta=10_000.0):
+                     head_dim, window=None, use_rope=True, rope_theta=10_000.0):
     """Single-token decode at one position for the whole batch, in place.
 
     x: (B, 1, D); cache: ``init_attn_cache``'s (this layer's views);
@@ -292,12 +312,13 @@ def decode_attention(p: dict, x, cache: dict, pos: int, *, num_heads, num_kv_hea
     holding a position in [0, pos] (and, with ``window``, within the last
     ``window`` positions). An int8 cache stores the quantized K/V and
     their scales and attends the whole cache dequantized in x's dtype.
-    Returns y (B, 1, D).
+    ``use_rope=False``: Q and K unrotated (whisper's decoder). Returns y
+    (B, 1, D).
     """
     b = x.shape[0]
     pp = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_rope(p, x, pp, num_heads, num_kv_heads, head_dim,
-                                    rope_theta)
+                                    rope_theta, use_rope)
     slot = pos % cache["k"].shape[1]
     if "k_scale" in cache:
         for name, t in (("k", k_new), ("v", v_new)):

@@ -15,9 +15,25 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Te
     return (y * scale.float()).to(x.dtype)
 
 
-def mlp(w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in float32 (population variance), then
+    scale and bias, cast back to x's dtype."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, unbiased=False, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def mlp(w_gate: torch.Tensor | None, w_up: torch.Tensor, w_down: torch.Tensor,
         x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: (silu(x W_g) * x W_u) W_d, in x's dtype."""
+    """The reference's two MLP forms, in x's dtype: SwiGLU, (silu(x W_g) *
+    x W_u) W_d, when there is a gate (``activation == "silu"``); else the
+    plain GELU MLP gelu(x W_u) W_d with ``jax.nn.gelu``'s default tanh
+    approximation."""
+    if w_gate is None:
+        return F.gelu(x @ w_up.to(x.dtype), approximate="tanh") @ w_down.to(x.dtype)
     g = F.silu(x @ w_gate.to(x.dtype))
     return (g * (x @ w_up.to(x.dtype))) @ w_down.to(x.dtype)
 

@@ -17,8 +17,9 @@ argmax. The coded blocks are built once per plan by the B3
 ``mds_encode`` kernel, and the paged decode attend is the B2 kernel.
 
 Three entry points: ``Server.generate`` (one batched prefill into a
-dense cache, or, for a sliding-window or ``kv_quant`` model, a
-sequential prefill of ``decode_step`` over the prompt positions; then a
+dense cache, or, for a hybrid, ssm or audio model and a sliding-window
+or ``kv_quant`` one, a sequential prefill of ``decode_step`` over the
+prompt positions; then a
 greedy decode in which every sampled token, the first included, goes
 through the coded head), and ``Server.serve`` with ``paged=True`` (the
 block pool with chunked prefill) or ``paged=False`` (a dense per-slot
@@ -328,9 +329,11 @@ class Server:
     # ------------------------------------------------------------ generate
     def _can_batch_prefill(self) -> bool:
         """True when ``Model.prefill`` covers this model (the slot and paged
-        paths' envelope: no int8 cache, no sliding window)."""
+        paths' envelope: an attention-cache family, no int8 cache, no
+        sliding window)."""
         c = self.model.config
-        return not c.kv_quant and c.sliding_window is None
+        return (c.family in ("dense", "vlm", "moe") and not c.kv_quant
+                and c.sliding_window is None)
 
     def _prefill_into_cache(self, cache: dict, prompts: torch.Tensor):
         """One batched ``Model.prefill`` spliced into an ``init_cache`` state:
@@ -345,13 +348,16 @@ class Server:
 
     @torch.no_grad()
     def generate(self, prompts, max_new: int | None = None, *, seed: int = 0,
-                 cache_len: int | None = None, observe=None) -> torch.Tensor:
+                 cache_len: int | None = None, observe=None,
+                 extras: dict | None = None) -> torch.Tensor:
         """Greedy decode. prompts: (B, S0) int (a tensor or numpy); returns
         (B, S0 + max_new) int32 on the server's device.
 
-        One batched prefill fills a dense cache (a sliding-window or int8
-        cache: ``decode_step`` over the prompt positions in turn, as the
-        reference's fallback), then ``max_new - 1`` decode steps. With a
+        ``extras`` goes to ``Model.init_cache`` (audio: ``{"enc_out"}``;
+        vlm serves text only, as the reference). One batched prefill fills
+        a dense cache (a hybrid, ssm or audio model, a sliding-window or
+        int8 cache: ``decode_step`` over the prompt positions in turn, as
+        the reference's fallback), then ``max_new - 1`` decode steps. With a
         coded head every sampled token goes through it, the first
         post-prefill one included; finish masks draw from a
         ``torch.Generator`` seeded with ``seed``. ``observe``, if given, is
@@ -368,7 +374,7 @@ class Server:
         if max_new == 0:
             return prompts
         b, s0 = prompts.shape
-        cache = self.model.init_cache(b, cache_len or s0 + max_new)
+        cache = self.model.init_cache(b, cache_len or s0 + max_new, extras)
         generator = torch.Generator(device=dev).manual_seed(seed)
 
         def sample(step: int, logits: torch.Tensor) -> torch.Tensor:

@@ -264,9 +264,21 @@ class Trainer:
     same draw (or the clock's decomposition of the measured step) and
     replans through ``_on_replan``, and every decision is an
     ``adapt_decision`` event.
+
+    It trains the dense and moe families. vlm and audio batches carry
+    extras, which the coded step does not partition (the reference's
+    refusal); hybrid and ssm training is not ported yet. Both raise
+    ``NotImplementedError`` here.
     """
 
     def __init__(self, model: Model, data, opt_cfg: AdamWConfig, cfg: TrainConfig):
+        family = model.config.family
+        if family in ("vlm", "audio"):
+            raise NotImplementedError("coded training does not partition family extras yet")
+        if family in ("hybrid", "ssm"):
+            raise NotImplementedError(
+                f"training the {family!r} family ({model.config.name}) is not ported yet; "
+                f"the port trains dense and moe")
         self.model = model
         self.data = data
         self.opt_cfg = opt_cfg

@@ -12,10 +12,11 @@ trace and scenario modes, and ``--bucket-quantum`` buckets the head.
 against ``repro_torch.obs.schema`` (and feeds the ops report) and a
 Chrome trace that loads, and the ``--slots`` refusals print the
 reference's messages.
-The other configs: reduced granite-3-2b, h2o-danube-3-4b and
-moonshot-v1-16b-a3b generate coded (and the MoE and sliding-window ones
-train), an unported family exits non-zero naming itself, and ``--trace``
-on danube exits with the reference's refusal.
+The other configs: reduced granite-3-2b, h2o-danube-3-4b,
+moonshot-v1-16b-a3b, paligemma-3b and whisper-tiny generate coded (and
+the MoE and sliding-window ones train), the training CLI on a family it
+does not train exits non-zero naming it, and ``--trace`` on zamba2-1.2b
+and on danube exits with the reference's refusal.
 Without ``--device`` the CLI runs on CUDA, and raises where there is none
 (``tests/test_torch_plan.py``).
 """
@@ -260,10 +261,14 @@ def test_cli_slots_refusals_match_reference(flags):
 
 # ------------------------------------------------------ the other configs
 @pytest.mark.parametrize("arch,kb", [("granite-3-2b", 2), ("h2o-danube-3-4b", 2),
-                                     ("moonshot-v1-16b-a3b", 2)])
+                                     ("moonshot-v1-16b-a3b", 2), ("paligemma-3b", 2),
+                                     ("whisper-tiny", 2), ("zamba2-1.2b", 2),
+                                     ("xlstm-125m", 2)])
 def test_cli_coded_generate_on_the_other_configs(capsys, arch, kb):
     """Each new config's reduced variant (vocab 512: kb 2) prints the
-    coded-head line and generates; danube through its sequential prefill."""
+    coded-head line and generates; danube, whisper (from the encoder
+    output of stub frames), zamba and xlstm through the sequential
+    prefill, paligemma text-only."""
     out = launch_serve.main(["--arch", arch] + BASE[2:] + ["--coded"])
     text = capsys.readouterr().out
     head = HEAD.search(text)
@@ -273,14 +278,19 @@ def test_cli_coded_generate_on_the_other_configs(capsys, arch, kb):
 
 
 def test_cli_refuses_a_family_not_ported_and_a_trace_on_danube():
-    """``--arch zamba2-1.2b`` exits non-zero naming its family; ``--trace``
-    on danube (sliding window) exits with the reference's refusal."""
+    """``--trace poisson --arch zamba2-1.2b`` (a family the slot and paged
+    paths do not take) exits non-zero with the reference's slot-support
+    message; ``--trace`` on danube (sliding window) exits with the
+    reference's refusal."""
     from repro.configs import ARCHS as REF_ARCHS
     from repro.models.model import Model as RefModel
 
+    with pytest.raises(NotImplementedError) as ref:
+        RefModel(REF_ARCHS["zamba2-1.2b"].reduced()).init_paged_cache(4, 4)
     with pytest.raises(SystemExit) as err:
-        launch_serve.main(["--arch", "zamba2-1.2b"] + BASE[2:])
-    assert "'hybrid' family" in str(err.value) and "not ported yet" in str(err.value)
+        launch_serve.main(["--arch", "zamba2-1.2b"] + BASE[2:]
+                          + ["--trace", "poisson", "--num-requests", "2"])
+    assert str(err.value) == str(ref.value) and "'hybrid'" in str(err.value)
     with pytest.raises(NotImplementedError) as ref:
         RefModel(REF_ARCHS["h2o-danube-3-4b"].reduced()).init_slot_cache(2, 8)
     for flags in ([], ["--dense-kv"]):

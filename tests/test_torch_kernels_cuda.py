@@ -345,10 +345,10 @@ def test_paged_decode_head_dims_off_32(dev, dtype, hd):
     assert torch.equal(got, pa.paged_decode_attend(q, k_pool, v_pool, table, pos))
 
 
-#: (KV, G, hd) of the paged serves of granite-3-2b, yi-9b (G = MAX_G) and
-#: moonshot-v1-16b-a3b (G 1)
+#: (KV, G, hd) of the paged serves of granite-3-2b, yi-9b (G = MAX_G),
+#: moonshot-v1-16b-a3b (G 1) and paligemma-3b (MQA: G = MAX_G at hd 256)
 _SERVE_ATTN = {"granite-3-2b": (8, 4, 64), "yi-9b": (4, 8, 128),
-               "moonshot-v1-16b-a3b": (16, 1, 128)}
+               "moonshot-v1-16b-a3b": (16, 1, 128), "paligemma-3b": (1, 8, 256)}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -378,11 +378,12 @@ def test_paged_decode_at_the_new_serve_shapes(dev, dtype, arch):
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "yi-9b", "h2o-danube-3-4b",
-                                  "moonshot-v1-16b-a3b"])
+                                  "moonshot-v1-16b-a3b", "paligemma-3b", "whisper-tiny",
+                                  "zamba2-1.2b", "xlstm-125m"])
 def test_gemm_kernels_at_the_new_heads(dev, arch):
     """B1 and B3 at each new config's coded head on the serve fleet: the
     block mix (nb, kb) x (kb, 4 x 256) and the encode (nb, kb) x (kb, 256 D),
-    kb = ceil(padded vocab / 256) from 125 to 640."""
+    kb = ceil(padded vocab / 256) from 125 to 1005."""
     from repro_torch.configs import get_arch
     from repro_torch.core.coding import make_generator
     from repro_torch.core.planner import deploy

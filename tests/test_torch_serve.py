@@ -264,7 +264,7 @@ def test_coded_serve_emits_uncoded_tokens_through_erasures(models):
 def test_serve_rejects_what_the_port_does_not_serve(models):
     """A dense slot cache cannot hold a prompt past ``prompt_cap`` (the
     paged pool prefills it in chunks instead); an empty trace; a family
-    the port does not implement."""
+    the slot and paged paths do not take (hybrid: ``generate`` only)."""
     _, _, ours = models
     server = Server(ours)
     trace = wl.make_workload("poisson", num_requests=2, prompt_len=12,
@@ -275,9 +275,10 @@ def test_serve_rejects_what_the_port_does_not_serve(models):
         r.out_len for r in trace)
     with pytest.raises(ValueError, match="non-empty"):
         server.serve([])
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        Model(dataclasses.replace(ARCHS["qwen3-0.6b"].reduced(), family="hybrid"),
-              device="cpu")
+    hybrid = Model(ARCHS["zamba2-1.2b"].reduced(), device="cpu")
+    for paged in (True, False):
+        with pytest.raises(NotImplementedError, match="hybrid"):
+            Server(hybrid).serve(trace, paged=paged)
 
 
 def test_dense_and_paged_serves_give_equal_streams(models):
