@@ -10,11 +10,15 @@ the port's envelope at full width (granite-3-2b, yi-9b, moonshot-v1-16b-a3b
 and paligemma-3b paged; h2o-danube-3-4b, plain and int8 KV, whisper-tiny,
 zamba2-1.2b and xlstm-125m through the sequential prefill), then train
 qwen3-0.6b with gradient coding, plain and then adaptive under measured
-round times.
+round times, and train a config of every other family (whisper-tiny,
+xlstm-125m, zamba2-1.2b, paligemma-3b, granite-3-2b, moonshot-v1-16b-a3b).
 
 Run from the repository root with no arguments:
 
     python3 chip_smoke.py
+
+(``--train-family ARCH [--seq N]`` builds the kernels and runs only that
+[train-families] config, its steps at N positions.)
 
 Phases (any failure raises, and the script exits non-zero):
 
@@ -82,30 +86,35 @@ Phases (any failure raises, and the script exits non-zero):
    the streams equal the serve phase's, fed == dispatches - 1; and one
    replan's allocation timed on the fused torch cores and on the numpy
    eager oracle; counters reset before (c) and (d) and read after;
-9. cli      — ``python -m repro_torch.launch.serve --coded`` as three
-   subprocesses started together: ``--scheme uniform_r`` (exit 0, its
-   coded-head line), ``--scenario churn --adapt-every 2 --rounds 12``
+9. cli      — five subprocesses started together: ``python -m
+   repro_torch.launch.serve --coded`` with ``--scheme uniform_r`` (exit 0,
+   its coded-head line), ``--scenario churn --adapt-every 2 --rounds 12``
    (exit 0, its replan lines and the controller line) and ``--trace
    poisson --num-requests 8 --slots auto --telemetry ... --chrome-trace
-   ...`` (exit 0, its width, Chrome trace and serve lines); then ``python
-   -m repro_torch.launch.obsreport`` on its JSONL with ``--require-spans``
-   (exit 0, ``span coverage:``);
+   ...`` (exit 0, its width, Chrome trace and serve lines); ``python -m
+   repro_torch.launch.train --hetero-groups 6:8.0,6:0.7`` (2 steps of 8 x
+   32) on xlstm-125m (exit 0, its ``coded training:`` line) and on
+   whisper-tiny (a non-zero exit with the reference's extras message);
+   then ``python -m repro_torch.launch.obsreport`` on the serve JSONL with
+   ``--require-spans`` (exit 0, ``span coverage:``);
    families — the model envelope at full width, one model on the card at a
    time (its own seeded init; freed, and the allocator checked, before the
    next): per config B1 and B3 at its coded head's shapes and B2 at its
    serve shape held against their plain versions and timed beside the
-   library call, then granite-3-2b (40 layers) and yi-9b (48) through the
-   serve phase's trace paged (yi also dense, with the serve-dense phase's
-   checks), moonshot-v1-16b-a3b (MoE, 64 experts top-6) at 24 of its 48
-   layers (27.7 B parameters do not fit in 80 GB in float32) paged, each
+   library call, then granite-3-2b (20 of 40 layers) and yi-9b (24 of 48)
+   through the serve phase's trace paged (yi also dense, with the
+   serve-dense phase's checks), moonshot-v1-16b-a3b (MoE, 64 experts
+   top-6) at 12 of its 48 layers (27.7 B parameters do not fit in 80 GB
+   in float32) paged, each
    with the serve phase's coded-round check; paligemma-3b (vlm: 18 layers,
    MQA, hd 256, GELU) paged as well (B2 at KV 1, G 8, hd 256), and its
    ``lm_logits`` with random image embeddings against zero ones (the
-   logits must differ); h2o-danube-3-4b (24 layers, window 4,096)
+   logits must differ); h2o-danube-3-4b (8 of 24 layers, window 4,096)
    ``generate`` of [generate]'s prompts through the sequential prefill,
    with its cache and with the int8 one, and whisper-tiny (from the
-   encoder output of random frames), zamba2-1.2b (38 Mamba2 layers, the
-   shared block every 6) and xlstm-125m (sLSTM at layers 6 and 12) alike,
+   encoder output of random frames), zamba2-1.2b (13 of 38 Mamba2 layers,
+   the shared block at 0, 6 and 12) and xlstm-125m (sLSTM at layers 6 and
+   12) alike,
    each held against its uncoded run; counters reset before each path and
    read after; then the reduced danube (window 64) generates past its
    window on the card and on the CPU, the same weights, the logits held
@@ -128,12 +137,35 @@ Phases (any failure raises, and the script exits non-zero):
    10 steps on the static fleet with a real sleep of 0.5 x unit_s x the
    deadline on the fast group from fed round 5: a replan within two
    cadences that gives that group fewer rows. B4 launches == steps
-   (forward) and steps not skipped (each backward), counted per run.
+   (forward) and steps not skipped (each backward), counted per run;
+12. train-families — one model on the card at a time (seeded, float32
+   parameters, bf16 compute; freed, and the allocator checked, before the
+   next), each first with B4 at its (T, V, D) held against its plain
+   version and timed beside the library call: 3 steps on the serve fleet,
+   counters reset before and read after (one finite history record a
+   step, B4's forward once a step, each backward once a step not
+   skipped, the peak allocated) of whisper-tiny (4 + 4 layers, 8 x 448)
+   and paligemma-3b (18 layers, 8 x 512) plain, each after a coded
+   ``Trainer.run`` that must raise the reference's extras message, both on
+   seeded random extras (``make_extras``' zero stubs checked on the card
+   and their gradient reported), and of xlstm-125m (8 x 64: its time
+   loops), zamba2-1.2b, granite-3-2b (8 x 512 each) and
+   moonshot-v1-16b-a3b (4 of 48 layers) coded, ``grad_coding`` k 8: a
+   round with two workers erased against the full-batch gradient in f32
+   (xlstm at full width; the others, whose D 2048 B4's f32 kernels refuse,
+   on the reduced config's f32 model; the MoE against the mean of the
+   partitions' own gradients, each partition its own routing pool) and
+   a deadline-0 round that must change nothing; zamba's and xlstm's
+   steady step profiled (B4's share, the card's busy share); then the
+   reduced paligemma, whisper, zamba and xlstm (sLSTM every 2nd layer):
+   one plain step's loss and every gradient leaf card against CPU within
+   2e-4 |want| + max(2e-6, 2e-5 max|want|).
 
 The last three stdout lines are the card (``nvidia-smi``), the kernels
 JSON (each kernel's launches on every path beside its main path's, B1 and
-B3 also at Path M's shapes, and B1-B3 at each [families] config's shapes)
-and ``{"ok": true, "device": {...}}``.
+B3 also at Path M's shapes, B1-B3 at each [families] config's shapes and
+B4 at each [train-families] config's) and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -562,9 +594,12 @@ def kernel_phase(nb: int, kb: int) -> dict:
 
 
 def fused_ce_phase(t: int = TRAIN_BATCH * TRAIN_SEQ, v: int = 151_936,
-                   d: int = 1024) -> dict:
-    """B4 forward and both backward kernels vs ``fused_ce_plain`` at the
-    training path's full-width shapes (bf16 operands, some labels masked)."""
+                   d: int = 1024, tag: str = "kernels", stages: bool = True) -> dict:
+    """B4 forward and both backward kernels vs ``fused_ce_plain`` at a
+    training path's full-width shapes (bf16 operands, some labels masked),
+    timed beside the plain version and the library call; ``stages``: each
+    launch also split by the profiler into its stages. Returns the rows,
+    each with its shape."""
     import torch
 
     from repro_torch.kernels.fused_ce import ops as ce
@@ -589,7 +624,7 @@ def fused_ce_phase(t: int = TRAIN_BATCH * TRAIN_SEQ, v: int = 151_936,
     tol_lse = tol_logit + (v / 64 + 64) * U32 + 2 * U32 * float(lse_p.detach().abs().max())
     err_lse = float((lse - lse_p).detach().abs().max())
     err_ll = float((ll - ll_p).detach().abs().max())
-    print(f"[kernels] fused_ce_fwd T={t} V={v} D={d} bf16: lse max_abs_err "
+    print(f"[{tag}] fused_ce_fwd T={t} V={v} D={d} bf16: lse max_abs_err "
           f"{err_lse:.3e} <= tol {tol_lse:.3e}; ll {err_ll:.3e} <= tol "
           f"{tol_logit:.3e} (2 D u max|h| max|e| + (V/64 + 64) u + 2 u max|lse|)")
     check(err_lse <= tol_lse and err_ll <= tol_logit, "fused_ce_fwd disagrees")
@@ -599,12 +634,12 @@ def fused_ce_phase(t: int = TRAIN_BATCH * TRAIN_SEQ, v: int = 151_936,
         top2 = logits.topk(2, dim=1).values
     clear = (top2[:, 0] - top2[:, 1]) > 2 * tol_logit
     n_bad = int(((am != am_p) & clear).sum())
-    print(f"[kernels] fused_ce_fwd argmax: {int(clear.sum())}/{t} tokens with a "
+    print(f"[{tag}] fused_ce_fwd argmax: {int(clear.sum())}/{t} tokens with a "
           f"top-two gap > 2 tol, {n_bad} disagree")
     check(n_bad == 0, "fused_ce_fwd argmax disagrees")
     again = ce.fused_ce_forward(h, e, labels32)
     same = all(torch.equal(x, y.detach()) for x, y in zip(again, (lse, ll, am)))
-    print(f"[kernels] fused_ce_fwd: {-(-v // ce.TILE_V)} vocab tiles, partial scratch "
+    print(f"[{tag}] fused_ce_fwd: {-(-v // ce.TILE_V)} vocab tiles, partial scratch "
           f"{ce.scratch_bytes(ce.FWD, t, v, d)} bytes; a second launch bit-identical: {same}")
     check(same, "fused_ce_fwd is not deterministic")
     del again
@@ -633,7 +668,7 @@ def fused_ce_phase(t: int = TRAIN_BATCH * TRAIN_SEQ, v: int = 151_936,
         lim = (2 * tol_lse + n * U32) * bound + 2.0**-8 * bound + 2.0**-7 * want.float().abs()
         worst = float((diff / lim.clamp_min(1e-30)).max())
         errs[name] = float(diff.max())
-        print(f"[kernels] fused_ce_bwd_{name}: max_abs_err {errs[name]:.3e}; max "
+        print(f"[{tag}] fused_ce_bwd_{name}: max_abs_err {errs[name]:.3e}; max "
               f"|d| / ((2 tol_lse + {n} u) (|dl||X|) + 2^-8 (|dl||X|) + 2^-7 |want|) "
               f"{worst:.3e} <= 1")
         check(worst <= 1.0, f"fused_ce_bwd_{name} disagrees with its plain version")
@@ -646,7 +681,7 @@ def fused_ce_phase(t: int = TRAIN_BATCH * TRAIN_SEQ, v: int = 151_936,
     for name, kern, got in (("dh", ce.BWD_DH, dh), ("de", ce.BWD_DE, de)):
         again = ce.fused_ce_backward(kern, h, e, labels32, lse_d, g_lse, g_ll)
         same = torch.equal(again, got)
-        print(f"[kernels] fused_ce_bwd_{name}: {-(-v // vc)} vocab chunks of {vc} rows, "
+        print(f"[{tag}] fused_ce_bwd_{name}: {-(-v // vc)} vocab chunks of {vc} rows, "
               f"scratch {ce.scratch_bytes(kern, t, v, d)} bytes; a second launch "
               f"bit-identical: {same}")
         check(same, f"fused_ce_bwd_{name} is not deterministic")
@@ -700,12 +735,16 @@ def fused_ce_phase(t: int = TRAIN_BATCH * TRAIN_SEQ, v: int = 151_936,
             flops=2 * flops,
         )
     for name, r in rows.items():
-        print(f"[kernels] {name}: {r['ms']:.3f} ms ({r['flops'] / r['ms'] / 1e9:.1f} "
+        print(f"[{tag}] {name}: {r['ms']:.3f} ms ({r['flops'] / r['ms'] / 1e9:.1f} "
               f"TFLOP/s, {r['ms'] / r['bound'][0]:.2f}x bound, "
               f"{r['ms'] / r['library_ms']:.2f}x library), plain {r['plain_ms']:.3f} ms, "
               f"library {r['library_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
               f"({r['bound'][1]})")
 
+    for r in rows.values():
+        r["shape"] = [[t, d], [v, d]]
+    if not stages:
+        return rows
     # each launch's stages by the profiler: the forward's GEMM and combine,
     # a backward's dlogits and product GEMMs
     calls = {
@@ -719,9 +758,9 @@ def fused_ce_phase(t: int = TRAIN_BATCH * TRAIN_SEQ, v: int = 151_936,
     for name, (fn, tests) in calls.items():
         split = device_split(fn, tests)
         if split is None:
-            print(f"[kernels] fused_ce_{name} stages: not measured (no device time)")
+            print(f"[{tag}] fused_ce_{name} stages: not measured (no device time)")
             continue
-        print(f"[kernels] fused_ce_{name} stages: " + ", ".join(
+        print(f"[{tag}] fused_ce_{name} stages: " + ", ".join(
             f"{st} {ms:.3f} ms in {n} launches"
             + (f" ({flops / ms / 1e9:.1f} TFLOP/s)" if st != "combine" and ms > 0 else "")
             for st, (ms, n) in split.items()))
@@ -1947,36 +1986,43 @@ def train_adapt_phase(cfg, device: str = "cuda") -> dict:
     return {"train_adapt_churn": counts_a, "train_adapt_pad": counts_b}
 
 
-def cli_phase(runs: list[tuple[list[str], list[str]]]) -> None:
-    """The serving CLI as a user runs it, each run ``(flags, expect)`` in a
-    process of its own, all started together (most of a run is the
-    process's start): exit 0 and a line starting with each of ``expect``."""
+def cli_phase(runs: list[tuple[list[str], list[str], bool]]) -> None:
+    """The CLIs as a user runs them, each run ``(argv, expect, ok)`` (``argv``
+    after ``python -m``) in a process of its own, all started together
+    (most of a run is the process's start): with ``ok``, exit 0 and a
+    stdout line starting with each of ``expect``; else a non-zero exit
+    whose stderr holds each of ``expect``."""
     import os
 
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     t = time.perf_counter()
     procs = []
-    for flags, expect in runs:
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen3-0.6b",
-               "--coded", *flags]
-        procs.append((cmd, expect, subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
-                                                    stdout=subprocess.PIPE,
-                                                    stderr=subprocess.PIPE)))
-    for cmd, expect, proc in procs:
+    for argv, expect, ok in runs:
+        cmd = [sys.executable, "-m", *argv]
+        procs.append((cmd, expect, ok, subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                                        stdout=subprocess.PIPE,
+                                                        stderr=subprocess.PIPE)))
+    for cmd, expect, ok, proc in procs:
         try:
             out, err = proc.communicate(timeout=600)
         except subprocess.TimeoutExpired:
-            for _, _, p in procs:
+            for *_, p in procs:
                 p.kill()
             raise
         lines = out.strip().splitlines()
-        print(f"[cli] {' '.join(cmd[1:])}: exit {proc.returncode}, done "
+        print(f"[cli] {' '.join(cmd[2:])}: exit {proc.returncode}, done "
               f"{time.perf_counter() - t:.1f} s after the {len(runs)} runs started")
         for line in lines:
             print(f"[cli]   {line}")
+        if not ok:
+            print(f"[cli]   stderr, last line: {(err.strip().splitlines() or [''])[-1]}")
+            check(proc.returncode != 0, f"{' '.join(cmd[2:5])} must exit non-zero")
+            for text in expect:
+                check(text in err, f"the CLI's stderr holds {text!r}")
+            continue
         if proc.returncode != 0:
             print(err[-4000:], file=sys.stderr)
-        check(proc.returncode == 0, "the serving CLI exits 0")
+        check(proc.returncode == 0, f"{' '.join(cmd[2:5])} exits 0")
         for head in expect:
             check(any(line.startswith(head) for line in lines), f"the CLI prints {head!r}")
 
@@ -2004,15 +2050,18 @@ def obsreport_cli(jsonl: str) -> None:
 #: serving paths ("image": the vlm's image prefix through ``lm_logits``;
 #: "generate": [generate]'s prompts through the sequential prefill, "int8"
 #: also with an int8 KV cache). moonshot-v1-16b-a3b's 48 layers are 27.7 B
-#: parameters, 111 GB in float32, past the card's 80 GB: 24 layers (14.0
-#: B) are kept.
-FAMILY_RUNS = (("granite-3-2b", None, ("paged",)),
-               ("yi-9b", None, ("paged", "dense")),
-               ("moonshot-v1-16b-a3b", 24, ("paged",)),
-               ("h2o-danube-3-4b", None, ("generate", "int8")),
+#: parameters, 111 GB in float32, past the card's 80 GB. The run's time
+#: budget (the serves and generates are host-paced, layer by layer) keeps
+#: 20 of granite-3-2b's 40 layers, 24 of yi-9b's 48, 12 of moonshot's, 8 of
+#: h2o-danube-3-4b's 24 and 13 of zamba2-1.2b's 38 (the shared block at 0,
+#: 6 and 12); paligemma-3b, whisper-tiny and xlstm-125m keep theirs.
+FAMILY_RUNS = (("granite-3-2b", 20, ("paged",)),
+               ("yi-9b", 24, ("paged", "dense")),
+               ("moonshot-v1-16b-a3b", 12, ("paged",)),
+               ("h2o-danube-3-4b", 8, ("generate", "int8")),
                ("paligemma-3b", None, ("paged", "image")),
                ("whisper-tiny", None, ("generate",)),
-               ("zamba2-1.2b", None, ("generate",)),
+               ("zamba2-1.2b", 13, ("generate",)),
                ("xlstm-125m", None, ("generate",)))
 #: the reduced h2o-danube-3-4b generates past its 64-token window
 WRAP_PROMPT, WRAP_NEW = 70, 8
@@ -2343,49 +2392,165 @@ def families_phase(card: str):
     return paths, rows
 
 
-def profile_step(trainer, opt_state, top: int = 16):
-    """One more steady coded step (every worker finishing) under
-    ``torch.profiler``, outside the timed steps: the kernels that take the
-    most device time in it. Returns the step's optimizer state."""
+def profile_step(trainer, opt_state, steady_s: float, top: int = 16, tag: str = "train"):
+    """One more steady step (coded: every worker finishing) under
+    ``torch.profiler``'s device activity, outside the timed steps: the
+    kernels that take the most device time in it, B4's share of the
+    device time, and the card's busy share: the summed kernel time over
+    ``steady_s`` (the unprofiled steady step's wall) and over the wall
+    under the profiler. The kernels are read from the profiler's raw
+    events (a step of the xLSTM launches hundreds of thousands). Returns
+    the step's optimizer state."""
+    import collections
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     batch = trainer.data.next_batch()
-    wmask = torch.ones(trainer.executor.num_workers, dtype=torch.bool,
-                       device=trainer.model.device)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        opt_state, _ = trainer.coded_step_fn(opt_state, batch, wmask)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if trainer.executor is None:
+            opt_state, _ = trainer.step_fn(opt_state, batch)
+        else:
+            wmask = torch.ones(trainer.executor.num_workers, dtype=torch.bool,
+                               device=trainer.model.device)
+            opt_state, _ = trainer.coded_step_fn(opt_state, batch, wmask)
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-
-    # device activities (kernels, copies) have device time and no CPU time;
-    # the ops that launched them are left out so nothing counts twice
-    events = sorted((ev for ev in prof.key_averages()
-                     if device_us(ev) > 0 and not ev.self_cpu_time_total),
-                    key=device_us, reverse=True)
-    total = sum(device_us(ev) for ev in events) / 1e3
+        wall = time.perf_counter() - t
+    us, count = collections.Counter(), collections.Counter()
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            us[ev.name()] += ev.duration_ns() / 1e3
+            count[ev.name()] += 1
+    total = sum(us.values()) / 1e3
     if total <= 0:
-        print("[train] profiled step: device time by kernel not measured "
-              "(the profiler recorded no device time)")
+        print(f"[{tag}] profiled step: device time by kernel not measured "
+              f"(the profiler recorded no device time)")
         return opt_state
-    print(f"[train] profiled step (all workers finish): wall {wall:.3f} s under the "
-          f"profiler, device time {total:.1f} ms summed over kernels "
-          f"({total / 1e3 / wall:.3f} of the wall); top {top} by device time:")
-    for ev in events[:top]:
-        ms = device_us(ev) / 1e3
-        print(f"[train]   {ms:9.2f} ms {100 * ms / total:5.1f}%  x{ev.count:<5d} "
-              f"{ev.key[:110]}")
+    print(f"[{tag}] profiled step: device time {total:.1f} ms summed over "
+          f"{sum(count.values())} device events: the card busy {total / 1e3 / steady_s:.3f} "
+          f"of the unprofiled steady step ({steady_s:.3f} s), {total / 1e3 / wall:.3f} of "
+          f"the step under the profiler ({wall:.3f} s; stopped and read in "
+          f"{time.perf_counter() - t - wall:.1f} s); top {top} by device time:")
+    for name, x in us.most_common(top):
+        ms = x / 1e3
+        print(f"[{tag}]   {ms:9.2f} ms {100 * ms / total:5.1f}%  x{count[name]:<7d} {name[:110]}")
+
     def b4_ms(test) -> float:
-        return sum(device_us(ev) for ev in events if test(ev.key)) / 1e3
+        return sum(x for name, x in us.items() if test(name)) / 1e3
 
     fwd = b4_ms(lambda k: "FwdEpi" in k or "combine" in k or "fused_ce_fwd" in k)
     b4 = b4_ms(lambda k: "fused_ce" in k or "gemm_kernel" in k)
-    print(f"[train] profiled step: fused_ce_fwd (GEMM and combine) {fwd:.1f} ms, "
+    print(f"[{tag}] profiled step: fused_ce_fwd (GEMM and combine) {fwd:.1f} ms, "
           f"B4 (forward and backward) {b4:.1f} ms = {100 * b4 / total:.1f}% of "
           f"device time, the rest {total - b4:.1f} ms")
     return opt_state
+
+
+def run_steps(trainer, tag: str, steps: int, tokens: int) -> tuple[dict, dict, list]:
+    """``trainer.run()`` with the launch counters reset just before and read
+    just after: each step's line, the throughput, the peak allocated, the
+    launches; one finite history record a step, B4's forward once a step
+    and each backward once a step not skipped. Returns (counts, opt state,
+    history)."""
+    import torch
+
+    import repro_torch.kernels as kernels
+
+    exe = trainer.executor
+    cuda = trainer.model.device.type == "cuda"
+    kernels.reset_launch_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _, opt_state, hist = trainer.run()
+    counts = kernels.launch_counts()
+    for h, sec in zip(hist, trainer.step_seconds):
+        coded = ("" if exe is None else f" survivors {int(h['survivors'])}/"
+                 f"{exe.num_workers} skipped {int(h['skipped'])}")
+        print(f"[{tag}] step {int(h['step'])}: loss {h['loss']:.6f} accuracy "
+              f"{h['accuracy']:.6f} grad_norm {h['grad_norm']:.6f}{coded} wall {sec:.3f} s")
+    wall = sum(trainer.step_seconds)
+    steady = trainer.step_seconds[1:]
+    print(f"[{tag}] {steps} steps in {wall:.3f} s, {tokens * steps / wall:.1f} "
+          f"tokens/s ({tokens * len(steady) / sum(steady):.1f} after the first step)")
+    if cuda:
+        print(f"[{tag}] max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[{tag}] launches {counts}")
+    skipped = int(sum(h.get("skipped", 0.0) for h in hist))
+    check(len(hist) == steps, f"{tag}: one history record per step")
+    check(all(math.isfinite(h["loss"]) for h in hist), f"{tag}: finite losses")
+    check(counts["fused_ce_fwd"] == steps, f"{tag}: fused_ce_fwd launches == steps")
+    for name in ("fused_ce_bwd_dh", "fused_ce_bwd_de"):
+        check(counts[name] == steps - skipped, f"{tag}: {name} launches == backward runs")
+    return counts, opt_state, hist
+
+
+def erased_round_check(tag: str, model, batch, exe, b_matrix, k: int,
+                       per_partition: bool = False, note: str = "") -> None:
+    """A decodable round with two workers erased (``model`` in float32
+    compute, so bf16 rounding flips can neither hide nor fake an error of
+    the decode): ``weighted_gradient`` with the decoded weights against
+    the full-batch gradient, or with ``per_partition`` against the mean of
+    the k partitions' own gradients (an MoE routes each partition as its
+    own pool, as the reference's vmap does), every leaf within (cond(B_S)
+    + 64) 2^-22 max|g|."""
+    import torch
+
+    from repro_torch.core.gradient_coding import decode_vector_torch
+    from repro_torch.runtime.train_loop import weighted_gradient
+
+    wmask = torch.ones(exe.num_workers, dtype=torch.bool, device=model.device)
+    wmask[:2] = False
+    rows = exe.slot_mask(wmask)
+    a, ok = decode_vector_torch(b_matrix, rows)
+    check(bool(ok), f"{tag}: two erased workers must stay decodable")
+    order = torch.argsort((~rows).to(torch.int8), stable=True)[:k]
+    cond = float(torch.linalg.cond(b_matrix[order].double()))
+    g_coded, _, _ = weighted_gradient(model, batch, (a @ b_matrix) / k, k)
+    params = dict(model.named_parameters())
+    if per_partition:
+        g_plain = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
+        for part in zip(*(batch[key].chunk(k) for key in ("tokens", "labels"))):
+            loss, _ = model.loss_fn(dict(zip(("tokens", "labels"), part)))
+            for n, g in zip(params, torch.autograd.grad(loss, list(params.values()))):
+                g_plain[n] += g.float() / k
+        against = f"the mean of the {k} partitions' own gradients"
+    else:
+        loss, _ = model.loss_fn(batch)
+        g_plain = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        against = "the full-batch gradient"
+    worst = 0.0
+    for name, gp in g_plain.items():
+        scale = float(gp.abs().max())
+        err = float((g_coded[name] - gp).abs().max())
+        worst = max(worst, err / ((cond + 64) * 2.0**-22 * scale))
+    print(f"[{tag}] coded round, 2 workers erased ({int((~rows).sum())} rows), against "
+          f"{against}{note}: max over leaves of |g_coded - g_plain| / ((cond(B_S) + 64) "
+          f"2^-22 max|g_plain|) {worst:.3e} <= 1 (cond {cond:.3e}, f32 compute)")
+    check(worst <= 1.0, f"{tag}: coded gradient disagrees with {against}")
+
+
+def skip_round_check(tag: str, trainer, opt_state) -> None:
+    """A coded round at deadline 0: nobody finishes, and the parameters, m,
+    v and count must stay bit-unchanged."""
+    import torch
+
+    model, exe = trainer.model, trainer.executor
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    m_before = {n: x.clone() for n, x in opt_state["m"].items()}
+    v_before = {n: x.clone() for n, x in opt_state["v"].items()}
+    count = opt_state["count"].clone()
+    new_state, metrics = trainer.coded_step_fn(
+        opt_state, trainer.data.next_batch(), exe.finish_mask(trainer.generator, 0.0))
+    check(float(metrics["skipped"]) == 1.0, f"{tag}: deadline 0 must skip the step")
+    same = all(torch.equal(p, before[n]) for n, p in model.named_parameters())
+    same &= all(torch.equal(new_state["m"][n], m_before[n]) for n in m_before)
+    same &= all(torch.equal(new_state["v"][n], v_before[n]) for n in v_before)
+    same &= bool(torch.equal(new_state["count"], count))
+    print(f"[{tag}] deadline-0 round: skipped, params/m/v/count bit-unchanged: {same}")
+    check(same, f"{tag}: a skipped step changed the parameters or the optimizer state")
 
 
 def train_phase(cfg, device: str = "cuda") -> dict:
@@ -2394,13 +2559,12 @@ def train_phase(cfg, device: str = "cuda") -> dict:
 
     import torch
 
-    import repro_torch.kernels as kernels
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.runtime_model import ClusterSpec
     from repro_torch.data import SyntheticLMData
     from repro_torch.models.model import Model
     from repro_torch.optim import AdamWConfig
-    from repro_torch.runtime.train_loop import TrainConfig, Trainer, weighted_gradient
+    from repro_torch.runtime.train_loop import TrainConfig, Trainer
 
     shape = ShapeConfig("smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
     t = time.perf_counter()
@@ -2418,85 +2582,271 @@ def train_phase(cfg, device: str = "cuda") -> dict:
           f"{TRAIN_BATCH} x {TRAIN_SEQ}; grad_coding k {PARTITIONS}, n {exe.n}, "
           f"loads {exe.plan.loads_per_worker.tolist()}, deadline {exe.deadline:.6f} "
           f"(set-up {time.perf_counter() - t:.1f} s)")
+    counts, opt_state, _ = run_steps(trainer, "train", TRAIN_STEPS, TRAIN_BATCH * TRAIN_SEQ)
+    if model.device.type == "cuda":
+        steady = trainer.step_seconds[1:]
+        opt_state = profile_step(trainer, opt_state, sum(steady) / len(steady))
 
-    kernels.reset_launch_counts()
-    if model.device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    _, opt_state, hist = trainer.run()
-    counts = kernels.launch_counts()
-    for h, sec in zip(hist, trainer.step_seconds):
-        print(f"[train] step {int(h['step'])}: loss {h['loss']:.6f} accuracy "
-              f"{h['accuracy']:.6f} grad_norm {h['grad_norm']:.6f} survivors "
-              f"{int(h['survivors'])}/{exe.num_workers} skipped {int(h['skipped'])} "
-              f"wall {sec:.3f} s")
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    wall = sum(trainer.step_seconds)
-    steady = trainer.step_seconds[1:]
-    print(f"[train] {TRAIN_STEPS} steps in {wall:.3f} s, {tokens * TRAIN_STEPS / wall:.1f} "
-          f"tokens/s ({tokens * len(steady) / sum(steady):.1f} after the first step)")
-    if model.device.type == "cuda":
-        print(f"[train] max_memory_allocated "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"[train] launches {counts}")
-    skipped = int(sum(h["skipped"] for h in hist))
-    check(len(hist) == TRAIN_STEPS, "one history record per step")
-    check(all(math.isfinite(h["loss"]) for h in hist), "finite losses")
-    check(counts["fused_ce_fwd"] == TRAIN_STEPS, "fused_ce_fwd launches == steps")
-    for name in ("fused_ce_bwd_dh", "fused_ce_bwd_de"):
-        check(counts[name] == TRAIN_STEPS - skipped, f"{name} launches == backward runs")
-    if model.device.type == "cuda":
-        opt_state = profile_step(trainer, opt_state)
-
-    # a decodable round with two workers erased, against the plain
-    # full-batch gradient; float32 compute, so bf16 rounding flips cannot
-    # hide or fake an error of the decode
-    k = PARTITIONS
     m32 = Model(dataclasses.replace(cfg, compute_dtype="float32"), device=device, seed=0)
     batch = SyntheticLMData(cfg, shape, seed=0, device=device).next_batch()
-    wmask = torch.ones(exe.num_workers, dtype=torch.bool, device=model.device)
-    wmask[:2] = False
-    rows = exe.slot_mask(wmask)
-    from repro_torch.core.gradient_coding import decode_vector_torch
-
-    a, ok = decode_vector_torch(trainer.b_matrix, rows)
-    check(bool(ok), "two erased workers must stay decodable")
-    order = torch.argsort((~rows).to(torch.int8), stable=True)[:k]
-    cond = float(torch.linalg.cond(trainer.b_matrix[order].double()))
-    g_coded, _, _ = weighted_gradient(m32, batch, (a @ trainer.b_matrix) / k, k)
-    loss, _ = m32.loss_fn(batch)
-    params = dict(m32.named_parameters())
-    g_plain = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-    worst = 0.0
-    for name, gp in g_plain.items():
-        scale = float(gp.abs().max())
-        err = float((g_coded[name] - gp).abs().max())
-        worst = max(worst, err / ((cond + 64) * 2.0**-22 * scale))
-    print(f"[train] coded round, 2 workers erased ({int((~rows).sum())} rows): max over "
-          f"leaves of |g_coded - g_plain| / ((cond(B_S) + 64) 2^-22 max|g_plain|) "
-          f"{worst:.3e} <= 1 (cond {cond:.3e}, f32 compute)")
-    check(worst <= 1.0, "coded gradient disagrees with the full-batch gradient")
-    del m32, g_coded, g_plain, params, loss
+    erased_round_check("train", m32, batch, exe, trainer.b_matrix, PARTITIONS)
+    del m32, batch
     if model.device.type == "cuda":
         torch.cuda.empty_cache()
-
-    # a round at deadline 0: nobody finishes, nothing may change
-    before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    m_before = {n: x.clone() for n, x in opt_state["m"].items()}
-    v_before = {n: x.clone() for n, x in opt_state["v"].items()}
-    count = opt_state["count"].clone()
-    new_state, metrics = trainer.coded_step_fn(
-        opt_state, trainer.data.next_batch(), exe.finish_mask(trainer.generator, 0.0))
-    check(float(metrics["skipped"]) == 1.0, "deadline 0 must skip the step")
-    same = all(torch.equal(p, before[n]) for n, p in model.named_parameters())
-    same &= all(torch.equal(new_state["m"][n], m_before[n]) for n in m_before)
-    same &= all(torch.equal(new_state["v"][n], v_before[n]) for n in v_before)
-    same &= bool(torch.equal(new_state["count"], count))
-    print(f"[train] deadline-0 round: skipped, params/m/v/count bit-unchanged: {same}")
-    check(same, "a skipped step changed the parameters or the optimizer state")
+    skip_round_check("train", trainer, opt_state)
     return counts
 
 
-def main() -> int:
+#: [train-families]: each config, the depth kept (None: the config's own),
+#: its batch x seq (B4 is held at batch x seq tokens) and whether it
+#: trains coded (vlm and audio batches carry extras, which the coded step
+#: refuses: they train plain). whisper's decoder context is 448; zamba2's
+#: 512 is two SSD chunks of 256. The MoE's 48 layers would need 443 GB of
+#: training state: 4 are kept.
+TRAIN_FAMILY_RUNS = (("whisper-tiny", None, 8, 448, False),
+                     ("xlstm-125m", None, 8, 512, True),
+                     ("zamba2-1.2b", None, 8, 512, True),
+                     ("paligemma-3b", None, 8, 512, False),
+                     ("granite-3-2b", None, 8, 512, True),
+                     ("moonshot-v1-16b-a3b", 4, 8, 512, True))
+#: the sequence the steps run at where it is cut: an xlstm-125m step is the
+#: Python time loops of its 12 cells, about 0.03 s of host time a position
+#: with the cells checkpointed (8 x 512: 19-23 s a step), so its steps run
+#: 8 x 64 at full width and depth
+TF_SEQ_CUT = {"xlstm-125m": 64}
+TF_STEPS, TF_PARTITIONS = 3, 8
+#: the configs whose steady step is also profiled
+TF_PROFILED = ("zamba2-1.2b", "xlstm-125m")
+#: the reduced erased-round check's batch x seq (a multiple of the reduced
+#: mamba chunk, 16; one row a partition)
+TF_REDUCED_SEQ = 32
+EXTRAS_REFUSAL = "coded training does not partition family extras yet"
+
+
+def extras_data(cfg, shape):
+    """``SyntheticLMData`` whose vlm or audio batches carry seeded random
+    extras in place of ``make_extras``' zero stubs: zero image embeddings
+    stay exactly zero through every layer, and each RMSNorm of a zero row
+    scales its gradient by 1 / sqrt(eps) = 1,000, so paligemma-3b's 18
+    layers overflow float32 (the reference's stub does the same)."""
+    import torch
+
+    from repro_torch.data import SyntheticLMData
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    class Data(SyntheticLMData):
+        def next_batch(self):
+            batch = super().next_batch()
+            if "extras" in batch:
+                batch["extras"] = {k: torch.randn(v.shape, generator=gen, device=v.device)
+                                   .to(v.dtype) for k, v in batch["extras"].items()}
+            return batch
+
+    return Data(cfg, shape, seed=0, device="cuda")
+
+
+def zero_stub_report(tag: str, model, batch) -> None:
+    """``make_extras``' stubs on the card (zeros of the compute dtype, on the
+    model's device, the batch's rows) and one plain gradient of a batch
+    carrying them: its non-finite leaves are reported, not required."""
+    import torch
+
+    from repro_torch.data.pipeline import make_extras
+
+    c = model.config
+    stub = make_extras(c, batch["tokens"].shape[0], device=model.device)
+    shapes = {k: tuple(v.shape) for k, v in stub.items()}
+    ok = all(v.dtype == c.cdtype and v.device.type == model.device.type
+             and not bool(v.any()) for v in stub.values())
+    check(ok, f"{tag}: make_extras gives zeros of the compute dtype on the card")
+    loss, _ = model.loss_fn({**batch, "extras": stub})
+    params = dict(model.named_parameters())
+    bad = [n for n, g in zip(params, torch.autograd.grad(loss, list(params.values())))
+           if not bool(torch.isfinite(g).all())]
+    print(f"[{tag}] make_extras on the card: {shapes}, zeros, {c.cdtype}; a plain gradient "
+          f"with these stubs: loss {float(loss.detach()):.6f}, {len(bad)}/{len(params)} "
+          f"leaves not finite {bad[:4]} (reported, not required)")
+
+
+def train_family(name: str, depth, batch: int, seq: int, coded: bool, card: str):
+    """One [train-families] config: B4 at its (batch x seq, V, D) against
+    plain and timed; the model (seeded, f32 parameters, bf16 compute)
+    trained TF_STEPS steps on the serve fleet (coded: ``grad_coding`` k
+    TF_PARTITIONS; at TF_SEQ_CUT's sequence where it is cut; vlm and
+    audio on seeded random extras, after ``zero_stub_report`` and a coded
+    trainer's refusal), counters reset before and read after; the profiled
+    steady step (TF_PROFILED); for a coded config the erased round (at
+    full width where B4's f32 kernels take D, else on the reduced config's
+    f32 model) and the deadline-0 round. Returns (launch counts, B4 rows,
+    (wall, peak GiB))."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.runtime_model import ClusterSpec
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels.fused_ce.ops import MAX_D
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train_loop import TrainConfig, Trainer
+
+    cfg = get_arch(name)
+    tag = f"train-families {name}"
+    if depth is not None:
+        print(f"[{tag}] depth cut {cfg.num_layers} -> {depth} layers (full width)")
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    rows = fused_ce_phase(batch * seq, cfg.vocab_size, cfg.d_model, tag=tag, stages=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = make_model(cfg, tag=tag)
+    if name in TF_SEQ_CUT:
+        print(f"[{tag}] sequence cut {seq} -> {TF_SEQ_CUT[name]} for the steps (full width "
+              f"and depth; B4 held above at {batch * seq} tokens)")
+        seq = TF_SEQ_CUT[name]
+    data = extras_data(cfg, ShapeConfig("smoke", seq, batch, "train"))
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TF_STEPS)
+
+    def trainer(coded_run: bool):
+        return Trainer(model, data, opt, TrainConfig(
+            steps=TF_STEPS, log_every=1, scheme="grad_coding", deadline_safety=3.0,
+            cluster=ClusterSpec.make(*CLUSTER) if coded_run else None,
+            partitions=TF_PARTITIONS if coded_run else None))
+
+    if cfg.family in ("vlm", "audio"):
+        zero_stub_report(tag, model, data.next_batch())
+        message = None
+        try:
+            trainer(True).run()
+        except NotImplementedError as err:
+            message = str(err)
+        print(f"[{tag}] coded Trainer.run(): NotImplementedError({message!r})")
+        check(message == EXTRAS_REFUSAL, f"{tag}: coded training must refuse the extras")
+    tr = trainer(coded)
+    mode = (f"grad_coding k {TF_PARTITIONS}, n {tr.executor.n}, loads "
+            f"{tr.executor.plan.loads_per_worker.tolist()}" if coded else "plain")
+    print(f"[{tag}] {model.param_count() / 1e9:.3f} B params, {cfg.family}, batch "
+          f"{batch} x {seq}, {mode}; B4 at (T {batch * seq}, V {cfg.vocab_size}, "
+          f"D {cfg.d_model})")
+    counts, opt_state, _ = run_steps(tr, tag, TF_STEPS, batch * seq)
+    result = (sum(tr.step_seconds), torch.cuda.max_memory_allocated() / 2**30)
+    if name in TF_PROFILED:
+        steady = tr.step_seconds[1:]
+        opt_state = profile_step(tr, opt_state, sum(steady) / len(steady), tag=tag)
+    if coded:
+        k = TF_PARTITIONS
+        moe = cfg.family == "moe"
+        if cfg.d_model <= MAX_D:
+            erased_round_check(tag, with_config(model, compute_dtype="float32"),
+                               data.next_batch(), tr.executor, tr.b_matrix, k, moe,
+                               " (full width)")
+        else:
+            small = Model(cfg.reduced(), device="cuda", seed=0)
+            sbatch = SyntheticLMData(cfg.reduced(), ShapeConfig("smoke", TF_REDUCED_SEQ, batch,
+                                                                 "train"),
+                                     seed=0, device="cuda").next_batch()
+            erased_round_check(tag, small, sbatch, tr.executor, tr.b_matrix, k, moe,
+                               f" (the reduced config, {TF_REDUCED_SEQ} tokens a row: "
+                               f"B4's f32 kernels refuse D {cfg.d_model} > {MAX_D})")
+            del small, sbatch
+        skip_round_check(tag, tr, opt_state)
+    del model, data, tr, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    print(f"[{tag}] wall of the {TF_STEPS} steps {result[0]:.3f} s, peak {result[1]:.2f} GiB "
+          f"allocated; {card}")
+    check(after <= before + (64 << 20), f"{tag}: the model's memory was not freed "
+                                        f"({before} -> {after} bytes)")
+    return counts, rows, result
+
+
+def train_family_reduced(card: str) -> None:
+    """Each reduced vlm, audio, hybrid and ssm config (REDUCED_RUNS, float32)
+    with the same weights on the card and on the CPU: one plain step's loss
+    and every gradient leaf of ``loss_fn`` (seeded tokens, some labels
+    masked, seeded extras) within 2e-4 |want| + max(2e-6, 2e-5
+    max|want|) (the CPU parity tests' tolerance). The only run of the
+    SSD's and the xLSTM's backward at a shape the CPU can check."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+
+    for name, changes in REDUCED_RUNS:
+        cfg = dataclasses.replace(get_arch(name).reduced(), **changes)
+        cpu = Model(cfg, device="cpu", seed=0)
+        card_model = Model(cfg, device="cuda", seed=0)
+        card_model.load_state_dict(cpu.state_dict())
+        gen = torch.Generator().manual_seed(8)
+        toks = torch.randint(0, cfg.vocab_size, (2, REDUCED_SEQ + 1), dtype=torch.int32,
+                             generator=gen)
+        labels = toks[:, 1:].clone()
+        labels[0, :5] = -1
+        batch = {"tokens": toks[:, :-1].contiguous(), "labels": labels}
+        key = {"vlm": "image_embeds", "audio": "frames"}.get(cfg.family)
+        if key is not None:
+            length = cfg.num_image_tokens if key == "image_embeds" else cfg.encoder_seq
+            batch["extras"] = {key: torch.randn((2, length, cfg.d_model), generator=gen)}
+        runs = []
+        for m in (card_model, cpu):
+            on = {k: ({n: x.to(m.device) for n, x in v.items()} if k == "extras"
+                      else v.to(m.device)) for k, v in batch.items()}
+            loss, _ = m.loss_fn(on)
+            params = dict(m.named_parameters())
+            grads = torch.autograd.grad(loss, list(params.values()))
+            runs.append((float(loss.detach()), {n: g.cpu() for n, g in zip(params, grads)}))
+        (loss, got), (want_loss, want) = runs
+        worst, leaf = 0.0, ""
+        for n, w in want.items():
+            lim = 2e-4 * w.abs() + max(2e-6, 2e-5 * float(w.abs().max()))
+            ratio = float(((got[n] - w).abs() / lim).max())
+            if ratio > worst:
+                worst, leaf = ratio, n
+        finite = all(bool(torch.isfinite(g).all()) for g in got.values())
+        note = f", {changes}" if changes else ""
+        print(f"[train-families] reduced {cfg.name} ({cfg.family}{note}): loss card "
+              f"{loss:.7f} CPU {want_loss:.7f}; {len(want)} gradient leaves card against "
+              f"CPU, worst |d| / (2e-4 |want| + max(2e-6, 2e-5 max|want|)) {worst:.3f} "
+              f"({leaf}); finite {finite} ({card})")
+        check(finite, f"reduced {name}: non-finite gradients on the card")
+        check(abs(loss - want_loss) <= 2e-4 * abs(want_loss) + 2e-6,
+              f"reduced {name}: the loss on the card disagrees with the CPU")
+        check(worst <= 1.0, f"reduced {name}: the card's gradients disagree with the CPU's")
+        del cpu, card_model
+
+
+def train_families_phase(card: str):
+    """[train-families]: every TRAIN_FAMILY_RUNS config (``train_family``),
+    one model on the card at a time, then the reduced vlm, audio, hybrid
+    and ssm configs' gradients card against CPU. Returns the paths' launch
+    counts and B4's rows by config."""
+    paths, rows = {}, {}
+    for name, depth, batch, seq, coded in TRAIN_FAMILY_RUNS:
+        counts, rows[name], _ = train_family(name, depth, batch, seq, coded, card)
+        paths[f"train_families_{name}"] = counts
+    train_family_reduced(card)
+    return paths, rows
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port on one H100 (no arguments: "
+                                             "every phase).")
+    ap.add_argument("--train-family", metavar="ARCH",
+                    choices=[run[0] for run in TRAIN_FAMILY_RUNS],
+                    help="build the kernels and run only this [train-families] config")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="with --train-family: the steps' sequence (default: the phase's)")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -2513,6 +2863,16 @@ def main() -> int:
     print(f"[setup] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t_setup = time.perf_counter()
     setup()
+    if args.train_family:
+        name, depth, batch, seq, coded = next(run for run in TRAIN_FAMILY_RUNS
+                                              if run[0] == args.train_family)
+        if args.seq is not None:
+            TF_SEQ_CUT.pop(name, None)
+            if args.seq != seq:
+                TF_SEQ_CUT[name] = args.seq
+        train_family(name, depth, batch, seq, coded, card)
+        print(card)
+        return 0
     kb = -(-151_936 // 256)
     plan = deploy(make_scheme("optimal"), ClusterSpec.make(*CLUSTER), kb)
     rows = kernel_phase(plan.n, kb)
@@ -2547,17 +2907,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         jsonl = str(Path(tmp) / "cli.jsonl")
+        serve = ["repro_torch.launch.serve", "--arch", "qwen3-0.6b", "--coded"]
+        # 2 steps of 8 x 32 (an xlstm-125m position is ~0.03 s of host time)
+        train = ["repro_torch.launch.train", "--steps", "2", "--seq-len", "32", "--batch",
+                 "8", "--hetero-groups", "6:8.0,6:0.7", "--arch"]
         cli_phase([
-            (["--scheme", "uniform_r", "--scheme-r", "10", "--max-new", "4"],
-             ["coded LM head [uniform_r_group_code]: kb=594", "generated (4, 20)"]),
-            (["--scenario", "churn", "--adapt-every", "2", "--rounds", "12",
-              "--max-new", "4"],
+            (serve + ["--scheme", "uniform_r", "--scheme-r", "10", "--max-new", "4"],
+             ["coded LM head [uniform_r_group_code]: kb=594", "generated (4, 20)"], True),
+            (serve + ["--scenario", "churn", "--adapt-every", "2", "--rounds", "12",
+                      "--max-new", "4"],
              ["coded LM head [optimal]: kb=594", "[round 3] replanned (membership)",
               "[round 9] replanned (membership)", "scenario 'churn': 12 rounds",
-              "controller: 6 decisions"]),
-            (["--trace", "poisson", "--num-requests", "8", "--slots", "auto", "--telemetry",
-              jsonl, "--chrome-trace", str(Path(tmp) / "cli.trace.json"), "--max-new", "4"],
-             ["slots auto -> ", "chrome trace: ", "served 8 (0 shed)"]),
+              "controller: 6 decisions"], True),
+            (serve + ["--trace", "poisson", "--num-requests", "8", "--slots", "auto",
+                      "--telemetry", jsonl, "--chrome-trace",
+                      str(Path(tmp) / "cli.trace.json"), "--max-new", "4"],
+             ["slots auto -> ", "chrome trace: ", "served 8 (0 shed)"], True),
+            (train + ["xlstm-125m"],
+             ["training xlstm-125m: ", "coded training: scheme=grad_coding k=8", "loss "],
+             True),
+            (train + ["whisper-tiny"], [EXTRAS_REFUSAL], False),
         ])
         obsreport_cli(jsonl)
     lap("cli")
@@ -2569,6 +2938,11 @@ def main() -> int:
     lap("train")
     paths.update(train_adapt_phase(get_arch("qwen3-0.6b")))
     lap("train-adapt")
+    tf_paths, tf_rows = train_families_phase(card)
+    paths.update(tf_paths)
+    for name, r in tf_rows.items():
+        fam_rows.setdefault(name, {}).update(r)
+    lap("train-families")
 
     import repro_torch.kernels as kernels
 
@@ -2587,7 +2961,8 @@ def main() -> int:
                 "library_device_ms": r.get("library_device_ms")}
 
     # each kernel's main-path launches: serving (B1-B3) or training (B4);
-    # every path's beside them; B1 and B3 also at Path M's shapes
+    # every path's beside them; B1 and B3 also at Path M's shapes; by
+    # config, B1-B3 at [families]' shapes and B4 at [train-families]' shapes
     line = {"kernels": []}
     for k in kernels.KERNELS:
         main_path = "train" if k.name.startswith("fused_ce") else "serve"

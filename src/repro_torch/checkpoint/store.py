@@ -9,8 +9,9 @@ believes complete checkpoints.
 The port's state is a flat ``{path: tensor}`` dict whose paths are the
 reference tree's ("params/blocks/attn/wq", "opt/m/embed/table",
 "opt/count", ...). Leaves are written in the order the reference's
-``jax.tree_util`` flattens its nested dicts (keys sorted at every
-level), so a checkpoint written by either package restores in the other.
+``jax.tree_util`` flattens its tree (dict keys sorted at every level,
+list entries in index order), so a checkpoint written by either package
+restores in the other.
 bfloat16 leaves are stored as a uint16 view, as the reference stores them.
 """
 from __future__ import annotations
@@ -26,8 +27,11 @@ import torch
 
 
 def tree_order(names) -> list[str]:
-    """Paths in the reference's flatten order (sorted key by key)."""
-    return sorted(names, key=lambda n: tuple(n.split("/")))
+    """Paths in the reference's flatten order, component by component: a
+    dict's keys sorted, a list's entries (the xLSTM's ``blocks/<i>``) in
+    index order, so ``blocks/10`` follows ``blocks/9``."""
+    return sorted(names, key=lambda n: tuple((0, int(c), "") if c.isdigit() else (1, 0, c)
+                                             for c in n.split("/")))
 
 
 def _to_numpy(t) -> tuple[np.ndarray, str]:

@@ -1,10 +1,11 @@
 """Training entry point: ``python -m repro_torch.launch.train --arch qwen3-0.6b ...``
 
 Counterpart of ``repro/launch/train.py``: trains the port's model (any
-registered dense or moe config; another family exits non-zero with
-``Trainer``'s refusal, which names it) on the synthetic pipeline, on the
-card unless ``--device cpu``. Supports checkpoint/restart (``--resume``
-picks up the latest step) and coded execution: ``--hetero-groups`` plans
+registered config, every family; vlm and audio batches carry extras, so
+their coded training exits non-zero with the reference's message at the
+first step) on the synthetic pipeline, on the card unless ``--device
+cpu``. Supports checkpoint/restart (``--resume`` picks up the latest
+step) and coded execution: ``--hetero-groups`` plans
 a straggler fleet and runs gradient-coded training (``--scheme``, any
 registered allocation scheme, ``grad_coding`` by default). ``--scenario``
 drifts the true fleet over the run, ``--adapt-every`` replans against it
@@ -126,10 +127,7 @@ def main(argv=None):
         bucket_quantum=args.bucket_quantum,
         measure_times=args.measure_times,
     )
-    try:
-        trainer = Trainer(model, data, opt_cfg, cfg)
-    except NotImplementedError as err:  # a family the port does not train yet
-        raise SystemExit(str(err)) from None
+    trainer = Trainer(model, data, opt_cfg, cfg)
     print(f"training {config.name}: {model.param_count():,} params on {model.device}")
     if trainer.executor is not None:
         plan = trainer.executor.plan
@@ -141,7 +139,10 @@ def main(argv=None):
         print(f"adaptive control: every {cfg.adapt_every} steps, "
               f"threshold {cfg.adapt_threshold:.0%}"
               + (f", scenario={args.scenario}" if args.scenario else ""))
-    _, _, history = trainer.run()
+    try:
+        _, _, history = trainer.run()
+    except NotImplementedError as err:  # coded training of a batch with extras
+        raise SystemExit(str(err)) from None
     if history:
         first, last = history[0], history[-1]
         print(f"loss {first['loss']:.4f} -> {last['loss']:.4f} ({cfg.steps} steps)")

@@ -49,8 +49,11 @@ sliding windows, as the reference's. The parameters are trainable:
 ``hidden`` runs the training forward (causal chunked attention,
 windowed and block-skipped as the config says, each layer under
 ``torch.utils.checkpoint`` when ``config.remat``, as the reference's
-``jax.checkpoint``), and ``loss_fn`` takes the cross entropy through the
-B4 fused kernel on the card, so no (T, V) logits are materialized.
+``jax.checkpoint``; the xLSTM's cells too, which the reference leaves
+out: an mLSTM scan saves each step's (B, H, hd, hd) memory for its
+backward, at least 19 GB a layer at xlstm-125m's 8 x 512), and
+``loss_fn`` takes the cross entropy through the B4 fused kernel on the
+card, so no (T, V) logits are materialized.
 ``lm_logits`` is the materialized oracle.
 """
 from __future__ import annotations
@@ -319,15 +322,16 @@ class Model(nn.Module):
     def _mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
         return L.mlp(p.get("w_gate"), p["w_up"], p["w_down"], x)
 
-    def _ffn(self, p: dict, h: torch.Tensor) -> torch.Tensor:
-        """The FFN sublayer of layer params ``p`` on h: the MLP, or routed experts."""
+    def _ffn(self, p: dict, h: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        """The FFN sublayer of layer params ``p`` on h: the MLP, or routed
+        experts (in ``groups`` routing pools of the batch's rows)."""
         c = self.config
         x = L.rmsnorm(p["ln2"], h)
         if c.family == "moe":
             return moe_ffn({"w_router": p["w_router"], "w_gate": p["expert_gate"],
                             "w_up": p["expert_up"], "w_down": p["expert_down"]}, x,
                            num_experts=c.num_experts, top_k=c.top_k,
-                           capacity_factor=c.capacity_factor)
+                           capacity_factor=c.capacity_factor, groups=groups)
         return self._mlp(p, x)
 
     def _mamba(self, p: dict, x: torch.Tensor, state: dict | None = None):
@@ -398,9 +402,9 @@ class Model(nn.Module):
                          host_positions=host_positions, **kw)
 
     def _block(self, p: dict, x: torch.Tensor, positions: torch.Tensor,
-               host_positions: np.ndarray) -> torch.Tensor:
+               host_positions: np.ndarray, groups: int = 1) -> torch.Tensor:
         h = x + self._full_attention(p, x, positions, host_positions)
-        return h + self._ffn(p, h)
+        return h + self._ffn(p, h, groups)
 
     def _hybrid_layer(self, p: dict, shared: dict | None, x: torch.Tensor,
                       positions: torch.Tensor, host_positions: np.ndarray) -> torch.Tensor:
@@ -437,12 +441,15 @@ class Model(nn.Module):
             x = self._remat(self._enc_block, _sub(p, "enc_"), x, positions)
         return L.layernorm(self.enc_norm, self.enc_norm_bias, x)
 
-    def hidden(self, tokens: torch.Tensor, extras: dict | None = None) -> torch.Tensor:
+    def hidden(self, tokens: torch.Tensor, extras: dict | None = None,
+               groups: int = 1) -> torch.Tensor:
         """(B, S) tokens -> (B, S, D) final-normed hidden states, compute dtype.
 
         ``extras``: vlm ``{"image_embeds": (B, T_img, D)}`` (prepended,
         causal over image and text, its rows dropped after); audio
-        ``{"frames": (B, enc_S, D)}`` (run through ``encode``).
+        ``{"frames": (B, enc_S, D)}`` (run through ``encode``). ``groups``:
+        an MoE layer routes each of ``groups`` blocks of B / groups rows
+        as its own pool (every other layer is row-wise already).
         """
         c = self.config
         x = L.embed(self.embed, tokens, c.cdtype)
@@ -464,7 +471,7 @@ class Model(nn.Module):
         host = np.arange(s)
         if c.family == "ssm":
             for i in range(c.num_layers):
-                x = x + self._cell(i, x)
+                x = x + self._remat(self._cell, i, x)
         elif c.family == "hybrid":
             shared, every = self._shared(), max(c.attn_every, 1)
             for i, p in enumerate(self._per_layer("blocks")):
@@ -472,7 +479,7 @@ class Model(nn.Module):
                                 x, positions, host)
         else:
             for p in self._per_layer("blocks"):
-                x = self._remat(self._block, p, x, positions, host)
+                x = self._remat(self._block, p, x, positions, host, groups)
         return self._final_norm(x[:, t_img:])
 
     def lm_logits(self, tokens: torch.Tensor, extras: dict | None = None) -> torch.Tensor:
@@ -481,14 +488,15 @@ class Model(nn.Module):
         return self._mask_pad_logits(L.unembed(self.embed, x, self.config.ldtype))
 
     def token_ce(self, tokens: torch.Tensor, labels: torch.Tensor,
-                 extras: dict | None = None):
+                 extras: dict | None = None, groups: int = 1):
         """Per-token (lse, ll, argmax) of the tied head, flattened to (B*S,).
 
         Through ``fused_ce`` (B4 on the card): the first ``vocab_size``
         rows of the table, rounded to the compute dtype as ``unembed``
         rounds them; the padded rows would contribute exactly nothing.
+        ``groups``: the MoE routing pools (``hidden``).
         """
-        x = self.hidden(tokens, extras)
+        x = self.hidden(tokens, extras, groups)
         h = x.reshape(-1, x.shape[-1])
         table = self.embed[: self.config.vocab_size].to(h.dtype)
         return fused_ce(h.contiguous(), table.contiguous(), labels.reshape(-1))

@@ -3,9 +3,12 @@
 Counterpart of ``repro/optim/adamw.py``: functions on a ``{name: tensor}``
 dict (not ``torch.optim.AdamW``), so the step is the reference's
 arithmetic, term for term. The optimizer state is ``{"m": {...},
-"v": {...}, "count": int32 tensor}``. ``adamw_update`` returns new
-tensors and leaves its inputs untouched, so a caller can keep the old
-state (the coded trainer's skip step keeps it bit for bit).
+"v": {...}, "count": int32 tensor}``. ``adamw_update`` writes the new
+values into the parameters and the state's ``m`` and ``v``, leaf by leaf,
+so an update holds one leaf's temporaries beside the state instead of a
+second copy of the parameters and both moments (granite-3-2b: 30 GB);
+the reference returns new arrays. A caller that must keep the old state
+does not call it: the coded trainer's skip step keeps it bit for bit so.
 """
 from __future__ import annotations
 
@@ -58,7 +61,9 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: dict, opt_state: dict, params: dict):
-    """One AdamW step. Returns (new_params, new_opt_state, metrics).
+    """One AdamW step, in place. Returns (params, new_opt_state, metrics):
+    ``params``' tensors and the state's ``m`` and ``v`` hold the new
+    values; ``count`` is a new tensor.
 
     Weight decay applies where ``p.ndim >= 2``, as the reference's; the
     port's stacked layer shapes equal the reference's, so the stacked
@@ -80,6 +85,6 @@ def adamw_update(cfg: AdamWConfig, grads: dict, opt_state: dict, params: dict):
         step = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
         if p.ndim >= 2:
             step = step + cfg.weight_decay * p.float()
-        new_p[n] = (p.float() - lr * step).to(p.dtype)
-        new_m[n], new_v[n] = m32.to(m.dtype), v32.to(v.dtype)
+        new_p[n] = p.copy_(p.float() - lr * step)
+        new_m[n], new_v[n] = m.copy_(m32), v.copy_(v32)
     return new_p, {"m": new_m, "v": new_v, "count": count}, {"grad_norm": gnorm, "lr": lr}

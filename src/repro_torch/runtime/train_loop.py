@@ -14,12 +14,15 @@ inject the reference's). The mask and the decode vector do not depend on
 the gradients, so the step samples the mask first, solves ``a``, forms
 ``w = a B`` and runs ONE backward of ``sum_p (w_p / k) loss_p``. By
 linearity that equals the reference's vmapped per-partition gradients
-contracted with ``w / k``, without k gradient copies. When fewer than k
+contracted with ``w / k``, without k gradient copies; an MoE layer routes
+each partition as its own pool (``Model.token_ce(groups=k)``), as the
+vmap does, so its capacity drops are the reference's. When fewer than k
 rows survive, the backward is not run and the parameters, m, v and
 ``count`` stay bit-unchanged.
 
-Parameters live in the ``Model`` (updated in place after each step); the
-optimizer state is the dict of ``optim/adamw.py``.
+Parameters live in the ``Model``; the optimizer state is the dict of
+``optim/adamw.py``. A step updates both in place, leaf by leaf
+(``adamw_update``), so no second copy of either is held.
 
 Cluster dynamics close the loop as in the reference: ``scenario`` drifts
 the true fleet over the run (the finish masks draw from it, the plan
@@ -45,7 +48,7 @@ from repro_torch.core.gradient_coding import assignment_matrix, decode_vector_to
 from repro_torch.core.runtime_model import ClusterSpec
 from repro_torch.core.schemes import AllocationScheme
 from repro_torch.models import layers as L
-from repro_torch.models.model import JAX_NAMES, Model
+from repro_torch.models.model import Model, jax_path
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.obs.trace import SpanTracer
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
@@ -161,8 +164,7 @@ def make_train_step_fn(model: Model, opt_cfg: AdamWConfig):
         params = _params(model)
         loss, metrics = model.loss_fn(batch)
         grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-        new_p, opt_state, opt_metrics = adamw_update(opt_cfg, grads, opt_state, params)
-        _load_params(model, new_p)
+        _, opt_state, opt_metrics = adamw_update(opt_cfg, grads, opt_state, params)
         return opt_state, {**metrics, **opt_metrics}
 
     return train_step
@@ -185,11 +187,13 @@ def weighted_gradient(model: Model, batch: dict, weights: torch.Tensor, partitio
     """Gradient of ``sum_p weights[p] loss_p`` in one forward and one backward.
 
     Returns (grads {name: tensor}, loss_p, accuracy_p); with ``weights =
-    a^T B / k`` this is the coded aggregate ``sum_i a_i g~_i / k``.
+    a^T B / k`` this is the coded aggregate ``sum_i a_i g~_i / k``. An MoE
+    layer routes each partition as its own pool (``groups=partitions``),
+    as the reference's per-partition gradients do.
     """
     params = _params(model)
     with torch.enable_grad():
-        lse, ll, am = model.token_ce(batch["tokens"], batch["labels"])
+        lse, ll, am = model.token_ce(batch["tokens"], batch["labels"], groups=partitions)
         loss_p, acc_p = partition_losses(lse, ll, am, batch["labels"], partitions)
         objective = (weights.detach() * loss_p).sum()
         grads = torch.autograd.grad(objective, list(params.values()))
@@ -205,24 +209,26 @@ def make_coded_train_step_fn(model: Model, opt_cfg: AdamWConfig,
     ``executor.slot_mask`` gathers it to ``b_matrix``'s rows (in bucket
     mode the slot capacity's, padding rows never alive). The parameters are
     updated in place unless the round is undecodable; then only the
-    forward runs (for the metrics).
+    forward runs (for the metrics). A batch with family ``extras`` (vlm,
+    audio) raises the reference's ``NotImplementedError``.
     """
     b_mat = b_matrix.to(torch.float32)
 
     def coded_step(opt_state, batch, worker_mask):
+        if batch.get("extras") is not None:
+            raise NotImplementedError("coded training does not partition family extras yet")
         row_alive = executor.slot_mask(worker_mask)
         a, ok = decode_vector_torch(b_mat, row_alive)
         if bool(ok):
             w_part = (a @ b_mat) / partitions  # (k,), 1/k each up to the solve
             grads, loss_p, acc_p = weighted_gradient(model, batch, w_part, partitions)
-            params = _params(model)
-            new_p, opt_state, opt_metrics = adamw_update(opt_cfg, grads, opt_state, params)
-            _load_params(model, new_p)
+            _, opt_state, opt_metrics = adamw_update(opt_cfg, grads, opt_state, _params(model))
         else:
             # fewer than k coded rows: skip (params, m, v, count unchanged);
             # the reference reports its zero aggregate's norm and next lr
             with torch.no_grad():
-                lse, ll, am = model.token_ce(batch["tokens"], batch["labels"])
+                lse, ll, am = model.token_ce(batch["tokens"], batch["labels"],
+                                             groups=partitions)
             loss_p, acc_p = partition_losses(lse, ll, am, batch["labels"], partitions)
             opt_metrics = {"grad_norm": torch.zeros((), device=lse.device),
                            "lr": cosine_schedule(opt_cfg, opt_state["count"] + 1)}
@@ -239,7 +245,7 @@ def state_tree(model: Model, opt_state: dict) -> dict:
     """Flat ``{reference path: tensor}`` of params and optimizer state."""
     out = {"opt/count": opt_state["count"]}
     for n, p in model.named_parameters():
-        path = JAX_NAMES[n]
+        path = jax_path(n)
         out[f"params/{path}"] = p
         out[f"opt/m/{path}"] = opt_state["m"][n]
         out[f"opt/v/{path}"] = opt_state["v"][n]
@@ -265,20 +271,15 @@ class Trainer:
     replans through ``_on_replan``, and every decision is an
     ``adapt_decision`` event.
 
-    It trains the dense and moe families. vlm and audio batches carry
-    extras, which the coded step does not partition (the reference's
-    refusal); hybrid and ssm training is not ported yet. Both raise
-    ``NotImplementedError`` here.
+    It trains every family, plain or coded, as the reference's does, with
+    one exception: the coded step does not partition the ``extras`` that
+    vlm and audio batches carry, so a coded vlm or audio trainer builds
+    and its ``run`` raises the reference's ``NotImplementedError`` at the
+    first step. An MoE model's coded step routes each partition as its
+    own pool.
     """
 
     def __init__(self, model: Model, data, opt_cfg: AdamWConfig, cfg: TrainConfig):
-        family = model.config.family
-        if family in ("vlm", "audio"):
-            raise NotImplementedError("coded training does not partition family extras yet")
-        if family in ("hybrid", "ssm"):
-            raise NotImplementedError(
-                f"training the {family!r} family ({model.config.name}) is not ported yet; "
-                f"the port trains dense and moe")
         self.model = model
         self.data = data
         self.opt_cfg = opt_cfg
@@ -400,11 +401,11 @@ class Trainer:
             if last is not None:
                 like = state_tree(self.model, opt_state)
                 state, meta = restore_checkpoint(self.cfg.checkpoint_dir, last, like)
-                _load_params(self.model, {n: state[f"params/{JAX_NAMES[n]}"]
+                _load_params(self.model, {n: state[f"params/{jax_path(n)}"]
                                           for n in params})
                 opt_state = {
-                    "m": {n: state[f"opt/m/{JAX_NAMES[n]}"] for n in params},
-                    "v": {n: state[f"opt/v/{JAX_NAMES[n]}"] for n in params},
+                    "m": {n: state[f"opt/m/{jax_path(n)}"] for n in params},
+                    "v": {n: state[f"opt/v/{jax_path(n)}"] for n in params},
                     "count": state["opt/count"],
                 }
                 start = meta["step"]

@@ -14,9 +14,8 @@ Chrome trace that loads, and the ``--slots`` refusals print the
 reference's messages.
 The other configs: reduced granite-3-2b, h2o-danube-3-4b,
 moonshot-v1-16b-a3b, paligemma-3b and whisper-tiny generate coded (and
-the MoE and sliding-window ones train), the training CLI on a family it
-does not train exits non-zero naming it, and ``--trace`` on zamba2-1.2b
-and on danube exits with the reference's refusal.
+the MoE, sliding-window and ssm ones train), and ``--trace`` on
+zamba2-1.2b and on danube exits with the reference's refusal.
 Without ``--device`` the CLI runs on CUDA, and raises where there is none
 (``tests/test_torch_plan.py``).
 """
@@ -302,8 +301,9 @@ def test_cli_refuses_a_family_not_ported_and_a_trace_on_danube():
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "h2o-danube-3-4b"])
 def test_cli_trains_the_other_configs(capsys, arch):
-    """The training CLI on a reduced MoE and a sliding-window config; an
-    unported family exits non-zero naming it."""
+    """The training CLI on a reduced MoE and a sliding-window config; the
+    ssm family, which it refused before it trained every family, trains
+    too."""
     from repro_torch.launch import train as train_cli
 
     model = train_cli.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "2",
@@ -311,5 +311,7 @@ def test_cli_trains_the_other_configs(capsys, arch):
     out = capsys.readouterr().out
     assert f"training {arch}-smoke" in out and "loss" in out
     assert model.config.name == f"{arch}-smoke" and model.device.type == "cpu"
-    with pytest.raises(SystemExit, match="'ssm' family"):
-        train_cli.main(["--arch", "xlstm-125m", "--reduced", "--device", "cpu"])
+    model = train_cli.main(["--arch", "xlstm-125m", "--reduced", "--device", "cpu",
+                            "--steps", "1", "--seq-len", "8", "--batch", "2"])
+    assert "training xlstm-125m-smoke" in capsys.readouterr().out
+    assert model.config.family == "ssm"

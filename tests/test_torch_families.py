@@ -440,16 +440,22 @@ def test_serve_refuses_a_sliding_window_model(paged):
 @pytest.mark.parametrize("name", ["zamba2-1.2b", "xlstm-125m", "whisper-tiny",
                                   "paligemma-3b"])
 def test_model_refuses_the_families_not_ported_yet(name):
-    """``Model`` builds every family now; their training is what is not
-    ported yet: the training CLI exits non-zero with ``Trainer``'s
-    refusal (vlm and audio: the reference's extras message; hybrid and
-    ssm by name)."""
+    """``Model`` builds every family, and the training CLI trains each one
+    now: uncoded for all four, coded for hybrid and ssm; coded vlm and
+    audio exit non-zero at the first step with the reference's extras
+    message (the only refusal left)."""
     from repro_torch.launch import train as train_cli
 
     cfg = ARCHS[name].reduced()
     assert Model(cfg, device="cpu").param_count() > 0
-    want = ("coded training does not partition family extras yet"
-            if cfg.family in ("vlm", "audio") else f"'{cfg.family}' family.*not ported yet")
-    with pytest.raises(SystemExit, match=want):
-        train_cli.main(["--arch", name, "--reduced", "--device", "cpu", "--steps", "1",
-                        "--seq-len", "8", "--batch", "2"])
+    argv = ["--arch", name, "--reduced", "--device", "cpu", "--steps", "1",
+            "--seq-len", "8", "--batch", "2"]
+    model = train_cli.main(argv)
+    assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    coded = argv + ["--hetero-groups", "1:4.0,1:1.0"]
+    if cfg.family in ("vlm", "audio"):
+        with pytest.raises(SystemExit,
+                           match="coded training does not partition family extras yet"):
+            train_cli.main(coded)
+    else:
+        assert train_cli.main(coded).config.family == cfg.family

@@ -455,6 +455,13 @@ _CE_CASES = [
     (torch.bfloat16, 300, 1000, 2048, 256),
     (torch.bfloat16, 256, 3000, 3840, None),
     (torch.bfloat16, 257, 2000, 4096, 512),
+] + [
+    # the training configs' full (V, D), T off the 128-row tile: whisper-tiny,
+    # xlstm-125m, zamba2-1.2b, granite-3-2b, moonshot-v1-16b-a3b and
+    # paligemma-3b (49,155, 51,865 and 257,216 end in a ragged vocab tile)
+    (torch.bfloat16, 300, v, d, None)
+    for v, d in ((51_865, 384), (50_304, 768), (32_000, 2048), (49_155, 2048),
+                 (163_840, 2048), (257_216, 2048))
 ]
 
 
@@ -593,6 +600,40 @@ def test_fused_ce_refusals(dev):
         ce.fused_ce(hb, eb, lb)
     with pytest.raises(ValueError, match="chunk"):
         ce.fused_ce(*_ce_case(dev, torch.bfloat16, 16, 64, 8, 0), chunk=100)
+
+
+def test_moe_grouped_routing_matches_one_pool_calls(dev):
+    """The coded step's MoE routing on the card: ``route(groups=4)`` of 4
+    pools of 24 tokens places each pool's entries as one ``route`` call of
+    that pool does (the same capacity, kept mask and rank), in that pool's
+    rows of each expert's buffer; and ``moe_ffn(groups=4)`` equals the
+    four one-pool calls, row for row."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    e, k, d, f, t = 8, 2, 64, 96, 24
+    p = {n: t_[0] for n, t_ in moe.init_moe(1, d, f, e, torch.float32, generator=gen,
+                                            device=dev).items()}
+    x = torch.randn((4, t, d), generator=gen, device=dev)
+    kw = dict(num_experts=e, top_k=k)
+    r = moe.route(p["w_router"], x.reshape(-1, d), groups=4, **kw)
+    slot_of = torch.empty_like(r.slot)
+    slot_of[r.order] = r.slot
+    dropped = 0
+    for g in range(4):
+        one = moe.route(p["w_router"], x[g], **kw)
+        assert one.cap == r.cap
+        theirs = torch.empty_like(one.slot)
+        theirs[one.order] = one.slot
+        kept = theirs < e * one.cap
+        dropped += int((~kept).sum())
+        want = torch.where(kept, (theirs // one.cap * 4 + g) * one.cap + theirs % one.cap,
+                           torch.full_like(theirs, e * r.rows))
+        assert torch.equal(slot_of[t * k * g: t * k * (g + 1)], want)
+    assert dropped > 0  # capacity_factor 1.25 drops entries in some pool
+    got = moe.moe_ffn(p, x, groups=4, **kw)
+    want = torch.cat([moe.moe_ffn(p, x[g: g + 1], **kw) for g in range(4)])
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 def test_bucketed_coded_head_decode_matches_plain(dev):

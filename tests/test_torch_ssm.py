@@ -308,7 +308,8 @@ def test_every_registered_config_builds_with_the_reference_count(name):
 @pytest.mark.parametrize("arch", [HYBRID, XLSTM], ids=["zamba2", "xlstm"])
 def test_slot_paged_and_training_refusals(pairs, arch):
     """Every slot and paged entry point refuses with the reference's message
-    (``Server.serve`` with it); ``Trainer`` refuses the family by name."""
+    (``Server.serve`` with it); ``Trainer`` trains the family now, plain
+    and coded, one finite step each."""
     ref, _, ours, _ = pairs(*arch)
     with pytest.raises(NotImplementedError) as want:
         ref.init_slot_cache(2, 8)
@@ -317,7 +318,8 @@ def test_slot_paged_and_training_refusals(pairs, arch):
         with pytest.raises(NotImplementedError) as got:
             call()
         assert str(got.value) == str(want.value), name
-    data = SyntheticLMData(ours.config, ShapeConfig("t", 8, 2, "train"), device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=f"'{ours.config.family}' family.*not ported yet"):
-        Trainer(ours, data, AdamWConfig(), TrainConfig(steps=1))
+    for cluster in (None, ClusterSpec.make(*FLEET)):
+        data = SyntheticLMData(ours.config, ShapeConfig("t", 16, 2, "train"), device="cpu")
+        _, _, hist = Trainer(ours, data, AdamWConfig(),
+                             TrainConfig(steps=1, cluster=cluster, partitions=2)).run()
+        assert len(hist) == 1 and np.isfinite(hist[0]["loss"])

@@ -366,8 +366,10 @@ def test_make_extras_is_the_reference_stub(name):
 
 def test_audio_refuses_the_slot_and_paged_paths_and_training(pairs):
     """The reference's slot-support message on every slot and paged entry
-    point of whisper; ``init_cache`` without ``enc_out`` refused; the
-    ``Trainer`` refuses vlm and audio, whose batches carry extras."""
+    point of whisper; ``init_cache`` without ``enc_out`` refused; a vlm or
+    audio ``Trainer`` builds plain or coded, the plain one trains, and the
+    coded one's ``run`` raises the reference's extras message at its step
+    (the batches carry extras that the coded step does not partition)."""
     from test_torch_families import _slot_and_paged_calls
 
     ref, _, ours = pairs(AUDIO)
@@ -383,7 +385,12 @@ def test_audio_refuses_the_slot_and_paged_paths_and_training(pairs):
         cfg = pairs(name)[2].config
         data = SyntheticLMData(cfg, ShapeConfig("t", 8, 2, "train"), device="cpu")
         for cluster in (None, ClusterSpec.make(*FLEET)):
+            trainer = Trainer(pairs(name)[2], data, AdamWConfig(),
+                              TrainConfig(steps=1, cluster=cluster, partitions=2))
+            if cluster is None:
+                _, _, hist = trainer.run()
+                assert len(hist) == 1 and np.isfinite(hist[0]["loss"])
+                continue
             with pytest.raises(NotImplementedError,
                                match="coded training does not partition family extras yet"):
-                Trainer(pairs(name)[2], data, AdamWConfig(),
-                        TrainConfig(steps=1, cluster=cluster, partitions=2))
+                trainer.run()
