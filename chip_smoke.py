@@ -10,8 +10,10 @@ the port's envelope at full width (granite-3-2b, yi-9b, moonshot-v1-16b-a3b
 and paligemma-3b paged; h2o-danube-3-4b, plain and int8 KV, whisper-tiny,
 zamba2-1.2b and xlstm-125m through the sequential prefill), then train
 qwen3-0.6b with gradient coding, plain and then adaptive under measured
-round times, and train a config of every other family (whisper-tiny,
-xlstm-125m, zamba2-1.2b, paligemma-3b, granite-3-2b, moonshot-v1-16b-a3b).
+round times, train a config of every other family (whisper-tiny,
+xlstm-125m, zamba2-1.2b, paligemma-3b, granite-3-2b, moonshot-v1-16b-a3b),
+then check the deployment layer: the dry-run's count against the card's,
+the local mesh and the sharding rules, and the four examples.
 
 Run from the repository root with no arguments:
 
@@ -159,7 +161,31 @@ Phases (any failure raises, and the script exits non-zero):
    steady step profiled (B4's share, the card's busy share); then the
    reduced paligemma, whisper, zamba and xlstm (sLSTM every 2nd layer):
    one plain step's loss and every gradient leaf card against CPU within
-   2e-4 |want| + max(2e-6, 2e-5 max|want|).
+   2e-4 |want| + max(2e-6, 2e-5 max|want|);
+13. dryrun, mesh and examples, overlapped for the run's time —
+   dryrun: ``python -m repro_torch.launch.dryrun`` in processes of its
+   own, counted on ``meta`` on the host's cores: qwen3-0.6b at every
+   shape on both production meshes, whisper-tiny prefill_32k and
+   moonshot-v1-16b-a3b decode_32k with the coded head (each record: 256
+   or 512 chips, FLOPs > 0, a bottleneck of the three terms), and the
+   one-card sizing of ``SIZING_CELLS`` (``a4_sizing``); meanwhile a
+   real qwen3-0.6b train step on the card at train_4k cut to batch 8 and
+   4 of 28 layers, counted by ``FlopCounterMode`` plus B4's cost
+   functions, must equal the dry-run's meta count of that cell exactly,
+   with B4 launched once forward and once backward; one more step timed
+   by CUDA events beside max(t_compute, t_memory), its peak allocated
+   beside the reckoned argument and temp bytes;
+   mesh (once the card's timed step is done): ``make_local_mesh()`` (one
+   NCCL rank): qwen3-0.6b's
+   parameters placed by ``make_param_sharding``, each local shard equal to
+   its parameter bit for bit, ``lm_logits`` of a model loaded from the
+   local shards equal to the original's exactly; the group destroyed;
+   examples (after mesh): the four ``examples/torch_*.py``, each loaded
+   and its ``main`` called on the card (train_lm 30 steps of 8 x 8 at one
+   layer), launch counters reset before each; return code 0, each one's
+   own check (the coded matvec recovers A x,
+   coded tokens equal uncoded ones, both replans, the loss falls by more
+   than 1 nat), B1 and B3 launched in the first two and B4 in train_lm.
 
 The last three stdout lines are the card (``nvidia-smi``), the kernels
 JSON (each kernel's launches on every path beside its main path's, B1 and
@@ -2836,6 +2862,307 @@ def train_families_phase(card: str):
     return paths, rows
 
 
+#: [dryrun]: the CLI runs (argv after ``python -m``, the records they must
+#: write), all started together (each counts on one core); the card's count at qwen3-0.6b train_4k
+#: with the global batch cut from 256 to DRYRUN_BATCH rows and the depth
+#: from 28 to DRYRUN_LAYERS (the phase's time: a counted step dispatches
+#: about 1,800 operations a layer through Python, each counted twice)
+DRYRUN_RUNS = (
+    (["--arch", "qwen3-0.6b", "--mesh", "both"],
+     [f"qwen3-0.6b_{s}_{m}" for s in ("train_4k", "prefill_32k", "decode_32k")
+      for m in ("single", "multi")]),
+    (["--arch", "whisper-tiny", "--shape", "prefill_32k", "--mesh", "single"],
+     ["whisper-tiny_prefill_32k_single"]),
+    (["--arch", "moonshot-v1-16b-a3b", "--shape", "decode_32k", "--mesh", "both",
+      "--coded-groups", "6:8.0,6:0.7"],
+     ["moonshot-v1-16b-a3b_decode_32k_single", "moonshot-v1-16b-a3b_decode_32k_multi"]),
+)
+DRYRUN_BATCH, DRYRUN_LAYERS = 8, 4
+#: [dryrun]'s one-card sizing (``a4_sizing``): (arch, shape, parameter
+#: dtype or None for the config's own)
+SIZING_CELLS = (("moonshot-v1-16b-a3b", "decode_32k", "bfloat16"),
+                ("yi-9b", "train_4k", None), ("h2o-danube-3-4b", "train_4k", None),
+                ("grok-1-314b", "decode_32k", "bfloat16"))
+SIZING_CMD = ["-c", "import chip_smoke; chip_smoke.a4_sizing()"]
+
+
+def a4_sizing() -> None:
+    """Print each ``SIZING_CELLS`` cell's memory on one card: the dry-run's
+    record on a 1 x 1 mesh (``roofline_cell(..., mesh=)``, counted on
+    ``meta``, so no card is needed): argument bytes by kind, the output
+    and temp bytes (the meta run's peak live bytes, an estimate) and
+    ``fits``. ``python3 -c 'import chip_smoke; chip_smoke.a4_sizing()'``
+    prints the same anywhere."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES_BY_NAME, get_arch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import MeshShape
+
+    for arch, shape, dtype in SIZING_CELLS:
+        cfg = get_arch(arch)
+        cfg = dataclasses.replace(cfg, param_dtype=dtype) if dtype else cfg
+        rec = D.roofline_cell(cfg, SHAPES_BY_NAME[shape],
+                              mesh=MeshShape({"data": 1, "model": 1}), verbose=False)
+        mem = rec["memory_analysis"]
+        args = ", ".join(f"{k} {v / 1e9:.2f}" for k, v in mem["arguments"].items())
+        print(f"{arch} {shape} ({cfg.param_dtype} parameters) on one card: arguments "
+              f"{args} GB; output and temp {mem['output_and_temp_bytes'] / 1e9:.1f} GB; "
+              f"{rec['memory_per_device_bytes'] / 1e9:.1f} GB, fits {rec['fits']}")
+
+
+def start_procs(cmds: list[list[str]]) -> list:
+    """Start each command (argv after the interpreter) from the repository
+    root, all at once; returns the Popen objects."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    return [subprocess.Popen([sys.executable, *cmd], cwd=ROOT, env=env, text=True,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            for cmd in cmds]
+
+
+def finish_procs(procs: list, tag: str, timeout: float = 600) -> list[tuple[int, str]]:
+    """Wait for every process (killing all of them if one overruns); print
+    each one's stdout; returns (exit code, stdout) per process."""
+    out = []
+    for proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            raise
+        print(f"[{tag}] {' '.join(proc.args[1:])}: exit {proc.returncode}")
+        for line in stdout.strip().splitlines():
+            print(f"[{tag}]   {line}")
+        if proc.returncode != 0:
+            print(stderr[-4000:], file=sys.stderr)
+        out.append((proc.returncode, stdout))
+    return out
+
+
+def deployment_phases(card: str) -> tuple[dict, dict]:
+    """[dryrun], [mesh] and [examples], overlapped for the run's time: the
+    dry-run CLI on the cells of ``DRYRUN_RUNS`` and ``a4_sizing`` in
+    processes of their own (counted on ``meta``, on the host's cores)
+    while the card counts a
+    real qwen3-0.6b train step (``dryrun_card_count``), then
+    ``mesh_phase`` and ``examples_phase``; then the CLI runs' checks.
+    Returns the counted step's launch counts and the examples' launches."""
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
+        procs = start_procs([["-m", "repro_torch.launch.dryrun", *argv, "--out", tmp]
+                             for argv, _ in DRYRUN_RUNS] + [SIZING_CMD])
+        try:
+            counts = dryrun_card_count(card)
+            mesh_phase()
+            examples = examples_phase()
+        finally:
+            results = finish_procs(procs, "dryrun")
+            print(f"[dryrun] the CLI runs done {time.perf_counter() - t:.1f} s after they "
+                  f"started")
+        check(results[-1][0] == 0, "the one-card sizing (a4_sizing) exits 0")
+        for (code, _), (argv, names) in zip(results, DRYRUN_RUNS):
+            check(code == 0, f"the dry-run CLI {' '.join(argv)} exits 0")
+            for name in names:
+                dryrun_record(json.loads((Path(tmp) / f"{name}.json").read_text()), name,
+                              coded="--coded-groups" in argv)
+    return counts, examples
+
+
+def dryrun_record(r: dict, name: str, coded: bool) -> None:
+    """Check and print one record of the dry-run CLI (``coded``: the run
+    attached the coded head)."""
+    check(r["chips"] in (256, 512), f"{name}: chips {r['chips']}")
+    check(r["hlo_flops_per_device"] > 0, f"{name}: FLOPs > 0")
+    check(r["bottleneck"] in ("t_compute", "t_memory", "t_collective"), f"{name}: bottleneck")
+    head = r.get("coded_lm_head")
+    check((head is not None) == coded, f"{name}: the coded head attached")
+    print(f"[dryrun] {name}: {r['method']}, {r['hlo_flops_per_device']:.4e} FLOPs "
+          f"and {r['hlo_bytes_per_device']:.4e} bytes a device, collectives "
+          f"{r['collective_bytes_per_device']['total']:.4e}, memory "
+          f"{r['memory_per_device_bytes'] / 1e9:.2f} GB (fits {r['fits']}), "
+          f"t_compute {r['t_compute'] * 1e3:.3f} ms, t_memory {r['t_memory'] * 1e3:.3f} ms, "
+          f"t_collective {r['t_collective'] * 1e3:.3f} ms: {r['bottleneck']}"
+          + (f"; coded head kb {head['kb']} nb {head['nb']}, B1 "
+             f"{head['kernels']['coded_matvec']['flops']:.3e} FLOPs a step" if head else ""))
+
+
+def dryrun_card_count(card: str) -> dict:
+    """[dryrun]'s count on the card (``deployment_phases``); returns the counted
+    step's launch counts."""
+    import dataclasses
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import SHAPES_BY_NAME, get_arch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b"), num_layers=DRYRUN_LAYERS)
+    shape = dataclasses.replace(SHAPES_BY_NAME["train_4k"], global_batch=DRYRUN_BATCH)
+    t = time.perf_counter()
+    local = MeshShape({"data": 1, "model": 1})
+    rec = D.roofline_cell(cfg, shape, mesh=local, verbose=False)
+    print(f"[dryrun] meta count of {cfg.name} train_4k at batch {DRYRUN_BATCH} (cut from "
+          f"256), {DRYRUN_LAYERS} of 28 layers, on the local mesh: "
+          f"{rec['flops_global']:.6e} FLOPs, "
+          f"{rec['bytes_global_unfused']:.6e} bytes unfused, method {rec['method']}, "
+          f"{rec['compile_seconds']} s; t_compute {rec['t_compute'] * 1e3:.1f} ms, "
+          f"t_memory {rec['t_memory'] * 1e3:.1f} ms")
+    model = Model(cfg, device="cuda", seed=0)
+    inputs = D.step_inputs(model, shape)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t_count = time.perf_counter()
+    with FlopCounterMode(display=False) as fc, D.Counter() as cnt:
+        D.run_step(model, shape, inputs)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    counted = cnt.result()
+    ops_flops = fc.get_total_flops()
+    kernel_flops = sum(v[1] for v in counted.kernels.values())
+    print(f"[dryrun] card count ({time.perf_counter() - t_count:.1f} s): "
+          f"FlopCounterMode {ops_flops:.6e} + B4's cost functions {kernel_flops:.6e} = "
+          f"{ops_flops + kernel_flops:.6e} FLOPs (the counter's {counted.total_flops():.6e}); "
+          f"bytes unfused {counted.total_bytes():.6e} (meta "
+          f"{rec['bytes_global_unfused']:.6e}); "
+          f"B4 launches {counts['fused_ce_fwd']} / {counts['fused_ce_bwd_dh']} / "
+          f"{counts['fused_ce_bwd_de']}")
+    check(ops_flops + kernel_flops == rec["flops_global"] == counted.total_flops(),
+          "the card's count equals the dry-run's meta count")
+    check((counts["fused_ce_fwd"], counts["fused_ce_bwd_dh"], counts["fused_ce_bwd_de"])
+          == (1, 1, 1), "B4 launches once forward and once backward in the counted step")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    D.run_step(model, shape, inputs)
+    end.record()
+    torch.cuda.synchronize()
+    step_s = start.elapsed_time(end) / 1e3
+    bound = max(rec["t_compute"], rec["t_memory"])
+    mem = rec["memory_analysis"]
+    print(f"[dryrun] {card}: the step {step_s * 1e3:.1f} ms (CUDA events); "
+          f"max(t_compute, t_memory) {bound * 1e3:.1f} ms = {bound / step_s:.3f} of it "
+          f"(t_compute alone {rec['t_compute'] / step_s:.3f})")
+    print(f"[dryrun] peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(the step's own {(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB above "
+          f"the {base / 1e9:.2f} GB resident); reckoned: arguments "
+          f"{mem['argument_bytes'] / 1e9:.2f} GB + output and temp "
+          f"{mem['output_and_temp_bytes'] / 1e9:.2f} GB")
+    del model, inputs
+    torch.cuda.empty_cache()
+    print(f"[dryrun] the card's count and timed step {time.perf_counter() - t:.1f} s")
+    return counts
+
+
+def mesh_phase() -> None:
+    """[mesh]: ``make_local_mesh()`` (one NCCL rank), qwen3-0.6b's
+    parameters placed by ``make_param_sharding``: each local shard equals
+    its parameter bit for bit, and ``lm_logits`` of a model loaded from
+    the local shards equals the original's exactly; the group destroyed."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import destroy_local_mesh, make_local_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import distribute, make_param_sharding
+
+    t = time.perf_counter()
+    mesh = make_local_mesh()
+    try:
+        cfg = get_arch("qwen3-0.6b")
+        model = Model(cfg, device="cuda", seed=3)
+        params = dict(model.named_parameters())
+        shardings = make_param_sharding(mesh, model)
+        placed = distribute(mesh, params, shardings)
+        same = sum(torch.equal(placed[n].to_local(), p) for n, p in params.items())
+        print(f"[mesh] {dist.get_backend()} mesh {mesh.mesh_dim_names} "
+              f"{tuple(mesh.shape)}: {same}/{len(params)} local shards bit-identical; "
+              f"wq placed {shardings['wq']}, embed {shardings['embed']}")
+        check(same == len(params), "every local shard equals its parameter")
+        twin = Model(cfg, device="meta").to_empty(device=model.device)
+        twin.device = model.device
+        with torch.no_grad():
+            for n, p in twin.named_parameters():
+                p.copy_(placed[n].to_local())
+        tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=model.device,
+                               generator=torch.Generator(device=model.device).manual_seed(0))
+        with torch.no_grad():
+            want, got = model.lm_logits(tokens), twin.lm_logits(tokens)
+        print(f"[mesh] lm_logits from the local shards equal the original's: "
+              f"{torch.equal(got, want)} ({tuple(got.shape)})")
+        check(torch.equal(got, want), "lm_logits from the local shards")
+        del model, twin, placed, params
+    finally:
+        destroy_local_mesh()
+    check(not dist.is_initialized(), "the local mesh's group is destroyed")
+    torch.cuda.empty_cache()
+    print(f"[mesh] {time.perf_counter() - t:.1f} s")
+
+
+#: [examples]: each example's argv and the lines its stdout must hold
+EXAMPLE_RUNS = (
+    (["examples/torch_quickstart.py"], ["coded matvec with 2 erasures: recovered=True"]),
+    (["examples/torch_coded_serving.py"], ["coded == uncoded greedy outputs: True"]),
+    (["examples/torch_elastic_fleet.py"], ["t=91 +20 fast workers", "replans=2"]),
+    (["examples/torch_train_lm.py", "--steps", "30", "--seq", "8", "--layers", "1"],
+     ["loss trajectory", "final loss"]),
+)
+
+
+def examples_phase() -> dict:
+    """[examples]: each ``examples/torch_*.py`` loaded from its file and its
+    ``main`` called on the card with ``EXAMPLE_RUNS``' arguments (in this
+    process: no start-up of its own), its launch counters reset just
+    before and read just after: return code 0 (each example's own check:
+    train_lm returns 1 unless the loss falls 1 nat) and its lines. B1 and
+    B3 must launch in the quickstart and the coded serving, B4 in
+    train_lm. Returns the summed launches."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import repro_torch.kernels as kernels
+
+    t = time.perf_counter()
+    total: dict = {}
+    for argv, lines in EXAMPLE_RUNS:
+        path = ROOT / argv[0]
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out = io.StringIO()
+        t_ex = time.perf_counter()
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(out):
+            code = mod.main(argv[1:])
+        counts = kernels.launch_counts()
+        print(f"[examples] {' '.join(argv)}: returned {code} in "
+              f"{time.perf_counter() - t_ex:.1f} s; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        for line in out.getvalue().strip().splitlines():
+            print(f"[examples]   {line}")
+        check(code == 0, f"{argv[0]} returns 0")
+        for line in lines:
+            check(line in out.getvalue(), f"{argv[0]} prints {line!r}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        if path.stem in ("torch_quickstart", "torch_coded_serving"):
+            check(counts["coded_matvec"] > 0 and counts["mds_encode"] > 0,
+                  f"B1 and B3 launch in {path.name}")
+    check(min(total[k] for k in ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_de")) > 0,
+          "B4 launches in train_lm")
+    print(f"[examples] {time.perf_counter() - t:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2943,6 +3270,8 @@ def main(argv=None) -> int:
     for name, r in tf_rows.items():
         fam_rows.setdefault(name, {}).update(r)
     lap("train-families")
+    paths["dryrun_card_step"], paths["examples"] = deployment_phases(card)
+    lap("dryrun, mesh and examples (overlapped)")
 
     import repro_torch.kernels as kernels
 
@@ -2969,7 +3298,7 @@ def main(argv=None) -> int:
         entry = {"name": k.name, "route": "cuda", "source": str(k.source.relative_to(ROOT)),
                  "replaces": replaces[k.name], "launches": paths[main_path][k.name],
                  **timing(rows[k.name]),
-                 "launches_by_path": {p: c[k.name] for p, c in paths.items()}}
+                 "launches_by_path": {p: c.get(k.name, 0) for p, c in paths.items()}}
         extra = {"coded_matvec": "narrow", "mds_encode": "encode"}.get(k.name)
         if extra is not None:
             entry["path_m"] = {"shape": path_m[extra]["shape"], **timing(path_m[extra])}

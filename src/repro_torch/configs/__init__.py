@@ -1,7 +1,13 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig (the reference's ten)."""
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.configs.base import (
+    ALL_SHAPES,
+    SHAPES_BY_NAME,
+    ModelConfig,
+    ShapeConfig,
+    shapes_for,
+)
 from repro_torch.configs.granite_3_2b import CONFIG as GRANITE_3_2B
 from repro_torch.configs.grok_1_314b import CONFIG as GROK_1_314B
 from repro_torch.configs.h2o_danube_3_4b import CONFIG as H2O_DANUBE_3_4B
@@ -36,4 +42,20 @@ def get_arch(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "ModelConfig", "ShapeConfig", "get_arch"]
+def all_cells():
+    """Every (arch, shape) dry-run cell — 40 total."""
+    for cfg in ARCHS.values():
+        for shape in shapes_for(cfg):
+            yield cfg, shape
+
+
+__all__ = [
+    "ALL_SHAPES",
+    "ARCHS",
+    "ModelConfig",
+    "SHAPES_BY_NAME",
+    "ShapeConfig",
+    "all_cells",
+    "get_arch",
+    "shapes_for",
+]

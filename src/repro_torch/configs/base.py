@@ -3,7 +3,8 @@
 Counterpart of ``repro/configs/base.py``: every field of the reference's
 ``ModelConfig`` with its default, so a registered config and its
 ``reduced()`` variant equal the reference's field for field. Dtypes
-resolve to torch dtypes. ``Model`` implements every family.
+resolve to torch dtypes. ``Model`` implements every family. The shape
+cells (``TRAIN_4K`` ... ``LONG_500K``, ``shapes_for``) are the reference's.
 """
 from __future__ import annotations
 
@@ -121,3 +122,24 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
+def shapes_for(config: ModelConfig) -> tuple[ShapeConfig, ...]:
+    """The shape cells defined for an architecture (the dry-run's cells).
+
+    ``long_500k`` needs sub-quadratic attention: run for SSM/hybrid/SWA
+    archs, skip for pure full-attention archs.
+    """
+    out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if config.sub_quadratic:
+        out.append(LONG_500K)
+    return tuple(out)

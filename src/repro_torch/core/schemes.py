@@ -356,6 +356,15 @@ def scheme_names() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+def scheme_params(name: str) -> tuple[str, ...]:
+    """The keyword parameters a registered scheme accepts (sorted)."""
+    if name not in _REGISTRY:
+        raise ValueError(
+            f"unknown scheme {name!r}; registered: {', '.join(scheme_names())}"
+        )
+    return tuple(sorted(_REGISTRY[name].params))
+
+
 def make_scheme(
     name: str,
     *,

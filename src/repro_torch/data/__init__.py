@@ -1,4 +1,4 @@
 """Synthetic training data (counterpart of ``repro/data``)."""
-from repro_torch.data.pipeline import SyntheticLMData, make_extras
+from repro_torch.data.pipeline import SyntheticLMData, make_batch_specs, make_extras
 
-__all__ = ["SyntheticLMData", "make_extras"]
+__all__ = ["SyntheticLMData", "make_batch_specs", "make_extras"]

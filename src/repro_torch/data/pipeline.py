@@ -80,3 +80,17 @@ def make_extras(config: ModelConfig, batch: int, *, device: str | torch.device =
         return None
     return {key: torch.zeros((batch, length, config.d_model), dtype=config.cdtype,
                              device=resolve_device(device))}
+
+
+def make_batch_specs(config: ModelConfig, shape: ShapeConfig) -> dict:
+    """``meta`` stand-ins for one training batch (the dry-run's input):
+    tokens and labels (B, S) int32, and the vlm / audio extras (B,
+    num_image_tokens or encoder_seq, D) in the compute dtype. No memory,
+    no values."""
+    b, s = shape.global_batch, shape.seq_len
+    batch = {"tokens": torch.empty((b, s), dtype=torch.int32, device="meta"),
+             "labels": torch.empty((b, s), dtype=torch.int32, device="meta")}
+    extras = make_extras(config, b, device="meta")
+    if extras:
+        batch["extras"] = extras
+    return batch

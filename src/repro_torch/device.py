@@ -9,7 +9,8 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
     ``"cuda"`` (the default everywhere) raises when no CUDA device is
     present: the port never falls back to the CPU on its own. Callers
-    that want the CPU (the parity tests) pass ``device="cpu"``.
+    that want the CPU (the parity tests) pass ``device="cpu"``; the
+    dry-run passes ``device="meta"`` (shapes only, no memory, no values).
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():

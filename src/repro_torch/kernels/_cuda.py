@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels: nvcc -> shared library -> ctypes.
 
 Each kernel is one ``.cu`` file with a plain C interface, compiled for
-``sm_90a`` at first use into ``build/kernels/`` at the repository root
-(listed in ``.gitignore``). The library name carries a hash of the
+``sm_90a`` at first use into the build cache (``runtime/compile_cache``:
+``build/kernels/`` at the repository root by default, listed in
+``.gitignore``). The library name carries a hash of the
 sources and flags, so an edited source is rebuilt and a stale library is
 never loaded. No ``nvcc`` runs when a module is imported: a CPU-only
 process never builds anything.
@@ -12,9 +13,19 @@ process never builds anything.
 stream on it), raises if it returns a CUDA error, and counts the launch.
 Several kernels of one source (a forward and its backward) share one
 library (``library_name``) and keep a launch count each.
+
+Cost tallies: while one is active (``TALLIES`` is not empty), every
+wrapper reports its kernel's work (FLOPs and bytes from the shapes, by
+the kernel's own cost function) through ``record_cost`` once per call,
+on every device; with none active it reckons no cost. A plain CPU
+version runs under ``uncounted``. A tally (``launch/dryrun.Counter``)
+so reads each kernel's work from its cost function, never from the
+operations that implement it: a count is the same on ``meta``, on the
+CPU and on the card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,11 +37,19 @@ import torch
 
 PKG_DIR = Path(__file__).resolve().parent
 INCLUDE_DIR = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+def build_dir() -> Path:
+    """The build cache's directory (``runtime/compile_cache.cache_dir``;
+    imported here, not at the top: ``repro_torch.runtime`` imports the
+    models, which import the kernels)."""
+    from repro_torch.runtime import compile_cache
+
+    return compile_cache.cache_dir()
 
 
 def nvcc() -> str:
@@ -40,6 +59,31 @@ def nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found (set CUDA_HOME); cannot build kernels")
+
+
+#: the active cost tallies, innermost last (``launch/dryrun.Counter``)
+TALLIES: list = []
+
+
+def record_cost(name: str, flops: float, nbytes: float, inputs=(), outputs=()) -> None:
+    """Report one call of kernel ``name`` to every active tally: its work
+    (``flops``, ``nbytes``, from the kernel's cost function), the tensors
+    it reads and the ones it writes."""
+    for tally in TALLIES:
+        tally.kernel(name, flops, nbytes, inputs, outputs)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Hide the operations of a plain version from every active tally (its
+    kernel's work is reported by ``record_cost``)."""
+    for tally in TALLIES:
+        tally.paused += 1
+    try:
+        yield
+    finally:
+        for tally in TALLIES:
+            tally.paused -= 1
 
 
 class CudaKernel:
@@ -62,11 +106,11 @@ class CudaKernel:
 
     @property
     def library(self) -> Path:
-        return BUILD_DIR / f"lib{self.library_name}-{self._digest()}.so"
+        return build_dir() / f"lib{self.library_name}-{self._digest()}.so"
 
     @property
     def log(self) -> Path:
-        return BUILD_DIR / f"{self.library_name}.log"
+        return build_dir() / f"{self.library_name}.log"
 
     def build_command(self, out: Path) -> list[str]:
         return [nvcc(), *NVCC_FLAGS, f"-I{INCLUDE_DIR}", "-o", str(out),
@@ -104,10 +148,11 @@ def build_all(kernels) -> None:
     Output goes to a temporary name and is renamed into place, so a
     concurrent reader never loads a half-written library. The compiler's
     output (``-Xptxas -v``: registers, shared memory, spills) is kept in
-    ``build/kernels/<library_name>.log``. Kernels that share a library
-    build it once.
+    ``<cache dir>/<library_name>.log`` (``compile_cache.cache_dir``,
+    ``build/kernels/`` by default). Kernels that share a library build it
+    once.
     """
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     jobs, seen = [], set()
     for k in kernels:
         out = k.library

@@ -11,6 +11,10 @@ are kernel dimensions (source note in ``csrc/coded_matvec.cu``):
   branch, which streams A with 16-byte loads against X staged in shared
   memory; ``blocked_matvec_batch`` runs the workers' (W, L, D) blocks as
   one such launch on the (W*L, D) view.
+
+A ``meta`` tensor returns an empty output of the kernel's shape and
+dtype and computes nothing; every call reports ``blocked_matvec_cost``
+to the active cost tallies (``_cuda.record_cost``).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import _cuda
 from repro_torch.kernels._cuda import CudaKernel
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -70,6 +75,12 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def blocked_matvec_cost(m: int, k: int, n: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one ``Y = A X`` launch, (M, K) x (K, N) float32:
+    2 M K N, and A, X read once and Y written once."""
+    return 2.0 * m * k * n, 4.0 * (m * k + k * n + m * n)
+
+
 def blocked_matvec_plain(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y = A x with f32 accumulation, output in A's dtype (``matvec_ref``)."""
     return torch.matmul(a.float(), x.float()).to(a.dtype)
@@ -80,12 +91,18 @@ def blocked_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
     A CUDA ``a`` launches the kernel (float32, contiguous, same device;
     anything else raises): the narrow branch for N <= ``NARROW_N``, else
-    the GEMM split as ``gemm_plan`` says. A CPU ``a`` runs
+    the GEMM split as ``gemm_plan`` says. A ``meta`` ``a`` takes the same
+    checks and returns the empty (M, N) float32 output. A CPU ``a`` runs
     ``blocked_matvec_plain``.
     """
     if a.device.type == "cpu":
-        return blocked_matvec_plain(a, x)
-    if a.device.type != "cuda":
+        with _cuda.uncounted():
+            y = blocked_matvec_plain(a, x)
+        if _cuda.TALLIES:
+            _cuda.record_cost(KERNEL.name, *blocked_matvec_cost(
+                a.shape[0], a.shape[-1], 1 if x.dim() == 1 else x.shape[-1]), (a, x), (y,))
+        return y
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError(f"blocked_matvec: unsupported device {a.device}")
     x2 = x[:, None] if x.dim() == 1 else x
     if a.dim() != 2 or x2.dim() != 2 or a.shape[1] != x2.shape[0]:
@@ -96,10 +113,10 @@ def blocked_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError("blocked_matvec kernel takes contiguous operands on one device")
     (m, k), n = a.shape, x2.shape[1]
     y = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    if y.numel() and n <= NARROW_N and k > 0:
+    if a.device.type == "cuda" and y.numel() and n <= NARROW_N and k > 0:
         KERNEL.launch("repro_coded_matvec_narrow_f32", a.device, a.data_ptr(),
                       x2.data_ptr(), y.data_ptr(), m, n, k)
-    elif y.numel():
+    elif a.device.type == "cuda" and y.numel():
         index = a.device.index if a.device.index is not None else torch.cuda.current_device()
         plan = gemm_plan(m, n, k, sm_count(index))
         stride = partial_stride(m, n)
@@ -108,7 +125,10 @@ def blocked_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         KERNEL.launch("repro_coded_matvec_f32", a.device, a.data_ptr(), x2.data_ptr(),
                       y.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
                       m, n, k, plan.per_split, plan.splits, stride)
-    return y[:, 0] if x.dim() == 1 else y
+    y = y[:, 0] if x.dim() == 1 else y
+    if _cuda.TALLIES:
+        _cuda.record_cost(KERNEL.name, *blocked_matvec_cost(m, k, n), (a, x), (y,))
+    return y
 
 
 def blocked_matvec_batch(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,14 @@ one chunk (``backward_scratch``). They read H and E through TMA, which
 needs 16-byte row strides: the bf16 path takes any hidden width that is
 a multiple of 8 (the GEMMs loop over D in 64-wide boxes). The f32 SIMT
 kernels, the parity dtype, take a multiple of 4 up to ``MAX_D``.
+
+``meta`` tensors take the kernels' checks and return empty outputs of
+their shapes and dtypes, forward and backward. Every launch reports its
+work to the active cost tallies (``_cuda.record_cost``): ``fused_ce_cost``,
+2 T V D FLOPs forward and 4 T V D for each backward, which recomputes the
+logits. A CPU call runs through the same autograd function, each kernel
+replaced by its plain version (``fused_ce_plain``, ``_grad_plain``)
+hidden from the tallies, so a count is the same on every device.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import _cuda
 from repro_torch.kernels._cuda import CudaKernel
 
 SOURCE = Path(__file__).parent / "csrc" / "fused_ce.cu"
@@ -71,6 +80,34 @@ def fused_ce_plain(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor):
     return lse, ll, logits.argmax(dim=-1)
 
 
+def fused_ce_cost(kernel: CudaKernel, t: int, v: int, d: int,
+                  itemsize: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one launch of ``kernel`` on h (T, D) and the table
+    (V, D) of ``itemsize`` bytes an element: the forward's 2 T V D and
+    each backward's 4 T V D (logits recomputed, then one product); h, the
+    table and the int32 labels read once, and the forward's (lse, ll f32,
+    argmax int64) written, or the backward's (lse, g_lse, g_ll) f32 read
+    and dH (T, D) or dE (V, D) written."""
+    io = itemsize * (t * d + v * d) + 4 * t
+    if kernel is FWD:
+        return 2.0 * t * v * d, float(io + 16 * t)
+    out_rows = t if kernel is BWD_DH else v
+    return 4.0 * t * v * d, float(io + 12 * t + itemsize * out_rows * d)
+
+
+def _grad_plain(wrt: str, h, table, labels32, lse, g_lse, g_ll):
+    """dH or dE of ``g_lse . lse + g_ll . ll`` from recomputed f32 logits
+    (the backward kernels' math), in h's or the table's dtype."""
+    logits = torch.matmul(h.float(), table.float().T)
+    dlog = torch.exp(logits - lse[:, None]) * g_lse[:, None]
+    hit = labels32 >= 0
+    rows = torch.arange(h.shape[0], device=h.device)[hit]
+    dlog[rows, labels32[hit].long()] += g_ll[hit]
+    if wrt == "dh":
+        return torch.matmul(dlog, table.float()).to(h.dtype)
+    return torch.matmul(dlog.T, h.float()).to(table.dtype)
+
+
 def _check(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor) -> None:
     if h.dim() != 2 or table.dim() != 2 or h.shape[1] != table.shape[1]:
         raise ValueError(f"fused_ce: shapes {tuple(h.shape)} x {tuple(table.shape)}")
@@ -109,14 +146,22 @@ def fused_ce_forward(h, table, labels32):
     """Launch the forward kernel: (lse, ll, argmax) for CUDA tensors.
 
     bf16 runs the tensor-core GEMM and its combine on partials allocated
-    here (``forward_scratch``); f32 runs the SIMT kernel.
+    here (``forward_scratch``); f32 runs the SIMT kernel. ``meta``
+    tensors return the empty outputs, CPU ones ``fused_ce_plain``.
     """
     t, d = h.shape
     v = table.shape[0]
-    lse = torch.empty(t, dtype=torch.float32, device=h.device)
-    ll = torch.empty(t, dtype=torch.float32, device=h.device)
-    am = torch.empty(t, dtype=torch.int64, device=h.device)
-    if not (t and v):
+    if h.device.type == "cpu":
+        with _cuda.uncounted():
+            lse, ll, am = fused_ce_plain(h, table, labels32)
+    else:
+        lse = torch.empty(t, dtype=torch.float32, device=h.device)
+        ll = torch.empty(t, dtype=torch.float32, device=h.device)
+        am = torch.empty(t, dtype=torch.int64, device=h.device)
+    if _cuda.TALLIES:
+        _cuda.record_cost(FWD.name, *fused_ce_cost(FWD, t, v, d, h.element_size()),
+                          (h, table, labels32), (lse, ll, am))
+    if h.device.type in ("cpu", "meta") or not (t and v):
         return lse, ll, am
     args = (h.data_ptr(), table.data_ptr(), labels32.data_ptr(), lse.data_ptr(),
             ll.data_ptr(), am.data_ptr())
@@ -174,11 +219,20 @@ def fused_ce_backward(kernel: CudaKernel, h, table, labels32, lse, g_lse, g_ll,
 
     bf16 runs the chunked tensor-core kernels on scratch allocated here
     (``chunk``: vocab rows per chunk, ``vocab_chunk``'s default if None);
-    f32 runs the SIMT kernels.
+    f32 runs the SIMT kernels. ``meta`` tensors return the empty output,
+    CPU ones the plain gradient (``_grad_plain``).
     """
     (t, d), v = h.shape, table.shape[0]
-    out = torch.empty((t if kernel is BWD_DH else v, d), dtype=h.dtype, device=h.device)
-    if not (t and v):
+    args = (h, table, labels32, lse, g_lse, g_ll)
+    if h.device.type == "cpu":
+        with _cuda.uncounted():
+            out = _grad_plain("dh" if kernel is BWD_DH else "de", *args)
+    else:
+        out = torch.empty((t if kernel is BWD_DH else v, d), dtype=h.dtype, device=h.device)
+    if _cuda.TALLIES:
+        _cuda.record_cost(kernel.name, *fused_ce_cost(kernel, t, v, d, h.element_size()),
+                          args, (out,))
+    if h.device.type in ("cpu", "meta") or not (t and v):
         return out
     fn = f"repro_{kernel.name}_{_SUFFIX[h.dtype]}"
     args = (h.data_ptr(), table.data_ptr(), labels32.data_ptr(), lse.data_ptr(),
@@ -228,14 +282,15 @@ def fused_ce(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
 
     h: (T, D) and table: (V, D) in the compute dtype (bf16 or f32),
     labels: (T,) int (< 0 = masked: ll 0, no one-hot gradient). lse and
-    ll are f32, argmax int64 (first index on ties). A CPU ``h`` runs
-    ``fused_ce_plain``; a CUDA ``h`` launches the kernels (anything they
-    do not take raises). ``chunk``: vocab rows per chunk of the bf16
-    backward (``vocab_chunk``).
+    ll are f32, argmax int64 (first index on ties). A CPU ``h`` runs the
+    plain versions (``fused_ce_plain`` forward, ``_grad_plain`` backward);
+    a CUDA ``h`` launches the kernels (anything they do not take raises);
+    a ``meta`` ``h`` takes the same checks and returns empty outputs.
+    ``chunk``: vocab rows per chunk of the bf16 backward (``vocab_chunk``).
     """
     if h.device.type == "cpu":
-        return fused_ce_plain(h, table, labels)
-    if h.device.type != "cuda":
+        return _FusedCE.apply(h, table, labels.to(torch.int32), chunk)
+    if h.device.type not in ("cuda", "meta"):
         raise ValueError(f"fused_ce: unsupported device {h.device}")
     labels32 = labels.to(torch.int32).contiguous()
     _check(h, table, labels32)

@@ -1,7 +1,9 @@
 """B3 MDS encode ``A~ = G A``: CUDA kernel on the card, plain torch on the CPU.
 
 Counterpart of ``repro/kernels/mds_encode/ops.py`` (source note in
-``csrc/mds_encode.cu``).
+``csrc/mds_encode.cu``). A ``meta`` tensor returns an empty output of the
+kernel's shape and dtype; every call reports ``mds_encode_cost`` to the
+active cost tallies (``_cuda.record_cost``).
 """
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import _cuda
 from repro_torch.kernels._cuda import CudaKernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -18,6 +21,12 @@ KERNEL = CudaKernel(
     Path(__file__).parent / "csrc" / "mds_encode.cu",
     {"repro_mds_encode_f32": [_P, _P, _P, _I, _I, _I, _I, _P]},
 )
+
+
+def mds_encode_cost(n: int, k: int, d: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one ``A~ = G A`` launch, (n, k) x (k, d) float32:
+    2 n k d, and G, A read once and A~ written once."""
+    return 2.0 * n * k * d, 4.0 * (n * k + k * d + n * d)
 
 
 def mds_encode_plain(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -29,11 +38,18 @@ def mds_encode(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """G (n, k) times A (k, d) -> (n, d).
 
     A CUDA ``a`` launches the kernel (float32, contiguous, same device;
-    anything else raises); a CPU ``a`` runs ``mds_encode_plain``.
+    anything else raises); a ``meta`` ``a`` takes the same checks and
+    returns the empty (n, d) float32 output; a CPU ``a`` runs
+    ``mds_encode_plain``.
     """
     if a.device.type == "cpu":
-        return mds_encode_plain(g, a)
-    if a.device.type != "cuda":
+        with _cuda.uncounted():
+            out = mds_encode_plain(g, a)
+        if _cuda.TALLIES:
+            _cuda.record_cost(KERNEL.name, *mds_encode_cost(
+                g.shape[0], g.shape[-1], a.shape[-1]), (g, a), (out,))
+        return out
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError(f"mds_encode: unsupported device {a.device}")
     if g.dim() != 2 or a.dim() != 2 or g.shape[1] != a.shape[0]:
         raise ValueError(f"mds_encode: shapes {tuple(g.shape)} x {tuple(a.shape)}")
@@ -43,7 +59,9 @@ def mds_encode(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
         raise ValueError("mds_encode kernel takes contiguous operands on one device")
     (n, k), d = g.shape, a.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=a.device)
-    if out.numel():
+    if a.device.type == "cuda" and out.numel():
         KERNEL.launch("repro_mds_encode_f32", a.device, g.data_ptr(), a.data_ptr(),
                       out.data_ptr(), n, d, k)
+    if _cuda.TALLIES:
+        _cuda.record_cost(KERNEL.name, *mds_encode_cost(n, k, d), (g, a), (out,))
     return out

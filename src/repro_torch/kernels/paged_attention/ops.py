@@ -10,8 +10,11 @@ in place (the reference returns updated copies).
 launches the hand-written split-KV kernel (``csrc/paged_decode.cu``: one
 launch over (slot x KV head, table block), one that folds the splits), a
 CPU tensor runs ``paged_decode_attend_plain``. ``decode_splits`` sizes
-the split grid from the table's width. The chunked-prefill attend has no TPU
-kernel and stays plain torch on every device.
+the split grid from the table's width. A ``meta`` ``q`` returns an empty
+output of the kernel's shape and dtype; every call reports
+``paged_decode_cost`` to the active cost tallies (``_cuda.record_cost``).
+The chunked-prefill attend has no TPU kernel and stays plain torch on
+every device.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import _cuda
 from repro_torch.kernels._cuda import CudaKernel
 
 NEG_INF = -1e30
@@ -46,6 +50,19 @@ def decode_splits(table_width: int) -> int:
     a slot's ``pos`` exit at once on the card.
     """
     return max(1, table_width)
+
+
+def paged_decode_cost(s: int, kv: int, g: int, hd: int, table_width: int, block_len: int,
+                      itemsize: int, tokens: int | None = None) -> tuple[float, float]:
+    """(FLOPs, bytes) of one decode attend: ``tokens`` KV entries attended
+    in all (by default every table entry, ``s * table_width * block_len``:
+    the most the shapes allow; a caller that knows the positions passes
+    the valid count). 4 tokens KV G hd FLOPs (scores and the weighted
+    sum); q read and the output written once, each attended K and V row
+    read once, the table and positions read once."""
+    tokens = s * table_width * block_len if tokens is None else tokens
+    nbytes = itemsize * (2 * s * kv * g * hd + 2 * tokens * kv * hd) + 4 * s * (table_width + 1)
+    return 4.0 * tokens * kv * g * hd, float(nbytes)
 
 
 def decode_scratch_floats(s: int, kv: int, g: int, hd: int, nsplit: int) -> int:
@@ -140,7 +157,8 @@ def paged_decode_attend_plain(q, k_pool, v_pool, table, pos):
 
 
 def paged_decode_attend(q, k_pool, v_pool, table, pos):
-    """The B2 wrapper: kernel for CUDA tensors, plain torch for CPU ones.
+    """The B2 wrapper: kernel for CUDA tensors, plain torch for CPU ones,
+    the empty output for ``meta`` ones (after the kernel's checks).
 
     Shapes as ``paged_decode_attend_plain``; ``table``/``pos`` int32. On
     the card q and the pools must share a dtype (bfloat16 or float32),
@@ -148,13 +166,16 @@ def paged_decode_attend(q, k_pool, v_pool, table, pos):
     multiple of 8 in bf16, of 4 in f32; at most 1024) and at most
     ``MAX_G`` query rows per KV head; anything else raises.
     """
-    if q.device.type == "cpu":
-        return paged_decode_attend_plain(q, k_pool, v_pool, table, pos)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attend: unsupported device {q.device}")
     s, kv, g, hd = q.shape
     nbp, bl = k_pool.shape[:2]
     mb = table.shape[1]
+    if q.device.type == "cpu":
+        with _cuda.uncounted():
+            out = paged_decode_attend_plain(q, k_pool, v_pool, table, pos)
+        _record_cost(q, k_pool, v_pool, table, pos, out)
+        return out
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"paged_decode_attend: unsupported device {q.device}")
     if k_pool.shape != (nbp, bl, kv, hd) or v_pool.shape != k_pool.shape:
         raise ValueError("paged_decode_attend: pool shape does not match q")
     if table.shape[0] != s or pos.shape != (s,):
@@ -170,11 +191,11 @@ def paged_decode_attend(q, k_pool, v_pool, table, pos):
     tensors = (q, k_pool, v_pool, table, pos)
     if any(t.device != q.device or not t.is_contiguous() for t in tensors):
         raise ValueError("paged_decode_attend kernel takes contiguous tensors on one device")
-    # the kernel reads K and V rows 16 bytes at a time; a pool view that
-    # starts off a 16-byte boundary is copied to one that does not
-    k_pool, v_pool = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (k_pool, v_pool))
     out = torch.empty_like(q)
-    if s * kv * g:
+    if q.device.type == "cuda" and s * kv * g:
+        # the kernel reads K and V rows 16 bytes at a time; a pool view that
+        # starts off a 16-byte boundary is copied to one that does not
+        k_pool, v_pool = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (k_pool, v_pool))
         nsplit = decode_splits(mb)
         part = torch.empty(decode_scratch_floats(s, kv, g, hd, nsplit),
                            dtype=torch.float32, device=q.device)
@@ -182,7 +203,27 @@ def paged_decode_attend(q, k_pool, v_pool, table, pos):
                       v_pool.data_ptr(), table.data_ptr(), pos.data_ptr(),
                       part.data_ptr(), out.data_ptr(), s, kv, g, hd, bl, mb, nbp, nsplit,
                       1.0 / math.sqrt(hd))
+    _record_cost(q, k_pool, v_pool, table, pos, out)
     return out
+
+
+def _record_cost(q, k_pool, v_pool, table, pos, out) -> None:
+    """Report one call's ``paged_decode_cost`` to the active tallies, if any."""
+    if _cuda.TALLIES:
+        s, kv, g, hd = q.shape
+        cost = paged_decode_cost(s, kv, g, hd, table.shape[1], k_pool.shape[1],
+                                 q.element_size())
+        _cuda.record_cost(KERNEL.name, *cost, (q, k_pool, v_pool, table, pos), (out,))
+
+
+def paged_decode_attend_kernel(q, k_pool, v_pool, table, pos):
+    """The kernel route alone (the reference's Pallas route of the same
+    name): ``paged_decode_attend`` on a CUDA or ``meta`` q; a CPU q, where
+    no kernel runs, raises."""
+    if q.device.type == "cpu":
+        raise ValueError("paged_decode_attend_kernel: no kernel runs on the CPU "
+                         "(paged_decode_attend runs the plain version there)")
+    return paged_decode_attend(q, k_pool, v_pool, table, pos)
 
 
 def paged_chunk_attend(q, k_pool, v_pool, table, q_pos):

@@ -53,6 +53,7 @@ from repro_torch.data.pipeline import make_extras
 from repro_torch.models.model import Model
 from repro_torch.obs.trace import SpanTracer
 from repro_torch.runtime.control import AdaptConfig, AdaptiveController
+from repro_torch.runtime.compile_cache import enable_persistent_cache
 from repro_torch.runtime.serve_loop import ServeConfig, Server
 from repro_torch.runtime.telemetry import Telemetry
 from repro_torch.runtime.timing import RoundClock
@@ -164,6 +165,9 @@ def main(argv=None):
         except ValueError:
             raise SystemExit(f"--slots must be an int or 'auto', "
                              f"got {args.slots!r}") from None
+
+    # a kernel built once is loaded by every later process (build cache)
+    enable_persistent_cache()
 
     config = get_arch(args.arch)
     if args.reduced:

@@ -25,6 +25,7 @@ from repro_torch.core.schemes import scheme_names
 from repro_torch.data import SyntheticLMData
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig
+from repro_torch.runtime.compile_cache import enable_persistent_cache
 from repro_torch.runtime.train_loop import TrainConfig, Trainer, heterogeneous_batch_split
 from repro_torch.sim import scenario_names
 
@@ -89,6 +90,9 @@ def main(argv=None):
         if coded_flags:
             raise SystemExit(f"{', '.join(coded_flags)} require --hetero-groups "
                              f"(coded training needs a fleet to plan against)")
+
+    # a kernel built once is loaded by every later process (build cache)
+    enable_persistent_cache()
 
     config = get_arch(args.arch)
     if args.reduced:

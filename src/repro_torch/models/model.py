@@ -174,7 +174,8 @@ class Model(nn.Module):
             raise ValueError(f"unknown family {config.family!r} ({config.name})")
         self.config = c = config
         self.device = dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        # a meta model holds shapes only: nothing is drawn
+        gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
         nl, d, f, hd = c.num_layers, c.d_model, c.d_ff, c.resolved_head_dim
         fam = c.family
         #: parameter names by group: stacked per decoder layer, per encoder

@@ -176,27 +176,49 @@ def test_scatter_chunk_matches_reference():
 
 # ------------------------------------------------------------- dispatch
 def test_wrappers_run_plain_on_cpu_and_refuse_other_devices():
-    """No fallback: a CPU tensor takes the plain path without launching;
-    a tensor on any other non-CUDA device raises."""
+    """No fallback: a CPU tensor takes the plain path without launching; a
+    ``meta`` tensor returns the kernel's empty output without launching
+    (the dry-run's shapes-only path); a tensor on any other non-CUDA
+    device raises."""
     kernels.reset_launch_counts()
     a = torch.ones((4, 3))
     blocked_matvec(a, torch.ones(3))
     mds_encode(a, torch.ones((3, 2)))
     lse, _, _ = fused_ce(a, torch.ones((5, 3)), torch.zeros(4, dtype=torch.long))
     assert lse.shape == (4,)
+    meta = torch.empty((4, 4), device="meta")
+    assert blocked_matvec(meta, torch.empty(4, device="meta")).shape == (4,)
+    assert mds_encode(meta, torch.empty((4, 2), device="meta")).shape == (4, 2)
+    q = torch.empty((1, 1, 1, 32), device="meta")
+    pool = torch.empty((2, 16, 1, 32), device="meta")
+    ints = torch.empty((1, 1), dtype=torch.int32, device="meta")
+    assert pa.paged_decode_attend(q, pool, pool, ints, ints[0]).shape == q.shape
+    assert fused_ce(meta, meta, torch.empty(4, dtype=torch.long, device="meta"))[0].shape == (4,)
     assert kernels.launch_counts() == {
         "coded_matvec": 0, "paged_decode": 0, "mds_encode": 0,
         "fused_ce_fwd": 0, "fused_ce_bwd_dh": 0, "fused_ce_bwd_de": 0}
-    meta = torch.empty((4, 3), device="meta")
+
+    class Elsewhere:
+        """A tensor's stand-in on a device the wrappers do not serve."""
+        device = torch.device("xla")
+        shape = (1, 1, 1, 32)
+        dtype = torch.float32
+
+        def dim(self):
+            return len(self.shape)
+
+        def element_size(self):
+            return 4
+
+    other = Elsewhere()
     with pytest.raises(ValueError, match="unsupported device"):
-        blocked_matvec(meta, torch.empty(3, device="meta"))
+        blocked_matvec(other, other)
     with pytest.raises(ValueError, match="unsupported device"):
-        mds_encode(meta, torch.empty((3, 2), device="meta"))
-    q = torch.empty((1, 1, 1, 32), device="meta")
+        mds_encode(other, other)
     with pytest.raises(ValueError, match="unsupported device"):
-        pa.paged_decode_attend(q, q, q, q, q)
+        pa.paged_decode_attend(other, other, other, ints, ints[0])
     with pytest.raises(ValueError, match="unsupported device"):
-        fused_ce(meta, meta, torch.empty(4, device="meta"))
+        fused_ce(other, other, other)
 
 
 def test_kernel_sources_are_where_the_wrappers_say():

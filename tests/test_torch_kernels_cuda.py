@@ -674,3 +674,77 @@ def test_bucketed_coded_head_decode_matches_plain(dev):
     cond = float(torch.linalg.cond(head.generator[order].double()))
     assert (got[:, :151_936] - logits).abs().max().item() <= cond * 2.0**-22 * scale
     assert (got - want).abs().max().item() <= cond * 2.0**-22 * scale
+
+
+def _meta_like(t):
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
+@pytest.mark.parametrize("n", [1, 1024])
+def test_meta_branches_match_the_launches(dev, n):
+    """Each wrapper's ``meta`` branch returns the shapes and dtypes its CUDA
+    launch returns (B1 both branches, B3, B2, B4 forward and backward), and
+    every call reports the cost function's FLOPs to an active tally."""
+    from repro_torch.launch.dryrun import Counter
+
+    gen = torch.Generator(device=dev).manual_seed(n)
+    a = torch.randn((738, 594), generator=gen, device=dev)
+    x = torch.randn((594, n), generator=gen, device=dev)
+    q = torch.randn((4, 8, 2, 128), generator=gen, device=dev).to(torch.bfloat16)
+    pool = torch.randn((73, 16, 8, 128), generator=gen, device=dev).to(torch.bfloat16)
+    table = torch.arange(4 * 18, dtype=torch.int32, device=dev).reshape(4, 18)
+    pos = torch.tensor([255, 100, 16, 40], dtype=torch.int32, device=dev)
+    h = (torch.randn((300, 1024), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+    e = (torch.randn((5000, 1024), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+    labels = torch.randint(0, 5000, (300,), generator=gen, device=dev)
+    calls = {
+        "coded_matvec": (cmv.blocked_matvec, (a, x)),
+        "mds_encode": (mds.mds_encode, (a, x)),
+        "paged_decode": (pa.paged_decode_attend, (q, pool, pool, table, pos)),
+    }
+    for name, (fn, args) in calls.items():
+        with Counter() as cnt:
+            got = fn(*args)
+        want = fn(*(_meta_like(t) for t in args))
+        assert (got.shape, got.dtype) == (want.shape, want.dtype), name
+        assert cnt.result().kernels[name][0] == 1, name
+    assert cnt.result().kernels["paged_decode"][1] == pa.paged_decode_cost(
+        4, 8, 2, 128, 18, 16, 2)[0]
+    outs = {}
+    for where in ("card", "meta"):
+        hh, ee = (h, e) if where == "card" else (_meta_like(h), _meta_like(e))
+        hh, ee = hh.clone().requires_grad_(), ee.clone().requires_grad_()
+        lab = labels if where == "card" else _meta_like(labels)
+        with Counter() as cnt:
+            lse, ll, am = ce.fused_ce(hh, ee, lab)
+            dh, de = torch.autograd.grad((lse + ll).sum(), (hh, ee))
+        outs[where] = [(t.shape, t.dtype) for t in (lse, ll, am, dh, de)]
+        assert {k: v[:2] for k, v in cnt.result().kernels.items()} == {
+            "fused_ce_fwd": [1, 2.0 * 300 * 5000 * 1024],
+            "fused_ce_bwd_dh": [1, 4.0 * 300 * 5000 * 1024],
+            "fused_ce_bwd_de": [1, 4.0 * 300 * 5000 * 1024]}
+    assert outs["card"] == outs["meta"]
+
+
+def test_local_mesh_on_nccl(dev):
+    """``make_local_mesh()``: a one-rank NCCL group and a (1, 1) mesh; a
+    parameter distributed by the rules comes back bit-identical; the
+    group is destroyed after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import destroy_local_mesh, make_local_mesh
+    from repro_torch.sharding import rules
+
+    mesh = make_local_mesh()
+    try:
+        assert dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1)
+        t = torch.randn((2, 64, 32), device=dev)
+        placed = rules.distribute(mesh, {"wq": t}, {"wq": rules.placements(
+            mesh, (None, "data", "model"))})["wq"]
+        assert torch.equal(placed.to_local(), t) and torch.equal(placed.full_tensor(), t)
+        s = torch.ones(4, device=dev)
+        dist.all_reduce(s)
+        assert torch.equal(s, torch.ones(4, device=dev))
+    finally:
+        destroy_local_mesh()
+    assert not dist.is_initialized()

@@ -273,7 +273,9 @@ def test_adamw_matches_reference():
     params = {n: rng.standard_normal(s).astype(np.float32) for n, s in shapes.items()}
     cfg = AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=6, clip_norm=0.5)
     rcfg = RefAdamWConfig(lr=1e-2, warmup_steps=2, total_steps=6, clip_norm=0.5)
-    p = {n: torch.from_numpy(v) for n, v in params.items()}
+    # copies: the port's update writes the parameters in place, and
+    # jnp.asarray may share the numpy buffer on the CPU
+    p = {n: torch.from_numpy(v.copy()) for n, v in params.items()}
     rp = {n: jnp.asarray(v) for n, v in params.items()}
     st, rst = adamw_init(cfg, p), ref_adamw_init(rcfg, rp)
     for step in range(5):
