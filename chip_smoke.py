@@ -5,7 +5,9 @@ through the coded server (paged and dense), generate with it under every
 baseline allocation scheme, profile those serving paths phase by phase with
 their spans on a telemetry stream, generate under a drifting fleet with
 closed-loop replanning (simulated, then measured by a round clock with plan
-buckets), run the serving CLI and its ops report, serve the other configs of
+buckets), hold the dispatch programs captured as CUDA graphs (every serve
+and generate replays them by default) against the same programs run
+eagerly, run the serving CLI and its ops report, serve the other configs of
 the port's envelope at full width (granite-3-2b, yi-9b, moonshot-v1-16b-a3b
 and paligemma-3b paged; h2o-danube-3-4b, plain and int8 KV, whisper-tiny,
 zamba2-1.2b and xlstm-125m through the sequential prefill), then train
@@ -62,8 +64,9 @@ Phases (any failure raises, and the script exits non-zero):
    held against the uncoded run's where the margin is clear;
    obs      — the serving paths with the observability layer on, each in
    its own ``obs.profile.capture`` session (a ``torch.profiler`` phase),
-   on a short trace (``obs_trace``: 1 request) served first without the
-   profiler: the paged serve with a ``Telemetry`` JSONL (its spans ride on
+   on a short trace (``obs_trace``: 1 request) served twice first without
+   the profiler on the same server (built, then captured: the profile
+   sees replays): the paged serve with a ``Telemetry`` JSONL (its spans ride on
    it), the dense serve measured by a ``RoundClock`` with a controller that
    holds, and generate's first 2 tokens; streams and tokens equal the
    unprofiled ones, every JSONL record validates against
@@ -88,6 +91,15 @@ Phases (any failure raises, and the script exits non-zero):
    the streams equal the serve phase's, fed == dispatches - 1; and one
    replan's allocation timed on the fused torch cores and on the numpy
    eager oracle; counters reset before (c) and (d) and read after;
+   programs — the dispatch programs captured as CUDA graphs against the
+   same program functions uncaptured (``Server._capture = False``): the
+   paged and the dense serve of [serve]'s trace (eager once; captured
+   twice, the second run all replays, then a second trace with another
+   prompt mix that must build and capture nothing) and ``generate`` of
+   [generate]'s prompts for two seeds; streams, tokens, decode ok and
+   erased rounds identical, B1-B3 launches equal; per mode the walls,
+   builds, captures and capture seconds, and the card's busy share from
+   a profile of a few steady dispatches;
 9. cli      — five subprocesses started together: ``python -m
    repro_torch.launch.serve --coded`` with ``--scheme uniform_r`` (exit 0,
    its coded-head line), ``--scenario churn --adapt-every 2 --rounds 12``
@@ -978,9 +990,10 @@ def serve_trace(cfg):
                          out_len=(8, 16), vocab=cfg.vocab_size).trace(seed=0)
 
 
-def serve_phase(model, tag: str = "serve"):
+def serve_phase(model, tag: str = "serve", keep: dict | None = None):
     """Coded paged serve on ``model``; returns the launch counts of the run
-    and its report. ``tag`` heads the printed lines."""
+    and its report. ``tag`` heads the printed lines; ``keep`` (a dict), if
+    given, keeps the server under ``tag`` for [programs]."""
     import torch
 
     import repro_torch.kernels as kernels
@@ -1052,6 +1065,8 @@ def serve_phase(model, tag: str = "serve"):
         if checked == 4:
             break
     check(checked >= 1, "no coded round decoded through erasures")
+    if keep is not None:
+        keep[tag] = server
     return counts, rep
 
 
@@ -1100,11 +1115,13 @@ def first_round_logits(model, reqs, chunk):
     return dense[:, :v].float(), paged[:, :v].float()
 
 
-def serve_dense_phase(model, paged_rep, tag: str = "serve-dense") -> dict:
+def serve_dense_phase(model, paged_rep, tag: str = "serve-dense",
+                      keep: dict | None = None) -> dict:
     """The serve phase's trace through ``serve(paged=False)`` (dense per-slot
     caches), same slots, decode chunks and seed; the first-round logits of
     the two paths held against each other. Returns the launch counts and
-    the report. ``tag`` heads the printed lines."""
+    the report. ``tag`` heads the printed lines; ``keep`` as
+    ``serve_phase``'s."""
     import torch
 
     import repro_torch.kernels as kernels
@@ -1161,6 +1178,8 @@ def serve_dense_phase(model, paged_rep, tag: str = "serve-dense") -> dict:
           f"{int((dense.argmax(1) == paged.argmax(1)).sum())}/{SLOTS}")
     check(bool(torch.isfinite(dense).all()) and e_dense <= 2 * e_paged + 2.0**-8 * scale,
           "the dense path's bf16 logits are noisier than the paged path's")
+    if keep is not None:
+        keep[tag] = server
     return counts, rep
 
 
@@ -1199,7 +1218,10 @@ def repo_kernel(event: dict) -> str | None:
 
 def count_calls(obj, name: str) -> list[int]:
     """Wrap the bound method ``obj.name`` so that each call adds one to the
-    returned one-element counter."""
+    returned one-element counter. The wrapper holds ``obj`` (a reference
+    cycle): ``del obj.name`` takes it off, so that ``obj`` and its CUDA
+    graphs are freed when the last name goes, not by a later collection
+    (one inside a profiler session could destroy a graph there)."""
     calls, real = [0], getattr(obj, name)
 
     def counted(*args, **kw):
@@ -1225,8 +1247,10 @@ def obs_trace(cfg):
 def obs_phase(model, gen_out) -> dict:
     """The serving paths once more with the observability layer on, each
     under its own ``obs.profile.capture`` session and phase, on a short
-    trace (``obs_trace``) served first without the profiler for the
-    streams to hold to: (1) the paged serve with a ``Telemetry`` JSONL,
+    trace (``obs_trace``) served twice first without the profiler, by
+    the same server (built, then captured: the profile sees replays of
+    captured graphs), for the streams to hold to: (1) the paged serve
+    with a ``Telemetry`` JSONL,
     so its spans ride on it; (2) the dense serve, measured by a
     ``RoundClock`` and observed by an ``AdaptiveController`` that holds
     (threshold 1.0: no gain can reach it) with admission at a fixed
@@ -1260,8 +1284,13 @@ def obs_phase(model, gen_out) -> dict:
     trace = obs_trace(cfg)
     kw = dict(slots=SLOTS, decode_block=DECODE_BLOCK, seed=0)
     paged_kw = dict(kw, block_len=BLOCK_LEN, prefill_chunk=CHUNK)
-    plain = {"serve_paged": Server(model, fleet, conf).serve(trace, **paged_kw),
-             "serve_dense": Server(model, fleet, conf).serve(trace, paged=False, **kw)}
+    # each profiled copy runs on a server that served it twice unprofiled
+    # (built, then captured): the profile sees replays of captured graphs
+    servers = {p: Server(model, fleet, conf) for p in OBS_PHASES}
+    plain = {"serve_paged": servers["serve_paged"].serve(trace, **paged_kw),
+             "serve_dense": servers["serve_dense"].serve(trace, paged=False, **kw)}
+    servers["serve_paged"].serve(trace, **paged_kw)
+    servers["serve_dense"].serve(trace, paged=False, **kw)
     print(f"[obs] profiled copies: a trace of {len(trace)} (prompt lengths "
           f"{[r.prompt_len for r in trace]}, out {[r.out_len for r in trace]}) served "
           f"unprofiled first, paged {plain['serve_paged'].wall_s:.3f} s and dense "
@@ -1273,9 +1302,9 @@ def obs_phase(model, gen_out) -> dict:
 
         kernels.reset_launch_counts()
         t = time.perf_counter()
+        server = servers["serve_paged"]
+        calls["serve_paged"] = count_calls(server, "_run")
         with profile.capture(tmp, "serve_paged"):
-            server = Server(model, fleet, conf)
-            calls["serve_paged"] = count_calls(server, "_serve_step_paged")
             rep = server.serve(trace, telemetry=tel, **paged_kw)
         walls["serve_paged"] = time.perf_counter() - t
         counts["serve_paged"] = kernels.launch_counts()
@@ -1290,12 +1319,12 @@ def obs_phase(model, gen_out) -> dict:
 
         kernels.reset_launch_counts()
         t = time.perf_counter()
+        server = servers["serve_dense"]
+        exe = server.coded_head.executor
+        calls["serve_dense"] = count_calls(server, "_run")
         with profile.capture(tmp, "serve_dense"):
-            server = Server(model, fleet, conf)
-            exe = server.coded_head.executor
             ctl = AdaptiveController(exe, AdaptConfig(every=1, threshold=1.0), telemetry=tel)
             clock = RoundClock(exe, telemetry=tel)
-            calls["serve_dense"] = count_calls(server, "_serve_step_dense")
             rep = server.serve(trace, paged=False, telemetry=tel, clock=clock, controller=ctl,
                                round_latency=lambda: 1.0, tracer=SpanTracer(tel), **kw)
         walls["serve_dense"] = time.perf_counter() - t
@@ -1312,11 +1341,13 @@ def obs_phase(model, gen_out) -> dict:
               "tracing changed the dense serve's streams")
 
         prompts = gen_prompts(cfg.vocab_size)
+        server = servers["generate"]
+        for _ in range(2):
+            server.generate(prompts, OBS_GEN_NEW, seed=1, cache_len=GEN_PROMPT + GEN_NEW)
+        server.tracer = SpanTracer(tel)
         kernels.reset_launch_counts()
         t = time.perf_counter()
         with profile.capture(tmp, "generate"):
-            server = Server(model, fleet, conf)
-            server.tracer = SpanTracer(tel)
             out = server.generate(prompts, OBS_GEN_NEW, seed=1,
                                   cache_len=GEN_PROMPT + GEN_NEW)
         walls["generate"] = time.perf_counter() - t
@@ -1325,7 +1356,15 @@ def obs_phase(model, gen_out) -> dict:
         check(torch.equal(out, gen_out[:, :GEN_PROMPT + OBS_GEN_NEW]),
               "tracing changed generate's tokens")
         tel.close()
-        del server, exe, ctl
+        replayed = {p: (servers[p].programs.captures, servers[p].programs.replays)
+                    for p in OBS_PHASES}
+        print("[obs] profiled copies replay captured graphs: " + ", ".join(
+            f"{p} {c} captures, {r} replays" for p, (c, r) in replayed.items()))
+        check(all(c > 0 and r > 0 for c, r in replayed.values()) or device.type != "cuda",
+              "every profiled copy replayed captured graphs")
+        for srv in servers.values():
+            srv.__dict__.pop("_run", None)
+        del server, exe, ctl, servers
         sizes = {p: os.path.getsize(os.path.join(tmp, f"{p}.pt.trace.json")) / 1e6
                  for p in walls}
         print("[obs] captures (run, profiler stop and trace export): " + ", ".join(
@@ -1646,6 +1685,7 @@ def adapt_phase(model, card: str) -> dict:
               f"decode ok {oks}/{ADAPT_ROUNDS * ADAPT_NEW}; {n_rep} replans, after rounds "
               f"{replanned_at}; {held[0]} tokens equal "
               f"the uncoded run's before any difference, {held[1]} checked; launches {counts}")
+        program_counts(name, server, replanned_at)
         check(counts["mds_encode"] == 1 + n_rep, f"{name}: mds_encode == 1 + replans")
         check(counts["coded_matvec"] == ADAPT_ROUNDS * ADAPT_NEW,
               f"{name}: coded_matvec == rounds x tokens")
@@ -1657,6 +1697,23 @@ def adapt_phase(model, card: str) -> dict:
                   f"{membership}")
         del server, head, ctl
     return out_counts
+
+
+def program_counts(tag: str, server, rebuilt_after: list[int]) -> None:
+    """Print and hold a round loop's programs: one ``generate`` key, built
+    again after each structural replan that a round follows (rounds after
+    a bucket switch reuse it), and captured at the second round of each
+    build on the card."""
+    bounds = [0, *sorted(t + 1 for t in rebuilt_after if t < ADAPT_ROUNDS - 1), ADAPT_ROUNDS]
+    segments = [b - a for a, b in zip(bounds, bounds[1:])]
+    p = server.programs
+    print(f"[adapt] {tag} programs: {server.traces} builds, {p.captures} captures "
+          f"({p.capture_s:.3f} s), {p.replays} replays; builds after rounds "
+          f"{bounds[1:-1]}")
+    check(server.traces == len(segments), f"{tag}: a build per structural replan only")
+    if server.device.type == "cuda":
+        check(p.captures == sum(n >= 2 for n in segments),
+              f"{tag}: a capture per build used twice")
 
 
 #: [adapt] (c): the bucket quantum of the measured mu_step pass
@@ -1791,6 +1848,8 @@ def adapt_measured_phase(model, card: str, paged_rep) -> dict:
           f"{sum(h for *_, h in replans)} bucket hits), B3 re-encodes avoided "
           f"{len(replans) - structural}; decode ok {oks}/{ADAPT_ROUNDS * ADAPT_NEW}; "
           f"{held[0]} tokens equal the uncoded run's, {held[1]} checked; launches {counts}")
+    program_counts(f"mu_step measured ({len(replans) - structural} bucket switches, "
+                   f"{structural} structural)", server, [t for t, st, _ in replans if st])
     check(counts["mds_encode"] == 1 + structural,
           "mu_step measured: mds_encode == 1 + structural replans")
     check(counts["coded_matvec"] == ADAPT_ROUNDS * ADAPT_NEW,
@@ -1863,6 +1922,243 @@ def adapt_measured_phase(model, card: str, paged_rep) -> dict:
     print(f"[adapt] one replan's allocation (optimal, kb {-(-v // 256)}, 12 workers, median "
           f"of 20, memo cleared): {allocation_ms(fleet, -(-v // 256)):.3f} ms ({card} host)")
     return out
+
+
+#: [programs]: the second trace's prompts are drawn with this seed
+PROGRAM_SEED = 5
+#: [programs]' generate seeds
+PROGRAM_GEN_SEEDS = (1, 2)
+
+
+def programs_trace2(trace, vocab: int):
+    """[serve]'s trace with another prompt mix: each request keeps its
+    arrival and output length, and its prompt is redrawn (tokens and a
+    length within the same count of CHUNK-token chunks, at most the
+    trace's longest prompt). The paged schedule, and so every program key,
+    is the first trace's."""
+    import dataclasses
+    import random
+
+    rng = random.Random(PROGRAM_SEED)
+    longest = max(r.prompt_len for r in trace)
+    out = []
+    for r in trace:
+        chunks = -(-r.prompt_len // CHUNK)
+        n = rng.randint((chunks - 1) * CHUNK + 1, min(chunks * CHUNK, longest))
+        out.append(dataclasses.replace(r, prompt=tuple(rng.randrange(vocab)
+                                                       for _ in range(n))))
+    return out
+
+
+def busy_share(tmp: str, name: str, fn) -> tuple[float, float]:
+    """(device-op time / wall, wall ms) of ``fn()`` in one profiler session
+    (``obs.profile.capture``; device ops filed by their launch)."""
+    import gc
+    import os
+
+    from repro_torch.obs import profile
+
+    where = os.path.join(tmp, name)
+    gc.collect()  # nothing unreachable is collected inside the session
+    with profile.capture(where, name):
+        fn()
+    s = profile.summarize(where, [name])[name]
+    return s["op_total_us"] / s["wall_us"], s["wall_us"] / 1e3
+
+
+def programs_phase(model, card: str, served: dict, paged_rep, dense_rep) -> dict:
+    """The dispatch programs captured as CUDA graphs against the same
+    program functions uncaptured (``Server._capture = False``), at full
+    width. For the paged and the dense serve of [serve]'s trace: [serve]'s
+    and [serve-dense]'s servers (``served``) ran the captured first run
+    (each key built, the keys dispatched twice captured); each serves the
+    trace again (all replays) and then the trace with another prompt mix
+    (``programs_trace2``), which must build and capture nothing; an eager
+    server serves the trace once. For ``generate`` ([generate]'s prompts,
+    8 new, the coded optimal head): the eager server for each of
+    PROGRAM_GEN_SEEDS, the captured one for the first seed twice (built,
+    then captured and replayed) and then each seed replayed. Streams,
+    tokens, decode ok and erased rounds are held identical, and B1-B3
+    launches (counters reset before each run) equal. Per mode the walls,
+    the builds, captures and capture seconds, and the card's busy share
+    from a profile of [obs]' one-request trace (two dispatches, replays:
+    served twice before by [serve]'s or [serve-dense]'s server, and at
+    least one of its graphs captured there, before [obs]'s profiler
+    sessions) and of one generate call. Returns the counts by path: each mode's steady run."""
+    import tempfile
+
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.core.runtime_model import ClusterSpec
+    from repro_torch.runtime.serve_loop import ServeConfig, Server
+
+    cfg, device = model.config, model.device
+    cuda = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if cuda else (lambda: None)
+    fleet = ClusterSpec.make(*CLUSTER)
+    conf = ServeConfig(block_rows=256, deadline_safety=SAFETY, scheme="optimal")
+    trace = serve_trace(cfg)
+    trace2 = programs_trace2(trace, cfg.vocab_size)
+    short = obs_trace(cfg)
+    paths = {}
+
+    def timed(fn):
+        """(result, wall s, launch counts) of ``fn()``, counters reset first."""
+        kernels.reset_launch_counts()
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t, kernels.launch_counts()
+
+    def eager_server() -> Server:
+        server = Server(model, fleet, conf)
+        server._capture = False
+        return server
+
+    def progs(server) -> str:
+        p = server.programs
+        return (f"{sum(p.builds.values())} builds, {p.captures} captures "
+                f"({p.capture_s:.3f} s), {p.replays} replays")
+
+    b123 = ("coded_matvec", "paged_decode", "mds_encode")
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, first, phase in (("paged", paged_rep, "serve"),
+                                  ("dense", dense_rep, "serve-dense")):
+            paged = tag == "paged"
+            kw = dict(slots=SLOTS, decode_block=DECODE_BLOCK, seed=0, paged=paged)
+            if paged:
+                kw.update(block_len=BLOCK_LEN, prefill_chunk=CHUNK)
+            cap, c_counts = served[phase], served[phase, "counts"]
+            after_first = progs(cap)
+            old_keys = set(cap.programs.keys(captured=True))  # captured in [phase]
+            # the first trace's shapes (the pool; the dense caps), which the
+            # second trace and the profiled one fit in
+            shape = (dict(num_blocks=SLOTS * max(-(-(r.prompt_len + r.out_len + 1)
+                                                   // BLOCK_LEN) for r in trace))
+                     if paged else dict(prompt_cap=max(r.prompt_len for r in trace),
+                                        max_out=max(r.out_len for r in trace)))
+            kw.update(shape)
+            made = []  # the eager server, made inside the count (its B3 counted)
+            eager, _, e_counts = timed(lambda: made.append(eager_server())
+                                       or made[0].serve(trace, **kw))
+            eager_srv = made.pop()
+            steady, _, s_counts = timed(lambda: cap.serve(trace, **kw))
+            keys = len(cap.programs.keys())
+            built, captures = cap.serve_traces, cap.programs.captures
+            other = cap.serve(trace2, **kw)
+            e_wall, s_wall, o_wall = eager.wall_s, steady.wall_s, other.wall_s
+            print(f"[programs] {tag} serve, [serve]'s trace ({card}): eager wall "
+                  f"{e_wall:.3f} s; captured: first run ([{phase}]) {first.wall_s:.3f} s "
+                  f"({after_first}), steady {s_wall:.3f} s ({progs(cap)}; {keys} keys), "
+                  f"another prompt mix {o_wall:.3f} s ({cap.serve_traces - built} builds, "
+                  f"{cap.programs.captures - captures} captures added); eager "
+                  f"{e_wall / s_wall:.2f}x the steady wall")
+            print(f"[programs] {tag}: decode ok / erased rounds: eager "
+                  f"{eager.decode_ok}/{eager.decode_rounds}, {eager.erased_rounds}; captured "
+                  f"first {first.decode_ok}, {first.erased_rounds}; steady "
+                  f"{steady.decode_ok}, {steady.erased_rounds}; streams equal eager's: first "
+                  f"{first.streams == eager.streams}, steady "
+                  f"{steady.streams == eager.streams}; another mix {len(other.streams)} "
+                  f"streams, {other.tokens} tokens; serve_traces eager "
+                  f"{eager_srv.serve_traces}, captured {cap.serve_traces}")
+            print(f"[programs] {tag} launches (B1, B2, B3): eager "
+                  f"{[e_counts[k] for k in b123]}, captured first "
+                  f"{[c_counts[k] for k in b123]}, steady {[s_counts[k] for k in b123]}")
+            for rep in (first, steady):
+                check(rep.streams == eager.streams, f"{tag}: captured streams differ")
+                check((rep.decode_ok, rep.erased_rounds)
+                      == (eager.decode_ok, eager.erased_rounds),
+                      f"{tag}: captured decode ok or erased rounds differ")
+            check(other.tokens == sum(r.out_len for r in trace2) and other.shed == 0,
+                  f"{tag}: the second trace served every request")
+            check(c_counts == e_counts, f"{tag}: captured launches differ from eager")
+            check(all(s_counts[k] == e_counts[k] for k in b123[:2])
+                  and s_counts["mds_encode"] == 0,
+                  f"{tag}: the steady run's B1, B2 launches differ from eager")
+            check(e_counts["coded_matvec"] == eager.decode_rounds
+                  and e_counts["paged_decode"] == (cfg.num_layers * eager.decode_rounds
+                                                   if paged else 0)
+                  and e_counts["mds_encode"] == 1,
+                  f"{tag}: B1 == decode steps, B2 == layers x steps (paged), B3 == 1")
+            check(cap.serve_traces == built and cap.programs.captures == captures,
+                  f"{tag}: another prompt mix built or captured a program")
+            check(built == eager_srv.serve_traces, f"{tag}: both modes built the same keys")
+            if cuda:
+                check(captures == keys,
+                      f"{tag}: every key captured once, in the first two runs")
+            paths[f"programs_serve_{tag}"] = s_counts
+            # the profile replays graphs that [serve] captured, before the
+            # profiler sessions of [obs] (those once crashed a replay:
+            # PERF.md section 7); [obs]' trace served twice first, so its
+            # keys are captured, and the keys it dispatches recorded
+            used = set()
+            run = cap._run
+            cap._run = lambda kind, key, *a: used.add(key) or run(kind, key, *a)
+            for _ in range(2):
+                cap.serve(short, **kw)
+            del cap._run, run  # the wrapper refers to the server
+            replayed = sum((*key, False) in old_keys for key in used)
+            shares = {"eager": busy_share(tmp, f"programs_{tag}_eager",
+                                          lambda: eager_srv.serve(short, **kw)),
+                      "captured": busy_share(tmp, f"programs_{tag}_captured",
+                                             lambda: cap.serve(short, **kw))}
+            print(f"[programs] {tag} busy share ([obs]' trace of {len(short)} request, "
+                  f"profiled; {replayed} of its {len(used)} keys captured in [{phase}]; "
+                  f"{card}): eager {shares['eager'][0]:.3f} of "
+                  f"{shares['eager'][1]:.1f} ms, captured {shares['captured'][0]:.3f} of "
+                  f"{shares['captured'][1]:.1f} ms")
+            if cuda:
+                check(replayed > 0, f"{tag}: the profile replays a graph captured in [{phase}]")
+            del served[phase], cap, eager_srv
+
+        prompts = gen_prompts(cfg.vocab_size)
+
+        def gen(server, seed, max_new=GEN_NEW):
+            rounds = []
+            out = server.generate(prompts, max_new, seed=seed,
+                                  observe=lambda step, lg, sel, ok, mask: rounds.append(
+                                      (int(ok), int(not bool(mask.all())))))
+            return out, sum(r[0] for r in rounds), sum(r[1] for r in rounds)
+
+        servers = {"eager": eager_server(), "captured": Server(model, fleet, conf)}
+        runs = {}
+        for seed in PROGRAM_GEN_SEEDS:
+            runs["eager", seed] = timed(lambda: gen(servers["eager"], seed))
+        order = (PROGRAM_GEN_SEEDS[0], *PROGRAM_GEN_SEEDS)
+        for i, seed in enumerate(order):
+            runs["captured", i] = timed(lambda: gen(servers["captured"], seed))
+        cap = servers["captured"]
+        for i, seed in enumerate(order):
+            (out, ok, erased), _, counts = runs["captured", i]
+            (e_out, e_ok, e_erased), _, e_counts = runs["eager", seed]
+            check(torch.equal(out, e_out), f"generate seed {seed}: captured tokens differ")
+            check((ok, erased) == (e_ok, e_erased),
+                  f"generate seed {seed}: decode ok or erased rounds differ")
+            check(counts == e_counts and counts["coded_matvec"] == GEN_NEW,
+                  f"generate seed {seed}: launches differ (B1 == {GEN_NEW})")
+        check(cap.traces == servers["eager"].traces == 1
+              and cap.programs.captures == int(cuda), "generate: one program, captured once")
+        walls = [runs["captured", i][1] for i in range(len(order))]
+        print(f"[programs] generate ({GEN_BATCH} x {GEN_PROMPT}, {GEN_NEW} new, seeds "
+              f"{list(PROGRAM_GEN_SEEDS)}; {card}): eager walls "
+              + ", ".join(f"{runs['eager', s][1]:.3f}" for s in PROGRAM_GEN_SEEDS)
+              + f" s; captured: built {walls[0]:.3f} s, captured and replayed "
+              f"{walls[1]:.3f} s, replays {', '.join(f'{w:.3f}' for w in walls[2:])} s "
+              f"({progs(cap)}); traces eager {servers['eager'].traces}, captured "
+              f"{cap.traces}; tokens, decode ok and erased rounds equal: " + ", ".join(
+                  f"seed {s} ok {runs['eager', s][0][1]}/{GEN_NEW}, erased "
+                  f"{runs['eager', s][0][2]}" for s in PROGRAM_GEN_SEEDS)
+              + f"; launches {runs['captured', len(order) - 1][2]}")
+        shares = {mode: busy_share(tmp, f"programs_generate_{mode}",
+                                   lambda: gen(servers[mode], PROGRAM_GEN_SEEDS[0]))
+                  for mode in ("eager", "captured")}
+        print(f"[programs] generate busy share (one call profiled; {card}): eager "
+              f"{shares['eager'][0]:.3f} of {shares['eager'][1]:.1f} ms, captured "
+              f"{shares['captured'][0]:.3f} of {shares['captured'][1]:.1f} ms")
+        paths["programs_generate"] = runs["captured", len(order) - 1][2]
+    return paths
 
 
 #: [train-adapt]: (a) churn, measured, bucketed; (b) a static fleet padded
@@ -3217,9 +3513,12 @@ def main(argv=None) -> int:
     paths["matvec"], path_m = matvec_phase()
     lap("matvec")
     model = make_model(get_arch("qwen3-0.6b"))
-    paths["serve"], paged_rep = serve_phase(model)
+    served = {}  # [serve]'s and [serve-dense]'s servers, for [programs]
+    paths["serve"], paged_rep = serve_phase(model, keep=served)
+    served["serve", "counts"] = paths["serve"]
     lap("serve")
-    paths["serve_dense"], _ = serve_dense_phase(model, paged_rep)
+    paths["serve_dense"], dense_rep = serve_dense_phase(model, paged_rep, keep=served)
+    served["serve-dense", "counts"] = paths["serve_dense"]
     lap("serve-dense")
     paths["generate"], gen_out = generate_phase(model, card)
     lap("generate")
@@ -3230,6 +3529,9 @@ def main(argv=None) -> int:
     lap("adapt")
     paths.update(adapt_measured_phase(model, card, paged_rep))
     lap("adapt-measured")
+    paths.update(programs_phase(model, card, served, paged_rep, dense_rep))
+    del served
+    lap("programs")
     del model
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:

@@ -68,7 +68,10 @@ def decode_systematic(generator: torch.Tensor, coded_values: torch.Tensor,
     first k of them gathered into a static (k, k) system, LU-solved with
     one step of iterative refinement. ``ok`` is a 0-d bool tensor, False
     when fewer than k rows survived; the output is then zeroed. Nothing
-    syncs with the host.
+    syncs with the host, so a CUDA graph can hold the decode: the solve is
+    the row permutation and two triangular solves on the LU factors, not
+    ``lu_solve``, whose choice of backend by size reaches MAGMA's batched
+    solve at some (k, c), a call a capture refuses.
 
     Args:
       generator: (n, k) generator used at encode time.
@@ -86,8 +89,14 @@ def decode_systematic(generator: torch.Tensor, coded_values: torch.Tensor,
     y_s = coded_values[idx].to(generator.dtype)
     rhs = y_s if y_s.dim() == 2 else y_s[:, None]
     lu, piv, _ = torch.linalg.lu_factor_ex(g_s)
-    z = torch.linalg.lu_solve(lu, piv, rhs)
-    z = z + torch.linalg.lu_solve(lu, piv, rhs - g_s @ z)  # refine
+    perm = torch.lu_unpack(lu, piv, unpack_data=False)[0].argmax(0)  # g_s = P L U
+
+    def solve(b):
+        y = torch.linalg.solve_triangular(lu, b[perm], upper=False, unitriangular=True)
+        return torch.linalg.solve_triangular(lu, y, upper=True)
+
+    z = solve(rhs)
+    z = z + solve(rhs - g_s @ z)  # refine
     z = z if y_s.dim() == 2 else z[:, 0]
     ok = mask.sum() >= k
     z = z.to(coded_values.dtype)

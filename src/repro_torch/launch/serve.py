@@ -34,9 +34,11 @@ as the reference's), an audio one from the encoder output of stub frames
 or ``kv_quant`` config exits non-zero with the reference's refusal (those
 configs only ``generate``).
 
-Not ported (argparse refuses them): the reference's numpy host loop
-(``--legacy-decode``) and ``--use-kernel`` (on the card the head always
-runs its kernel).
+``--legacy-decode`` runs ``generate`` as the eager per-token host loop
+(``ServeConfig(jit_pipeline=False)``) instead of its captured program,
+the A/B baseline; it refuses ``--trace`` and ``--measure-times`` with the
+reference's messages. Not ported (argparse refuses it): ``--use-kernel``
+(on the card the head always runs its kernel).
 """
 from __future__ import annotations
 
@@ -89,6 +91,9 @@ def main(argv=None):
     ap.add_argument("--comm-download", type=float, default=None,
                     help="per-row transfer cost for --scheme comm_aware / "
                          "comm_uniform (divided by bandwidth)")
+    ap.add_argument("--legacy-decode", action="store_true",
+                    help="per-token host loop (the eager path the captured "
+                         "generate program replaces; for A/B timing)")
     ap.add_argument("--scenario", default=None, choices=scenario_names(),
                     help="cluster-dynamics scenario: serve rounds against a "
                          "drifting true fleet (requires --coded)")
@@ -147,6 +152,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.trace is not None and args.scenario is not None:
         raise SystemExit("--trace and --scenario are separate serving modes; pick one")
+    if args.trace is not None and args.legacy_decode:
+        raise SystemExit("--trace requires the jit pipeline (continuous batching splices "
+                         "into compiled programs); drop --legacy-decode")
     if args.scenario is not None and not args.coded:
         raise SystemExit("--scenario requires --coded (a fleet to perturb)")
     if args.adapt_every is not None and args.scenario is None:
@@ -155,6 +163,8 @@ def main(argv=None):
     if args.measure_times and not args.coded:
         raise SystemExit("--measure-times requires --coded (round times are decomposed "
                          "over the coded fleet)")
+    if args.measure_times and args.legacy_decode:
+        raise SystemExit("--measure-times times compiled dispatches; drop --legacy-decode")
     if args.slots == "auto":
         if not args.coded:
             raise SystemExit("--slots auto derives the width from the coded "
@@ -178,6 +188,7 @@ def main(argv=None):
     cluster = ClusterSpec.parse(args.groups, args.bandwidth) if args.coded else None
     server = Server(model, cluster,
                     ServeConfig(max_decode_steps=args.max_new, scheme=scheme,
+                                jit_pipeline=not args.legacy_decode,
                                 bucket_quantum=args.bucket_quantum))
     if server.coded_head is not None:
         h = server.coded_head

@@ -331,7 +331,7 @@ def decode_attention(p: dict, x, cache: dict, pos: int, *, num_heads, num_kv_hea
         cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
         cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
         k, v = cache["k"], cache["v"]
-    cache["pos"][slot] = pos
+    cache["pos"][slot].fill_(pos)
     valid = (cache["pos"] >= 0) & (cache["pos"] <= pos)
     if window is not None:
         valid = valid & (pos - cache["pos"] < window)

@@ -24,9 +24,32 @@ greedy decode in which every sampled token, the first included, goes
 through the coded head), and ``Server.serve`` with ``paged=True`` (the
 block pool with chunked prefill) or ``paged=False`` (a dense per-slot
 cache with a batched admit splice); ``serve`` refuses what
-``Model._check_slot_support`` refuses. The reference's
-one compiled program per generation or chunk size becomes an eager
-Python loop here (no retrace counter is needed: nothing traces).
+``Model._check_slot_support`` refuses.
+
+Dispatch programs (``runtime/graphs.py``), the reference's compiled
+programs: a ``generate`` call, a paged serve dispatch (its prefill chunk
+and decode chunk) and a dense one (its admit splice and decode chunk)
+are each one program function over static inputs and state kept at
+fixed addresses (the server's finish-mask generator, the serve run's KV
+cache, pending logits, positions and (ok, erased) counters, the head's
+deadline, the true fleet's arrays). On the
+card a key's first dispatch runs eagerly, its second captures a CUDA
+graph and every later one replays it (``ServeConfig.jit_pipeline``,
+default True); ``Server.traces`` and
+``Server.serve_traces`` count the programs built, as the reference
+counts its traces. A paged key is (prefilling, steps) within the
+shapes (S, num_blocks, block_len, C), a dense one (admitting, steps)
+within (S, prompt_cap, cache length), a ``generate`` one (B, S0,
+max_new, cache length, the extras' shapes); a finish mask drawn from
+the true fleet or not, and an ``observe`` callback or not, are parts of
+the key. ``jit_pipeline=False`` keeps the eager paths: ``generate`` runs
+the per-token host loop (``_generate_hostloop``), and the serve
+programs run uncaptured. A structural replan (``CodedLMHead.refresh``:
+new shapes or a B3 re-encode) drops the programs; a bucket switch
+(``rebind_soft``) keeps every one. A server keeps the serve state of one
+shape: a run of another shape drops the old state and the old shape's
+programs (and builds its own), and with nothing captured the state
+lives for one run.
 
 Closed loop: ``set_true_cluster`` makes the finish masks draw from a
 scenario's true fleet while the head keeps the plan the controller last
@@ -46,6 +69,7 @@ on a structural replan.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -61,6 +85,7 @@ from repro_torch.models.model import Model, padded_vocab
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER, SpanTracer
 from repro_torch.runtime.executor import CodedRoundExecutor
+from repro_torch.runtime.graphs import ProgramSet
 from repro_torch.runtime.plan_bucket import BucketConfig
 from repro_torch.serve.scheduler import BlockPool, SlotScheduler
 
@@ -83,6 +108,9 @@ class ServeConfig:
     deadline_safety: float = 3.0
     max_decode_steps: int = 32  # generate's default max_new
     scheme: str | AllocationScheme = "optimal"  # registry name or object
+    # dispatch programs captured as CUDA graphs on the card; False: the
+    # eager paths (``generate``'s per-token host loop) as the A/B baseline
+    jit_pipeline: bool = True
     # ``serve`` runs on the paged block pool with chunked prefill;
     # ``paged=False`` keeps the dense per-slot cache
     paged: bool = True
@@ -110,6 +138,12 @@ class CodedLMHead:
     head adds the coded vocab blocks and the logits encode/decode.
     ``g`` injects a numpy (nb, kb) generator in place of the seeded one.
     With ``bucket_config`` the head is coded at the bucket slot capacity.
+
+    ``deadline`` is also a 0-d float32 tensor on the table's device
+    (``deadline_t``, rewritten in place whenever ``deadline`` is set), so
+    a captured program reads each new deadline. ``version`` counts
+    refreshes (each binds a new generator and coded table): a server
+    drops its programs when it moves.
     """
 
     def __init__(self, embed_table: torch.Tensor, cluster: ClusterSpec, *,
@@ -123,7 +157,19 @@ class CodedLMHead:
             cluster, self.kb, scheme, deadline_safety=deadline_safety,
             device=self.table.device, bucket_config=bucket_config, telemetry=telemetry,
         )
+        self.deadline_t = torch.zeros((), dtype=torch.float32, device=self.table.device)
+        self.version = 0
         self.refresh(g)
+
+    @property
+    def deadline(self) -> float:
+        """The finish masks' deadline (the planned one unless a caller set it)."""
+        return self._deadline
+
+    @deadline.setter
+    def deadline(self, value: float) -> None:
+        self._deadline = float(value)
+        self.deadline_t.fill_(self._deadline)
 
     def refresh(self, g: np.ndarray | None = None) -> None:
         """(Re)bind the plan-derived state: nb, G (the seeded one, or the
@@ -141,6 +187,7 @@ class CodedLMHead:
         self.coded = encode(
             self.generator, blocks.reshape(self.kb, self.block_rows * d)
         ).reshape(self.nb, self.block_rows, d)
+        self.version += 1
         self.deadline = self.executor.deadline
         #: (nb,) worker holding each coded block
         self.block_owner = self.executor.slot_owner
@@ -172,7 +219,7 @@ class CodedLMHead:
         plan's (``executor.worker_param_arrays(true_cluster)``)."""
         mus, alphas, shifts = (None, None, None) if true_params is None else true_params
         return self.executor.finish_mask(
-            generator, self.deadline if deadline is None else deadline,
+            generator, self.deadline_t if deadline is None else deadline,
             mus=mus, alphas=alphas, shifts=shifts)
 
     def encode_logits(self, logits: torch.Tensor) -> torch.Tensor:
@@ -254,7 +301,14 @@ class ServeReport:
 
 class Server:
     """Greedy generation and continuous batching (paged or dense KV) with an
-    optional coded LM head (``cluster=None``: the plain head)."""
+    optional coded LM head (``cluster=None``: the plain head).
+
+    Every ``generate`` and every serve dispatch runs one dispatch program
+    (module docstring): captured and replayed on the card, called on the
+    CPU. ``traces`` counts the ``generate`` programs built, and
+    ``serve_traces`` the serve programs (paged and dense), across
+    structural replans; ``programs`` is the ``ProgramSet``.
+    """
 
     def __init__(self, model: Model, cluster: ClusterSpec | None = None,
                  cfg: ServeConfig | None = None):
@@ -269,15 +323,77 @@ class Server:
             if cluster is not None else None
         )
         #: the true fleet's per-worker (mus, alphas, shifts) the finish
-        #: masks draw from (``set_true_cluster``); None: the plan's own
+        #: masks draw from (``set_true_cluster``; tensors rewritten in
+        #: place); None: the plan's own
         self._true_params = None
+        self._true_bufs = None
         #: the ClusterSpec behind ``_true_params`` (a ``RoundClock``
         #: decomposes against the spec)
         self._true_cluster = None
         #: span tracer; ``serve(tracer=...)`` rebinds it, and ``generate``
         #: records a ``dispatch`` span on whichever tracer is bound
         self.tracer = NULL_TRACER
+        #: the finish masks' generator, re-seeded by every serve and generate
+        self._generator = torch.Generator(device=self.device)
+        #: the serve state's shape and, while captured programs read it, the
+        #: state: KV cache, pending logits, pos, stats
+        self._serve_shape = None
+        self._serve_st = None
+        self._programs: ProgramSet | None = None
+        self._capture_on = True
+        self._head_version = None if self.coded_head is None else self.coded_head.version
 
+    # ----------------------------------------------------------- programs
+    @property
+    def _capture(self) -> bool:
+        """Private: False runs the same program functions uncaptured on the
+        card, the eager side of the parity runs. Set before the first
+        dispatch; a later change raises."""
+        return self._capture_on
+
+    @_capture.setter
+    def _capture(self, on: bool) -> None:
+        if self._programs is not None:
+            raise RuntimeError("Server._capture is set before the programs are built")
+        self._capture_on = bool(on)
+
+    @property
+    def programs(self) -> ProgramSet:
+        """The server's programs, captured on the card unless
+        ``jit_pipeline`` is False or the private ``_capture`` switch is off."""
+        if self._programs is None:
+            self._programs = ProgramSet(self.device,
+                                        capture=self.cfg.jit_pipeline and self._capture_on)
+        return self._programs
+
+    @property
+    def traces(self) -> int:
+        """``generate`` programs built (the reference's retrace count)."""
+        return self.programs.builds.get("generate", 0)
+
+    @property
+    def serve_traces(self) -> int:
+        """Serve programs built, paged and dense: one per (prefilling or
+        admitting, steps) key within a run's shapes."""
+        return self.programs.builds.get("serve", 0)
+
+    def _run(self, kind: str, key: tuple, fn, inputs: dict):
+        """Dispatch program ``(kind, key)``; the programs go first when the
+        head was refreshed (a structural replan) since the last dispatch."""
+        head = self.coded_head
+        if head is not None and head.version != self._head_version:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.programs.clear()
+            self._head_version = head.version
+        return self.programs.run(kind, (*key, self._true_params is not None), fn, inputs,
+                                 generators=(self._generator,))
+
+    def _seeded(self, seed: int) -> torch.Generator:
+        self._generator.manual_seed(int(seed))
+        return self._generator
+
+    # --------------------------------------------------------- adaptivity
     def set_true_cluster(self, cluster: ClusterSpec | None) -> None:
         """Draw the finish masks from ``cluster`` (a scenario's truth):
         the head keeps planning against what the controller believes, but
@@ -285,17 +401,25 @@ class Server:
         ``None`` draws from the plan's own cluster again."""
         if self.coded_head is None:
             raise ValueError("set_true_cluster requires a coded head")
-        self._true_params = (None if cluster is None
-                             else self.coded_head.executor.worker_param_arrays(cluster))
         self._true_cluster = cluster
+        if cluster is None:
+            self._true_params = None
+            return
+        arrays = self.coded_head.executor.worker_param_arrays(cluster)
+        if self._true_bufs is None or self._true_bufs[0].shape != arrays[0].shape:
+            self._true_bufs = arrays
+        else:
+            for buf, new in zip(self._true_bufs, arrays):
+                buf.copy_(new)
+        self._true_params = self._true_bufs
 
     def refresh_coded_head(self) -> None:
         """Rebind the head to its executor's current plan: the new (nb, kb)
-        code is re-encoded through B3, or, after a bucket switch, only the
-        host views move (``rebind_soft``, no B3). The ``on_replan`` hook of
-        an ``AdaptiveController``; the true fleet is cleared (its
-        per-worker arrays may have had the old plan's shape), so set it
-        again."""
+        code is re-encoded through B3 (and the programs go), or, after a
+        bucket switch, only the host views move (``rebind_soft``, no B3,
+        every program kept). The ``on_replan`` hook of an
+        ``AdaptiveController``; the true fleet is cleared (its per-worker
+        arrays may have had the old plan's shape), so set it again."""
         if self.coded_head is None:
             raise ValueError("refresh_coded_head requires a coded head")
         if self.coded_head.executor.last_replan_structural:
@@ -346,6 +470,69 @@ class Server:
         cache["pos"][:, :s0] = torch.arange(s0, dtype=torch.int32, device=prompts.device)
         return logits, cache
 
+    def _generate_steps(self, prompts, max_new: int, cache: dict, sample):
+        """The prefill (batched, or ``decode_step`` over the prompt
+        positions) and ``max_new - 1`` decode steps; ``sample(step,
+        logits)`` picks each token. Returns the (B, S0 + max_new) tokens."""
+        s0 = prompts.shape[1]
+        if self._can_batch_prefill():
+            logits, cache = self._prefill_into_cache(cache, prompts)
+        else:
+            for t in range(s0):
+                logits, cache = self.model.decode_step(cache, prompts[:, t], t)
+        tok = sample(0, logits)
+        out = [prompts, tok[:, None]]
+        for t in range(max_new - 1):
+            logits, cache = self.model.decode_step(cache, tok, s0 + t)
+            tok = sample(t + 1, logits)
+            out.append(tok[:, None])
+        return torch.cat(out, dim=1)
+
+    def _coded_sample(self, logits: torch.Tensor):
+        """(token, (logits, selected, ok, mask)) of one sampled token."""
+        sel, ok, mask = logits, None, None
+        if self.coded_head is not None:
+            sel, ok, mask = self.coded_select(logits, self._generator)
+        return torch.argmax(sel, -1).to(torch.int32), (logits, sel, ok, mask)
+
+    def _gen_program(self, inp: dict, *, max_new: int, cache_len: int, observing: bool):
+        """The ``generate`` program: its own cache (made and filled inside
+        the program, so a replay resets it), the prefill and every token's
+        coded round. Returns (tokens, per-step (logits, selected, ok,
+        mask) stacked, or None without ``observing``)."""
+        prompts = inp["prompts"]
+        extras = {n[len("extras."):]: t for n, t in inp.items()
+                  if n.startswith("extras.")} or None
+        cache = self.model.init_cache(prompts.shape[0], cache_len, extras)
+        seen = []
+
+        def sample(_step, logits):
+            tok, rec = self._coded_sample(logits)
+            seen.append(rec)
+            return tok
+
+        tokens = self._generate_steps(prompts, max_new, cache, sample)
+        if not observing:
+            return tokens, None
+        return tokens, tuple(None if seen[0][i] is None
+                             else torch.stack([rec[i] for rec in seen]) for i in range(4))
+
+    def _generate_hostloop(self, prompts: torch.Tensor, max_new: int, cache_len: int,
+                           extras, observe) -> torch.Tensor:
+        """The eager per-token loop (``jit_pipeline=False``): the same
+        operations as the ``generate`` program, issued one by one from the
+        host, ``observe`` called as each token is sampled. The A/B
+        baseline of the captured program."""
+        cache = self.model.init_cache(prompts.shape[0], cache_len, extras)
+
+        def sample(step, logits):
+            tok, rec = self._coded_sample(logits)
+            if observe is not None:
+                observe(step, *rec)
+            return tok
+
+        return self._generate_steps(prompts, max_new, cache, sample)
+
     @torch.no_grad()
     def generate(self, prompts, max_new: int | None = None, *, seed: int = 0,
                  cache_len: int | None = None, observe=None,
@@ -353,19 +540,22 @@ class Server:
         """Greedy decode. prompts: (B, S0) int (a tensor or numpy); returns
         (B, S0 + max_new) int32 on the server's device.
 
-        ``extras`` goes to ``Model.init_cache`` (audio: ``{"enc_out"}``;
-        vlm serves text only, as the reference). One batched prefill fills
+        ``extras`` goes to ``Model.init_cache`` as tensors on the server's
+        device (audio: ``{"enc_out"}``; vlm serves text only, as the
+        reference). One batched prefill fills
         a dense cache (a hybrid, ssm or audio model, a sliding-window or
         int8 cache: ``decode_step`` over the prompt positions in turn, as
         the reference's fallback), then ``max_new - 1`` decode steps. With a
         coded head every sampled token goes through it, the first
-        post-prefill one included; finish masks draw from a
+        post-prefill one included; finish masks draw from the server's
         ``torch.Generator`` seeded with ``seed``. ``observe``, if given, is
         called once per sampled token as ``observe(step, logits, selected,
         ok, mask)``: the model's logits, those the token was taken from,
         and the round's decode-ok flag and (W,) finish mask (None without
-        a coded head), all on the device. The prefill and the decode loop
-        are one ``dispatch`` span (``kind="generate"``) on ``self.tracer``.
+        a coded head), all on the device; the program records them and
+        the calls follow it. The call is one ``dispatch`` span
+        (``kind="generate"``) on ``self.tracer``: one program, or the host
+        loop with ``jit_pipeline=False``.
         """
         set_full_fp32()
         dev = self.device
@@ -374,43 +564,37 @@ class Server:
         if max_new == 0:
             return prompts
         b, s0 = prompts.shape
-        cache = self.model.init_cache(b, cache_len or s0 + max_new, extras)
-        generator = torch.Generator(device=dev).manual_seed(seed)
-
-        def sample(step: int, logits: torch.Tensor) -> torch.Tensor:
-            sel, ok, mask = logits, None, None
-            if self.coded_head is not None:
-                sel, ok, mask = self.coded_select(logits, generator)
-            if observe is not None:
-                observe(step, logits, sel, ok, mask)
-            return torch.argmax(sel, -1).to(torch.int32)
-
+        cache_len = int(cache_len or s0 + max_new)
+        extras = {n: torch.as_tensor(t, device=dev) for n, t in (extras or {}).items()} or None
+        self._seeded(seed)
         with self.tracer.span("dispatch", kind="generate", max_new=max_new, batch=b):
-            if self._can_batch_prefill():
-                logits, cache = self._prefill_into_cache(cache, prompts)
-            else:
-                for t in range(s0):
-                    logits, cache = self.model.decode_step(cache, prompts[:, t], t)
-            tok = sample(0, logits)
-            out = [prompts, tok[:, None]]
-            for t in range(max_new - 1):
-                logits, cache = self.model.decode_step(cache, tok, s0 + t)
-                tok = sample(t + 1, logits)
-                out.append(tok[:, None])
-            return torch.cat(out, dim=1)
+            if not self.cfg.jit_pipeline:
+                return self._generate_hostloop(prompts, max_new, cache_len, extras, observe)
+            inputs = {"prompts": prompts, **{f"extras.{n}": t for n, t in (extras or {}).items()}}
+            observing = observe is not None
+            key = (b, s0, max_new, cache_len, observing,
+                   *((n, tuple(t.shape), t.dtype) for n, t in inputs.items()))
+            tokens, seen = self._run(
+                "generate", key, functools.partial(self._gen_program, max_new=max_new,
+                                                   cache_len=cache_len, observing=observing),
+                inputs)
+            if observing:
+                for t in range(max_new):
+                    observe(t, *(None if x is None else x[t] for x in seen))
+            return tokens
 
     # -------------------------------------------------- continuous batching
-    def _decode_chunk(self, step_fn, cache, logits, pos, active, generator, stats,
-                      steps: int):
+    def _decode_chunk(self, step_fn, cache, logits, pos, active, stats, steps: int):
         """``steps`` decode rounds: each samples every slot's next token
         from its pending logits (one coded round across the batch) and
         advances the model with ``step_fn(cache, tokens, pos)``; inactive
-        slots keep their logits and pos."""
+        slots keep their logits and pos. Returns (logits, pos, (steps, S)
+        tokens or None)."""
         toks = []
         for _ in range(steps):
             sel = logits
             if self.coded_head is not None:
-                sel, ok, mask = self.coded_select(logits, generator)
+                sel, ok, mask = self.coded_select(logits, self._generator)
                 stats[0] += ok.to(torch.int64)
                 stats[1] += (~mask.all()).to(torch.int64)
             tok = torch.argmax(sel, -1).to(torch.int32)
@@ -418,61 +602,86 @@ class Server:
             logits = torch.where(active[:, None], nlog.float(), logits)
             pos = torch.where(active, pos + 1, pos)
             toks.append(tok)
-        return cache, logits, pos, toks
+        return logits, pos, (torch.stack(toks) if toks else None)
 
-    def _serve_step_dense(self, cache, logits, pos, admit, active, generator, stats,
-                          *, steps):
-        """One dense serve iteration: the admit splice, then ``steps`` decodes.
+    @staticmethod
+    def _dense_splice(cache: dict, logits, pos, plog, ks, vs, lengths, rows):
+        """The dense admit splice at a fixed shape: ``rows`` (S,) gives each
+        slot its admission row of the prefill batch, or -1 to keep its
+        stream. An admitted slot's cache row becomes its prompt's K/V in
+        positions [0, P) and zeros after, its position map the prompt's
+        positions (-1 past its length and after P); its pending logits
+        become the prefill's and ``pos`` its prompt length. In place on
+        the cache; returns (logits, pos)."""
+        fresh = rows >= 0
+        row = rows.clamp(min=0).long()
+        p = ks.shape[2]
+        fkv = fresh[None, :, None, None, None]
+        for name, new in (("k", ks), ("v", vs)):
+            head = cache[name][:, :, :p]
+            head.copy_(torch.where(fkv, new[:, row], head))
+            cache[name][:, :, p:].masked_fill_(fkv, 0)
+        plen = lengths[row]
+        seq = torch.arange(p, dtype=torch.int32, device=rows.device)
+        head = cache["pos"][:, :p]
+        head.copy_(torch.where(fresh[:, None],
+                               torch.where(seq[None, :] < plen[:, None], seq[None, :], -1),
+                               head))
+        cache["pos"][:, p:].masked_fill_(fresh[:, None], -1)
+        return (torch.where(fresh[:, None], plog[row].float(), logits),
+                torch.where(fresh, plen, pos))
 
-        ``admit`` is None or (prompts (S, P), lengths (S,), slots (A,)):
-        this round's A admissions in the first A rows, right-padded to the
-        prompt capacity P (rows past A all zeros, length 0, as the
-        reference pads them: an MoE layer routes every row), and the slot
-        each goes to. One ``Model.prefill`` pass over them; each admitted
-        slot's cache row is reset to its prompt K/V (positions past its
-        length at -1), its pending logits become the prefill's and ``pos``
-        jumps to the prompt length. No token is sampled at admission: the
-        decode chunk samples from the pending logits.
+    def _dense_program(self, st: dict, inp: dict, *, admitting: bool, steps: int):
+        """One dense serve dispatch: the admit splice, then ``steps`` decodes.
+
+        ``admitting``: ``inp`` holds ``prompts`` (S, P) (this round's A
+        admissions in the first A rows, right-padded to the prompt
+        capacity P; rows past A all zeros, length 0, as the reference
+        pads them: an MoE layer routes every row), ``lengths`` (S,) and
+        ``rows`` (S,), each slot's admission row or -1. One
+        ``Model.prefill`` pass over the batch and ``_dense_splice``. No
+        token is sampled at admission: the decode chunk samples from the
+        pending logits. Updates ``st`` in place; returns the (steps, S)
+        tokens.
         """
-        if admit is not None:
-            prompts, lengths, slot_idx = admit
-            a = slot_idx.shape[0]
-            plog, ks, vs = self.model.prefill(prompts, lengths)
-            plog, ks, vs, prompts, lengths = (plog[:a], ks[:, :a], vs[:, :a],
-                                              prompts[:a], lengths[:a])
-            p = prompts.shape[1]
-            cache["k"][:, slot_idx] = 0
-            cache["v"][:, slot_idx] = 0
-            cache["k"][:, slot_idx, :p] = ks
-            cache["v"][:, slot_idx, :p] = vs
-            seq = torch.arange(p, dtype=torch.int32, device=prompts.device)
-            cache["pos"][slot_idx] = -1
-            cache["pos"][slot_idx, :p] = torch.where(seq[None, :] < lengths[:, None],
-                                                     seq[None, :], -1)
-            logits[slot_idx] = plog.float()
-            pos[slot_idx] = lengths
-        return self._decode_chunk(self.model.decode_step_slots, cache, logits, pos,
-                                  active, generator, stats, steps)
+        cache, logits, pos = st["cache"], st["logits"], st["pos"]
+        if admitting:
+            plog, ks, vs = self.model.prefill(inp["prompts"], inp["lengths"])
+            logits, pos = self._dense_splice(cache, logits, pos, plog, ks, vs,
+                                             inp["lengths"], inp["rows"])
+        logits, pos, toks = self._decode_chunk(self.model.decode_step_slots, cache, logits,
+                                               pos, inp["active"], st["stats"], steps)
+        st["logits"].copy_(logits)
+        st["pos"].copy_(pos)
+        return toks
 
-    def _serve_step_paged(self, cache, logits, pos, chunk, table, active, generator,
-                          stats, *, steps):
-        """One paged serve iteration: prefill chunk, then ``steps`` decodes.
+    def _paged_program(self, st: dict, inp: dict, *, prefilling: bool, steps: int):
+        """One paged serve dispatch: the prefill chunk, then ``steps`` decodes.
 
-        ``chunk`` is None or (tokens (S, C), start, lens, finishing): the
-        slots finishing their prompt this round take the chunk's logits
-        as pending logits and jump ``pos`` to the prompt length. Each
-        decode step samples every slot's next token from its pending
-        logits (one coded round across the batch) and advances the model;
-        inactive slots write the sink and keep logits and pos.
+        ``prefilling``: ``inp`` holds ``tokens`` (S, C), ``start``,
+        ``lens`` and ``finishing`` (S,); the slots finishing their prompt
+        this round take the chunk's logits as pending logits and jump
+        ``pos`` to the prompt length. Each decode step samples every
+        slot's next token from its pending logits (one coded round across
+        the batch) and advances the model; inactive slots write the sink
+        and keep logits and pos. ``table`` (S, num_blocks) and ``active``
+        (S,) in every dispatch. Updates ``st`` in place; returns the
+        (steps, S) tokens, None for steps 0.
         """
-        if chunk is not None:
-            tokens, start, lens, finishing = chunk
-            plog, cache = self.model.prefill_paged(cache, tokens, start, lens, table)
-            logits = torch.where(finishing[:, None], plog.float(), logits)
-            pos = torch.where(finishing, start + lens, pos)
-        return self._decode_chunk(
+        cache, logits, pos = st["cache"], st["logits"], st["pos"]
+        table, active = inp["table"], inp["active"]
+        if prefilling:
+            plog, cache = self.model.prefill_paged(cache, inp["tokens"], inp["start"],
+                                                   inp["lens"], table)
+            fin = inp["finishing"]
+            logits = torch.where(fin[:, None], plog.float(), logits)
+            pos = torch.where(fin, inp["start"] + inp["lens"], pos)
+        logits, pos, toks = self._decode_chunk(
             lambda c, tok, p: self.model.decode_step_paged(c, tok, p, table, active),
-            cache, logits, pos, active, generator, stats, steps)
+            cache, logits, pos, active, st["stats"], steps)
+        st["logits"].copy_(logits)
+        st["pos"].copy_(pos)
+        return toks
 
     def serve(self, trace, *, slots: int = 4, prompt_cap: int | None = None,
               max_out: int | None = None, decode_block: int = 4, queue_cap: int = 64,
@@ -485,8 +694,9 @@ class Server:
         The scheduler (host) decides placements; each round runs the
         round's prefill work and then a decode chunk of
         ``min(decode_block, min remaining)`` steps, so a slot frees the
-        round its stream completes. Finish masks draw from a
-        ``torch.Generator`` seeded with ``seed``.
+        round its stream completes. Each round is one dispatch program;
+        admits and evictions only change its inputs. Finish masks draw
+        from the server's ``torch.Generator`` seeded with ``seed``.
 
         ``paged`` (default ``ServeConfig.paged``): the KV cache is a
         shared ``BlockPool`` (full reservation at admission, freed at
@@ -495,7 +705,8 @@ class Server:
         never exhausts it. ``paged=False``: every slot owns a dense cache
         row of ``prompt_cap + max_out + 1`` positions and a whole prompt
         is spliced in at admission, so a prompt longer than ``prompt_cap``
-        is refused.
+        is refused. The cache, pending logits and counters of a run are
+        kept by the server per shape and reset at the start of each run.
 
         Admission control scales each request's projected completion by
         ``round_latency() / reference`` (a callable in round units; by
@@ -578,15 +789,37 @@ class Server:
                 clock.discard_next()
         return timing.result
 
-    def _loop_state(self, slots: int, seed: int):
-        """Pending logits, positions, (ok, erased) counters and the
-        finish-mask generator of one serve run."""
-        dev = self.device
-        vp = padded_vocab(self.model.config.vocab_size)
-        return (torch.zeros((slots, vp), dtype=torch.float32, device=dev),
-                torch.zeros((slots,), dtype=torch.int32, device=dev),
-                torch.zeros((2,), dtype=torch.int64, device=dev),
-                torch.Generator(device=dev).manual_seed(seed))
+    def _serve_state(self, shape: tuple, make_cache, slots: int) -> dict:
+        """A serve run's state of ``shape``, reset as a new run's: the KV
+        cache (``make_cache()``'s; a reset zeroes it, ``pos`` maps to -1),
+        the pending logits, positions and the (ok, erased) counters. The
+        server keeps one shape's: a new shape drops the old state and the
+        programs that read it. Only captured programs need the state at
+        fixed addresses; with nothing captured it lives for the run."""
+        if shape != self._serve_shape:
+            if self._serve_shape is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                self.programs.drop("serve", self._serve_shape)
+            self._serve_shape, self._serve_st = shape, None
+        st = self._serve_st
+        if st is None:
+            vp = padded_vocab(self.model.config.vocab_size)
+            st = {"cache": make_cache(),
+                  "logits": torch.zeros((slots, vp), dtype=torch.float32, device=self.device),
+                  "pos": torch.zeros((slots,), dtype=torch.int32, device=self.device),
+                  "stats": torch.zeros((2,), dtype=torch.int64, device=self.device)}
+            if self.programs.capture:
+                self._serve_st = st
+            return st
+        for name, t in st["cache"].items():
+            if name == "pos":
+                t.fill_(-1)
+            else:
+                t.zero_()
+        for name in ("logits", "pos", "stats"):
+            st[name].zero_()
+        return st
 
     def _report(self, sched, metrics, telemetry, emitted, stats, *, now, t0,
                 decode_rounds, prefill_rounds, kv_bytes) -> ServeReport:
@@ -596,7 +829,7 @@ class Server:
         wall = time.perf_counter() - t0
         streams: dict[int, list[int]] = {}
         for toks, owners in emitted:
-            arr = torch.stack(toks).cpu().numpy()  # (steps, S)
+            arr = toks.cpu().numpy()  # (steps, S)
             for si, rid in owners:
                 streams.setdefault(rid, []).extend(int(t) for t in arr[:, si])
         ok, erased = (int(v) for v in stats.cpu())
@@ -624,15 +857,17 @@ class Server:
         prompts (the admit splice, one round) and then the decode chunk
         over every busy slot, as the reference's dense program does.
         """
-        dev = self.device
         # +1: a finished slot would rewrite the entry one past its last token
-        cache = self.model.init_slot_cache(slots, prompt_cap + max_out + 1)
-        kv_bytes = sum(cache[n].numel() * cache[n].element_size() for n in ("k", "v"))
+        cache_len = prompt_cap + max_out + 1
+        shape = ("dense", slots, prompt_cap, cache_len)
+        st = self._serve_state(shape, lambda: self.model.init_slot_cache(slots, cache_len),
+                               slots)
+        kv_bytes = sum(st["cache"][n].numel() * st["cache"][n].element_size()
+                       for n in ("k", "v"))
         metrics = MetricsRegistry()
         sched = SlotScheduler(slots, telemetry=telemetry, metrics=metrics, **admission)
-        logits, pos, stats, generator = self._loop_state(slots, seed)
+        generator = self._seeded(seed)
         emitted = []
-        to_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
 
         tracer = self.tracer
         now, i = 0.0, 0
@@ -645,15 +880,16 @@ class Server:
                     i += 1
                 placed = sched.fill_slots(now)
                 asp.set(placed=len(placed))
-                admit = None
+                admit = {}
                 if placed:
                     prompts_np = np.zeros((slots, prompt_cap), np.int32)
                     lengths_np = np.zeros((slots,), np.int32)
-                    for r, (_si, req) in enumerate(placed):
+                    rows_np = np.full((slots,), -1, np.int32)
+                    for r, (si, req) in enumerate(placed):
                         prompts_np[r, : req.prompt_len] = req.prompt
                         lengths_np[r] = req.prompt_len
-                    admit = (to_dev(prompts_np), to_dev(lengths_np),
-                             to_dev(np.asarray([si for si, _ in placed], np.int64)))
+                        rows_np[si] = r
+                    admit = {"prompts": prompts_np, "lengths": lengths_np, "rows": rows_np}
             active = [s.busy and not s.done for s in sched.slots]
             if any(active):
                 steps = min(decode_block, min(
@@ -661,13 +897,14 @@ class Server:
                     for si, s in enumerate(sched.slots) if active[si]))
                 owners = [(si, s.request.rid) for si, s in enumerate(sched.slots)
                           if active[si]]
-                active_t = to_dev(np.asarray(active))
+                inputs = {"active": np.asarray(active), **admit}
+                fn = functools.partial(self._dense_program, st, admitting=bool(placed),
+                                       steps=steps)
                 with tracer.span("decode_chunk", steps=steps, round=now,
                                  placed=len(placed)):
-                    cache, logits, pos, toks = self._dispatch(
-                        lambda: self._serve_step_dense(
-                            cache, logits, pos, admit, active_t, generator, stats,
-                            steps=steps),
+                    toks = self._dispatch(
+                        lambda: self._run("serve", (*shape, bool(placed), steps), fn,
+                                          inputs),
                         generator, clock, controller)
                 emitted.append((toks, owners))
                 if placed:  # the admit splice costs its own round
@@ -681,7 +918,7 @@ class Server:
                 now = max(now, trace[i].arrival)  # idle: jump to next arrival
             else:
                 break
-        return self._report(sched, metrics, telemetry, emitted, stats, now=now, t0=t0,
+        return self._report(sched, metrics, telemetry, emitted, st["stats"], now=now, t0=t0,
                             decode_rounds=decode_rounds, prefill_rounds=prefill_rounds,
                             kv_bytes=kv_bytes)
 
@@ -694,7 +931,7 @@ class Server:
         and then the decode chunk; physical KV lives in a shared
         ``BlockPool``, reserved in full at admission.
         """
-        cfg, dev = self.cfg, self.device
+        cfg = self.cfg
         chunk = int(prefill_chunk if prefill_chunk is not None
                     else cfg.prefill_chunk if cfg.prefill_chunk is not None
                     else prompt_cap)
@@ -704,18 +941,18 @@ class Server:
             # dense-equivalent capacity: every slot can hold the largest request
             nb = slots * max(-(-(r.prompt_len + r.out_len + 1) // bl) for r in trace)
         nb = int(nb)
-        cache = self.model.init_paged_cache(nb, bl)
-        kv_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+        shape = ("paged", slots, nb, bl, chunk)
+        st = self._serve_state(shape, lambda: self.model.init_paged_cache(nb, bl), slots)
+        kv_bytes = sum(t.numel() * t.element_size() for t in st["cache"].values())
         metrics = MetricsRegistry()
         pool = BlockPool(nb, bl, bytes_per_block=kv_bytes // (nb + 1),
                          telemetry=telemetry, metrics=metrics)
         sched = SlotScheduler(slots, telemetry=telemetry, pool=pool, chunk=chunk,
                               metrics=metrics, **admission)
-        logits, pos, stats, generator = self._loop_state(slots, seed)
+        generator = self._seeded(seed)
         # host mirror of the block tables, width = pool size
         table_np = np.full((slots, nb), -1, np.int32)
-        emitted = []  # (per-step token tensors, [(slot, rid)]) per dispatch
-        to_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        emitted = []  # ((steps, S) tokens, [(slot, rid)]) per dispatch
 
         tracer = self.tracer
         now, i = 0.0, 0
@@ -765,23 +1002,22 @@ class Server:
                     for si, s in enumerate(sched.slots) if active[si]
                 ))
             if prefilling or steps > 0:
-                step_chunk = (
-                    (to_dev(chunk_np), to_dev(start_np), to_dev(lens_np), to_dev(fin_np))
-                    if prefilling else None
-                )
+                inputs = {"table": table_np, "active": np.asarray(active)}
+                if prefilling:
+                    inputs.update(tokens=chunk_np, start=start_np, lens=lens_np,
+                                  finishing=fin_np)
                 owners = [(si, s.request.rid) for si, s in enumerate(sched.slots)
                           if active[si]]
-                table_t, active_t = to_dev(table_np), to_dev(np.asarray(active))
+                fn = functools.partial(self._paged_program, st, prefilling=prefilling,
+                                       steps=steps)
                 # a round that splices prompt chunks is a prefill round even
                 # when finishing slots decode in the same dispatch
                 with tracer.span("prefill_chunk" if prefilling else "decode_chunk",
                                  steps=steps, round=now, placed=len(placed)):
-                    cache, logits, pos, toks = self._dispatch(
-                        lambda: self._serve_step_paged(
-                            cache, logits, pos, step_chunk, table_t, active_t,
-                            generator, stats, steps=steps),
+                    toks = self._dispatch(
+                        lambda: self._run("serve", (*shape, prefilling, steps), fn, inputs),
                         generator, clock, controller)
-                if toks:
+                if toks is not None:
                     emitted.append((toks, owners))
                 for si, take in notes:
                     sched.note_prefill(si, take)
@@ -798,6 +1034,6 @@ class Server:
                 now = max(now, trace[i].arrival)  # idle: jump to next arrival
             else:
                 break
-        return self._report(sched, metrics, telemetry, emitted, stats, now=now, t0=t0,
+        return self._report(sched, metrics, telemetry, emitted, st["stats"], now=now, t0=t0,
                             decode_rounds=decode_rounds, prefill_rounds=prefill_rounds,
                             kv_bytes=kv_bytes)

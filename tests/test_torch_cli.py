@@ -73,7 +73,8 @@ def test_cli_trace_serves_every_request(capsys, dense):
 
 def test_cli_refuses_flags_of_modules_not_ported(capsys):
     for flag in (["--scenario", "churn"], ["--use-kernel"],
-                 ["--slots", "auto"], ["--measure-times"], ["--legacy-decode"]):
+                 ["--slots", "auto"], ["--measure-times"],
+                 ["--legacy-decode", "--trace", "poisson"]):
         with pytest.raises(SystemExit):
             launch_serve.main(BASE + flag)
     with pytest.raises(SystemExit):  # not a registered scheme
@@ -154,7 +155,7 @@ def test_cli_scenario_measure_times_bucketed(capsys):
 @pytest.mark.parametrize("flags", [
     ["--measure-times"],                                        # needs --coded
     ["--measure-times", "--trace", "poisson"],                  # needs --coded
-    ["--coded", "--measure-times", "--legacy-decode"],          # not ported
+    ["--coded", "--measure-times", "--legacy-decode"],          # times programs
 ])
 def test_cli_measure_times_refusals(flags):
     with pytest.raises(SystemExit):
