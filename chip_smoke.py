@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one H100: build, check and time its kernels,
-run the paper's coded matvec at full width, serve full-width qwen3-0.6b
+run the paper's coded matvec at full width (in one process, then split over
+the ranks of its workers mesh), serve full-width qwen3-0.6b
 through the coded server (paged and dense), generate with it under every
 baseline allocation scheme, profile those serving paths phase by phase with
 their spans on a telemetry stream, generate under a drifting fleet with
@@ -48,6 +49,15 @@ Phases (any failure raises, and the script exits non-zero):
    after; the result held against A x in float64 within its error model,
    an insufficient mask flagged; B1's narrow branch and B3 at these shapes
    held against their plain versions and timed (B1 beside ``torch.mv``);
+   matvec-mesh — Path M on the paper's workers mesh: worlds of 1 (NCCL,
+   ``make_workers_mesh()``), 2 and 4 ranks (gloo: the ranks share the one
+   card), each rank a process of its own, one world at a time; counters
+   reset before ``end_to_end_coded_matvec(..., mesh=)`` and read after:
+   one B1 launch on the rank's block of W / R workers and one B3 a rank;
+   z and the gathered products on every rank bit-identical to [matvec]'s,
+   ok True, the insufficient mask False and zeros, no JAX imported; each
+   world's wall split into encode, products and gather, decode, and each
+   rank's B1 device time;
 4. serve    — launch counters reset, then ``Server`` + ``serve`` of a
    seeded 8-request trace on full-width qwen3-0.6b (random seeded
    weights) with the coded LM head on a 12-worker cluster; counters read
@@ -822,6 +832,25 @@ def power_norm2(m, iters: int = 30) -> float:
     return float((m @ v).norm())
 
 
+def matvec_inputs(dev):
+    """Path M's executor, seeded A (k, d) and x (d,) on ``dev``, and the
+    finish mask at the plan's deadline with the two slowest-group workers
+    forced out: the same in every process."""
+    import torch
+
+    from repro_torch.core.runtime_model import ClusterSpec
+    from repro_torch.runtime.executor import CodedRoundExecutor
+
+    exe = CodedRoundExecutor(ClusterSpec.make(*MATVEC_FLEET, 1.0), MATVEC_K, "optimal",
+                             device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    a = torch.randn((MATVEC_K, MATVEC_D), generator=gen, device=dev)
+    x = torch.randn(MATVEC_D, generator=gen, device=dev)
+    mask = exe.finish_mask(torch.Generator(device=dev).manual_seed(5))
+    mask[-2:] = False  # two slowest-group workers miss the deadline
+    return exe, a, x, mask
+
+
 def matvec_phase(device: str = "cuda") -> dict:
     """The paper's coded matvec at full width: ``end_to_end_coded_matvec``
     of A (20,000 x 4,096) and x on the quickstart's 200-worker fleet, the
@@ -830,7 +859,8 @@ def matvec_phase(device: str = "cuda") -> dict:
     against A x in float64 within the error model, an insufficient mask
     must flag; then B1's narrow branch and B3 at this path's shapes are
     checked against their plain versions and timed. Returns the path's
-    launch counts and the two kernels' rows."""
+    launch counts, the two kernels' rows, and z and the products on the
+    host (for [matvec-mesh])."""
     import torch
 
     import repro_torch.kernels as kernels
@@ -842,25 +872,18 @@ def matvec_phase(device: str = "cuda") -> dict:
         pack_coded_matrix,
     )
     from repro_torch.core.coding import make_generator
-    from repro_torch.core.runtime_model import ClusterSpec
     from repro_torch.kernels.coded_matvec import ops as cmv
     from repro_torch.kernels.mds_encode import ops as mds
-    from repro_torch.runtime.executor import CodedRoundExecutor
 
     dev, k, d = torch.device(device), MATVEC_K, MATVEC_D
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    exe = CodedRoundExecutor(ClusterSpec.make(*MATVEC_FLEET, 1.0), k, "optimal", device=dev)
+    exe, a, x, mask = matvec_inputs(dev)
     plan = exe.plan
     w, ml = plan.num_workers, plan.max_load
     print(f"[matvec] plan: k {k}, n {plan.n}, {w} workers, loads "
           f"{sorted(set(plan.loads_per_worker.tolist()), reverse=True)}, max_load {ml}, "
           f"deadline {exe.deadline:.6f} (3 T*); A {k} x {d} f32")
     check((plan.n, w, ml) == (26_980, 200, 203), "the quickstart plan: n 26,980, 200 workers")
-    gen = torch.Generator(device=dev).manual_seed(4)
-    a = torch.randn((k, d), generator=gen, device=dev)
-    x = torch.randn(d, generator=gen, device=dev)
-    mask = exe.finish_mask(torch.Generator(device=dev).manual_seed(5))
-    mask[-2:] = False  # two slowest-group workers miss the deadline
 
     kernels.reset_launch_counts()
     sync()
@@ -911,6 +934,7 @@ def matvec_phase(device: str = "cuda") -> dict:
     check(not bool(okb) and bool((zb == 0).all()), "fewer than k rows must flag and zero")
     partials = coded_matvec(packed, x)
     decode_ms = cuda_ms(lambda: masked_decode(g, row_of, partials, mask), 3, 1)
+    out = {"z": z.cpu(), "partials": partials.cpu()}
 
     flat = packed.reshape(w * ml, d)
     got, plain = cmv.blocked_matvec_batch(packed, x), cmv.blocked_matvec_plain(flat, x)
@@ -962,7 +986,187 @@ def matvec_phase(device: str = "cuda") -> dict:
     del g, a
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return counts, {"narrow": narrow, "encode": encode}
+    return counts, {"narrow": narrow, "encode": encode}, out
+
+
+#: [matvec-mesh]'s worlds: R = 1 on NCCL (``make_workers_mesh()``'s own
+#: group), then R gloo ranks sharing the one card (NCCL takes one card a rank)
+MESH_WORLDS = (1, 2, 4)
+MESH_RANK_CMD = "import chip_smoke; chip_smoke.matvec_mesh_rank()"
+
+
+def matvec_mesh_rank() -> None:
+    """One rank of [matvec-mesh], started by ``matvec_mesh_phase`` as
+    ``python -c MESH_RANK_CMD world rank store go out device``: waits for
+    the file ``go``, joins its world (R = 1: ``make_workers_mesh``'s own
+    group; else gloo over the ``FileStore`` ``store``), runs Path M's
+    ``end_to_end_coded_matvec`` on the workers mesh (counters reset just
+    before, read just after), then its pieces timed from a barrier each
+    (encode, products and gather, the master's decode and broadcast), the
+    insufficient mask, and this rank's B1 block by device time (one rank
+    at a time). Saves z and the products to ``out`` and prints one JSON
+    line."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.kernels as kernels
+    from repro_torch.core.coded_matvec import (
+        DecodePipeline,
+        coded_matvec,
+        end_to_end_coded_matvec,
+        pack_coded_matrix,
+    )
+    from repro_torch.core.coding import make_generator
+    from repro_torch.kernels.coded_matvec.ops import blocked_matvec_batch
+    from repro_torch.launch.mesh import destroy_local_mesh, make_workers_mesh
+    from repro_torch.runtime.serve_loop import set_full_fp32
+
+    world, rank = int(sys.argv[1]), int(sys.argv[2])
+    store, go, out, device = sys.argv[3:7]
+    give_up = time.monotonic() + 600
+    while not os.path.exists(go):
+        check(time.monotonic() < give_up, f"rank {rank} of {world}: no go file")
+        time.sleep(0.05)
+    t_go = time.perf_counter()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    set_full_fp32()
+    if cuda:
+        torch.cuda.set_device(0)
+    if world > 1:
+        dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=120))
+    mesh = make_workers_mesh(device=dev.type)
+
+    def together() -> float:
+        if cuda:
+            torch.cuda.synchronize()
+        if world > 1:
+            dist.barrier()
+        return time.perf_counter()
+
+    t_mesh = together()
+    exe, a, x, mask = matvec_inputs(dev)
+    plan = exe.plan
+    kernels.reset_launch_counts()
+    t = together()
+    z, ok = end_to_end_coded_matvec(a, x, plan, mask, seed=0, device=dev, mesh=mesh)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = kernels.launch_counts()
+
+    t0 = together()
+    g = make_generator(plan.n, MATVEC_K, seed=0, device=dev)
+    packed, row_of = pack_coded_matrix(g, a, plan)
+    t1 = together()
+    partials = coded_matvec(packed, x, mesh=mesh)
+    t2 = together()
+    pipe = DecodePipeline(g, row_of, mesh=mesh)
+    z2, ok2 = pipe.decode(partials, mask)
+    t3 = together()
+    bad = torch.from_numpy(plan.group_of_worker == 2).to(dev)  # fewer than k rows
+    zb, okb = pipe(packed, x, bad)
+    per = plan.num_workers // world
+    block = packed[rank * per:(rank + 1) * per]
+    t_prof = together()
+    b1_ms = None
+    if cuda:  # a process's first profiler session starts CUPTI (seconds): all ranks at once
+        profiled(lambda: None)
+    for r in range(world):
+        together()
+        if r == rank and cuda:
+            b1_ms = device_ms(lambda: blocked_matvec_batch(block, x), calls=20, match="narrow")
+    together()
+    torch.save({"z": z.cpu(), "partials": partials.cpu()}, out)
+    rec = dict(world=world, rank=rank, backend=dist.get_backend(),
+               mesh=[list(mesh.mesh_dim_names), mesh.size()], ok=bool(ok),
+               ok_type=[str(ok.dtype), list(ok.shape)], counts=counts, wall=wall,
+               encode=t1 - t0, products=t2 - t1, decode=t3 - t2,
+               pieces_equal=torch.equal(z2, z) and bool(ok2) == bool(ok),
+               insufficient=[bool(okb), bool((zb == 0).all())], b1_rows=per * plan.max_load,
+               b1_device_ms=b1_ms, stages=dict(
+                   mesh=t_mesh - t_go, inputs=t - t_mesh, runs=t_prof - t,
+                   profile=time.perf_counter() - t_prof))
+    del g, packed, a
+    if world > 1:
+        dist.destroy_process_group()
+    else:
+        destroy_local_mesh()
+    rec["jax"] = any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
+    print(json.dumps(rec))
+
+
+def matvec_mesh_phase(card: str, want: dict, device: str = "cuda") -> dict:
+    """[matvec-mesh]: Path M on the paper's workers mesh, R ranks of
+    ``MESH_WORLDS`` in turn, each rank a process of its own
+    (``matvec_mesh_rank``; all started at once, each world let go when the
+    one before it has exited). Every rank: ok, one B1 and one B3 launch,
+    z and the gathered products bit-identical to [matvec]'s one-process
+    run (``want``: the narrow branch sums each row in the same order
+    whatever the block, and the master's decode sees the same products),
+    the insufficient mask False and zeros, no JAX. Prints each world's
+    wall split into encode, products and gather, and decode, and each
+    rank's B1 device time. Returns each world's launches summed over its
+    ranks."""
+    import torch
+
+    t0 = time.perf_counter()
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="matvec-mesh-") as tmp:
+        tmp = Path(tmp)
+        procs = {R: start_procs([["-c", MESH_RANK_CMD, str(R), str(r), str(tmp / f"store{R}"),
+                                  str(tmp / f"go{R}"), str(tmp / f"r{R}-{r}.pt"), device]
+                                 for r in range(R)]) for R in MESH_WORLDS}
+        try:
+            for R in MESH_WORLDS:
+                (tmp / f"go{R}").touch()
+                results = finish_procs(procs[R], "matvec-mesh", timeout=300)
+                check(all(code == 0 for code, _ in results), f"every rank of world {R} exits 0")
+                recs = [json.loads(stdout.strip().splitlines()[-1]) for _, stdout in results]
+                outs = [torch.load(tmp / f"r{R}-{r}.pt") for r in range(R)]
+                backend = "nccl" if R == 1 and device == "cuda" else "gloo"
+                same_z = all(torch.equal(o["z"], want["z"]) for o in outs)
+                same_p = all(torch.equal(o["partials"], want["partials"]) for o in outs)
+                b1 = [rec["b1_device_ms"] for rec in recs]
+                print(f"[matvec-mesh] world {R} ({recs[0]['backend']}, {card}): wall "
+                      f"{max(rec['wall'] for rec in recs):.3f} s (end_to_end_coded_matvec, "
+                      f"slowest rank); pieces from a barrier each: encode (generator, B3, "
+                      f"pack) {recs[0]['encode']:.3f} s, products and gather "
+                      f"{recs[0]['products'] * 1e3:.2f} ms, decode and broadcast "
+                      f"{recs[0]['decode'] * 1e3:.2f} ms; B1 device time a rank over "
+                      f"{recs[0]['b1_rows']} rows: {', '.join(fmt_ms(m) for m in b1)}")
+                print(f"[matvec-mesh] world {R}: z on every rank bit-identical to [matvec]'s: "
+                      f"{same_z}; the gathered products: {same_p}; launches "
+                      f"{[rec['counts'] for rec in recs]}")
+                for rec in recs:
+                    tag = f"world {R} rank {rec['rank']}"
+                    check(rec["backend"] == backend and rec["mesh"] == [["workers"], R],
+                          f"{tag}: a {backend} ('workers',) mesh of {R}")
+                    check(rec["ok"] and rec["ok_type"] == ["torch.bool", []],
+                          f"{tag}: ok, a 0-d bool")
+                    check(rec["counts"]["coded_matvec"] == 1 and rec["counts"]["mds_encode"] == 1
+                          and rec["counts"]["paged_decode"] == 0,
+                          f"{tag}: one B1 and one B3 launch")
+                    check(rec["pieces_equal"], f"{tag}: the timed pieces give the same z")
+                    check(rec["insufficient"] == [False, True],
+                          f"{tag}: fewer than k rows must flag and zero")
+                    check(not rec["jax"], f"{tag}: no jax or repro imported")
+                check(same_z and same_p, f"world {R}: z and the products bit-identical to "
+                                         "[matvec]'s on every rank")
+                paths[f"matvec_mesh_{R}"] = {
+                    k: sum(rec["counts"][k] for rec in recs) for k in recs[0]["counts"]}
+        finally:
+            for ps in procs.values():
+                for p in ps:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+    print(f"[matvec-mesh] {time.perf_counter() - t0:.1f} s")
+    return paths
 
 
 def make_model(cfg, device: str = "cuda", tag: str = "serve"):
@@ -3510,8 +3714,11 @@ def main(argv=None) -> int:
         clock[0] = now
 
     lap("set-up and kernels")
-    paths["matvec"], path_m = matvec_phase()
+    paths["matvec"], path_m, matvec_out = matvec_phase()
     lap("matvec")
+    paths.update(matvec_mesh_phase(card, matvec_out))
+    del matvec_out
+    lap("matvec-mesh")
     model = make_model(get_arch("qwen3-0.6b"))
     served = {}  # [serve]'s and [serve-dense]'s servers, for [programs]
     paths["serve"], paged_rep = serve_phase(model, keep=served)

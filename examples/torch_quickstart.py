@@ -8,21 +8,27 @@
    (n*, k) MDS code.
 3. Monte-Carlo the actual latency and compare with the lower bound T*
    and with the uniform baseline.
-4. Run one real coded matvec end to end on the card: encode (the B3
-   kernel) -> distribute -> compute (B1's matvec over the workers) ->
-   straggler erasure -> decode. Exits non-zero unless the decode
-   recovers A x.
+4. Run one real coded matvec end to end on the workers mesh of this
+   process's world: encode (the B3 kernel) -> distribute -> compute (B1's
+   matvec over each rank's workers) -> straggler erasure -> decode at the
+   master. Exits non-zero unless the decode recovers A x.
 
 The counterpart of ``examples/quickstart.py``; on the card unless
-``--device cpu``.
+``--device cpu``. Started alone it is a world of one rank; started by
+``torchrun`` (which sets ``WORLD_SIZE``) the 8 workers of step 4 split
+over its ranks, which join over gloo (ranks may share one card):
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 examples/torch_quickstart.py
 """
 import argparse
 import json
+import os
 import sys
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
@@ -33,6 +39,7 @@ from repro_torch.core.planner import plan_deployment  # noqa: E402
 from repro_torch.core.runtime_model import ClusterSpec  # noqa: E402
 from repro_torch.core.simulator import expected_latency  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.launch.mesh import destroy_local_mesh, make_workers_mesh  # noqa: E402
 
 
 def main(argv=None) -> int:
@@ -76,11 +83,21 @@ def main(argv=None) -> int:
     x = rng.standard_normal(d).astype(np.float32)
     finished = np.ones(dep.num_workers, dtype=bool)
     finished[-2:] = False  # two slow-group stragglers miss the deadline
-    y, ok = end_to_end_coded_matvec(a, x, dep, finished, device=dev)
+    launched = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if launched:
+        dist.init_process_group("gloo")  # the launcher's rendezvous (env://)
+    mesh = make_workers_mesh(device=dev.type)
+    try:
+        y, ok = end_to_end_coded_matvec(a, x, dep, finished, device=dev, mesh=mesh)
+    finally:
+        if launched:
+            dist.destroy_process_group()
+        destroy_local_mesh()
     want = a.astype(np.float64) @ x.astype(np.float64)
     err = float(np.max(np.abs(y.cpu().numpy().astype(np.float64) - want)))
     scale = float(np.max(np.abs(want)))
     ok = bool(ok)
+    print(f"workers mesh: {dep.num_workers} workers over {mesh.size()} rank(s)")
     print(f"coded matvec with 2 erasures: recovered={ok}, max|err|={err:.2e} "
           f"(max|A x| {scale:.2e})")
     print("kernel launches:", json.dumps(kernels.launch_counts()))

@@ -1,11 +1,17 @@
-"""The paper's coded matrix-vector product on one card, workers as a batch.
+"""The paper's coded matrix-vector product: the master/worker pattern,
+in one process or split over the ranks of a ``workers`` mesh.
 
 Counterpart of ``repro/core/coded_matvec.py``. The master encodes
 ``A~ = G A`` (B3 ``mds_encode``), packs each worker's coded rows into a
 block padded to the plan's ``max_load``, every worker computes its block
-times x (one B1 launch over the (W * max_load, d) view: the reference's
-``workers`` mesh axis is the leading dimension here), and the master
-decodes ``A x`` from the workers that met the deadline.
+times x, and the master decodes ``A x`` from the workers that met the
+deadline. With no mesh the workers are the leading dimension of one
+(W * max_load, d) B1 launch. With a 1-D ``workers`` mesh of R ranks
+(``launch.mesh.make_workers_mesh``; the reference's ``shard_map`` over
+its ``workers`` axis) rank r computes workers [r W/R, (r+1) W/R) in one
+B1 launch, the products are all-gathered in worker order, rank 0 of the
+group (the master) decodes and broadcasts (z, ok): every rank returns
+the same result.
 
 * ``DecodePipeline`` — the hot path: products, erasure mask and the
   fixed-shape decode (``masked_decode`` -> ``decode_systematic``) on the
@@ -14,12 +20,14 @@ decodes ``A x`` from the workers that met the deadline.
   on the host by least squares (the reference's oracle path).
 
 On the card the kernels always run (the reference's ``use_kernel``); on
-the CPU their plain versions do.
+the CPU their plain versions do. Collectives go through the mesh's group
+as they are: gloo for ranks that share a card, NCCL for one card a rank.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.coding import (
     decode_from_rows,
@@ -52,9 +60,38 @@ def pack_coded_matrix(generator: torch.Tensor, a: torch.Tensor, plan: Deployment
     return packed.reshape(w, ml, d), torch.from_numpy(row_of).to(coded.device)
 
 
-def coded_matvec(packed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """All workers' products ``A~_i x``: (W, max_load), one B1 launch."""
-    return blocked_matvec_batch(packed, x)
+def _workers_group(mesh, axis: str, device: torch.device):
+    """(group, R, this rank's index in it) of the mesh's ``axis``."""
+    if mesh.device_type != device.type:
+        raise ValueError(f"tensors on {device.type}, the mesh on {mesh.device_type}")
+    group = mesh.get_group(axis)
+    return group, dist.get_world_size(group), dist.get_rank(group)
+
+
+def coded_matvec(packed: torch.Tensor, x: torch.Tensor, *, mesh=None,
+                 axis: str = "workers") -> torch.Tensor:
+    """All workers' products ``A~_i x``: (W, max_load).
+
+    With no mesh, one B1 launch over the (W * max_load, d) view. With a
+    mesh of R ranks on ``axis`` (R must divide W), this rank's workers
+    [r W/R, (r+1) W/R) in one B1 launch, then an all-gather of the
+    (W/R, max_load) blocks into the global (W, max_load) in worker order,
+    returned on every rank (the reference's ``out_specs=P(axis, None)``).
+    ``packed`` comes in whole on every rank, as a replicated input to the
+    reference's jit: every rank packs it from the same seed, so B3 runs
+    once a rank.
+    """
+    if mesh is None:
+        return blocked_matvec_batch(packed, x)
+    group, r, rank = _workers_group(mesh, axis, packed.device)
+    w = packed.shape[0]
+    if w % r:
+        raise ValueError(f"{w} workers do not split over {r} ranks of the {axis!r} axis")
+    per = w // r
+    local = blocked_matvec_batch(packed[rank * per:(rank + 1) * per], x)
+    out = torch.empty((w, packed.shape[1]), dtype=local.dtype, device=local.device)
+    dist.all_gather(list(out.split(per)), local, group=group)
+    return out
 
 
 def decode_coded_result(generator, row_of, partials, finished_workers, k: int):
@@ -103,30 +140,72 @@ def masked_decode(generator: torch.Tensor, row_of: torch.Tensor, partials: torch
 
 class DecodePipeline:
     """The master step: worker products -> erasure mask -> decode, on the
-    device, bound to one deployment's generator and slot map."""
+    device, bound to one deployment's generator and slot map.
 
-    def __init__(self, generator: torch.Tensor, row_of: torch.Tensor):
+    With a ``workers`` mesh the products are split over its ranks
+    (``coded_matvec``); the master, rank 0 of the axis's group, decodes
+    and broadcasts (z, ok), so that every rank returns the same result
+    and one (k, k) solve runs, not R copies of it.
+    """
+
+    def __init__(self, generator: torch.Tensor, row_of: torch.Tensor, *, mesh=None,
+                 axis: str = "workers"):
         self.generator = generator
         self.row_of = row_of
+        self.mesh = mesh
+        self.axis = axis
 
     def __call__(self, packed: torch.Tensor, x: torch.Tensor,
                  finished_workers: torch.Tensor):
-        partials = coded_matvec(packed, x)
-        return masked_decode(self.generator, self.row_of, partials, finished_workers)
+        partials = coded_matvec(packed, x, mesh=self.mesh, axis=self.axis)
+        return self.decode(partials, finished_workers)
+
+    def decode(self, partials: torch.Tensor, finished_workers: torch.Tensor):
+        """``masked_decode`` of the gathered (W, max_load) products: here,
+        or with a mesh at the master and broadcast to every rank."""
+        decode = lambda: masked_decode(self.generator, self.row_of, partials,  # noqa: E731
+                                       finished_workers)
+        if self.mesh is None:
+            return decode()
+        shape = (self.generator.shape[1], *partials.shape[2:])
+        return _at_master(self.mesh, self.axis, partials, shape, decode)
+
+
+def _at_master(mesh, axis: str, like: torch.Tensor, shape: tuple, decode):
+    """Run ``decode`` () -> (z, ok) at the master, rank 0 of the mesh
+    axis's group, and broadcast it: every rank returns the master's z, of
+    ``shape`` and ``like``'s dtype and device, and ok as a 0-d bool."""
+    group, _, rank = _workers_group(mesh, axis, like.device)
+    if rank == 0:
+        z, ok = decode()
+        z = torch.as_tensor(z).to(like.device)
+        flag = torch.as_tensor(ok).to(device=like.device, dtype=torch.int32).reshape(1)
+    else:
+        z = torch.empty(shape, dtype=like.dtype, device=like.device)
+        flag = torch.empty((1,), dtype=torch.int32, device=like.device)  # gloo takes no bool
+    master = dist.get_global_rank(group, 0)
+    dist.broadcast(z, master, group=group)
+    dist.broadcast(flag, master, group=group)
+    return z, flag[0].bool()
 
 
 def end_to_end_coded_matvec(a, x, plan: DeploymentPlan, finished_workers=None, *,
                             seed: int = 0, g: np.ndarray | None = None,
                             host_decode: bool = False,
-                            device: str | torch.device = "cuda"):
+                            device: str | torch.device = "cuda", mesh=None):
     """Encode -> distribute -> compute -> decode, on ``device``.
 
     ``a`` (k, d) and ``x`` (d,) are numpy arrays or tensors; the generator
     is the seeded one (``seed``) or an injected numpy ``g``; every worker
     finishes unless ``finished_workers`` (W,) says otherwise. Returns
     ``DecodePipeline``'s (z, ok) on the device, or with ``host_decode``
-    ``decode_coded_result``'s host least squares.
+    ``decode_coded_result``'s host least squares of the gathered products
+    (numpy z, bool ok). A ``workers`` ``mesh`` (on ``device``'s type)
+    splits the products over its ranks and the master decodes: every rank
+    returns the master's (z, ok).
     """
+    if mesh is not None and torch.device(device).type != mesh.device_type:
+        raise ValueError(f"device {device} and a {mesh.device_type} mesh")
     dev = resolve_device(device)
     a = torch.as_tensor(a, dtype=torch.float32).to(dev)
     x = torch.as_tensor(x, dtype=torch.float32).to(dev)
@@ -139,6 +218,10 @@ def end_to_end_coded_matvec(a, x, plan: DeploymentPlan, finished_workers=None, *
         finished_workers = torch.ones((plan.num_workers,), dtype=torch.bool)
     finished_workers = torch.as_tensor(finished_workers, dtype=torch.bool).to(dev)
     if host_decode:
-        partials = coded_matvec(packed, x)
-        return decode_coded_result(gen, row_of, partials, finished_workers, k)
-    return DecodePipeline(gen, row_of)(packed, x, finished_workers)
+        partials = coded_matvec(packed, x, mesh=mesh)
+        decode = lambda: decode_coded_result(gen, row_of, partials, finished_workers, k)  # noqa: E731
+        if mesh is None:
+            return decode()
+        z, ok = _at_master(mesh, "workers", partials, (k,), decode)
+        return z.cpu().numpy(), bool(ok)
+    return DecodePipeline(gen, row_of, mesh=mesh)(packed, x, finished_workers)

@@ -12,6 +12,9 @@ rank from an in-process ``HashStore`` (no environment variables, no
 network), NCCL on the card and gloo when the caller passes
 ``device="cpu"``. A multi-card host runs one process per card, each
 initialising its group first; the mesh then spans that world.
+``make_workers_mesh`` is the paper's 1-D ("workers",) mesh over the same
+world (the reference's ``jax.make_mesh((n,), ("workers",))``), on which
+``core.coded_matvec`` splits the workers' products over the ranks.
 ``destroy_local_mesh`` ends a group this module started, so that later
 phases start clean.
 """
@@ -47,30 +50,55 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     return MeshShape(dict(zip(axes, shape)))
 
 
-def make_local_mesh(model_axis: int = 1, *, device: str = "cuda"):
-    """A ("data", "model") ``DeviceMesh`` over this process's world, of
-    shape (world // model_axis, model_axis); starts a one-rank group when
-    there is none (NCCL for ``"cuda"``, gloo for ``"cpu"``)."""
+def _ensure_group(device: str, who: str) -> int:
+    """The world size of this process's group; starts a one-rank group
+    from an in-process store when there is none (NCCL for ``"cuda"``,
+    gloo for ``"cpu"``)."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
     global _OWN_GROUP
     if device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("make_local_mesh: CUDA requested but torch.cuda.is_available() "
+        raise RuntimeError(f"{who}: CUDA requested but torch.cuda.is_available() "
                            "is False; pass device='cpu' for a gloo mesh")
     if not dist.is_initialized():
         dist.init_process_group("nccl" if device == "cuda" else "gloo",
                                 store=dist.HashStore(), world_size=1, rank=0)
         _OWN_GROUP = True
-    n = dist.get_world_size()
+    return dist.get_world_size()
+
+
+def make_local_mesh(model_axis: int = 1, *, device: str = "cuda"):
+    """A ("data", "model") ``DeviceMesh`` over this process's world, of
+    shape (world // model_axis, model_axis); starts a one-rank group when
+    there is none (NCCL for ``"cuda"``, gloo for ``"cpu"``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = _ensure_group(device, "make_local_mesh")
     if n % model_axis:
         raise ValueError(f"model axis {model_axis} does not divide the world of {n}")
     return init_device_mesh(device, (n // model_axis, model_axis),
                             mesh_dim_names=("data", "model"))
 
 
+def make_workers_mesh(*, device: str = "cuda"):
+    """The paper's 1-D ("workers",) ``DeviceMesh`` over this process's
+    world: one rank a slice of the workers. Starts a one-rank group when
+    there is none (NCCL for ``"cuda"``, gloo for ``"cpu"``).
+
+    A caller that runs R ranks starts its group first (each rank
+    ``torch.distributed.init_process_group``). NCCL needs one card a rank;
+    ranks that share one card use gloo, whose collectives on CUDA tensors
+    stage through the host.
+    """
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = _ensure_group(device, "make_workers_mesh")
+    return init_device_mesh(device, (n,), mesh_dim_names=("workers",))
+
+
 def destroy_local_mesh() -> None:
-    """Destroy the process group ``make_local_mesh`` started (no-op otherwise)."""
+    """Destroy the process group ``make_local_mesh`` or ``make_workers_mesh``
+    started (no-op otherwise)."""
     import torch.distributed as dist
 
     global _OWN_GROUP
