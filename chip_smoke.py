@@ -11,7 +11,8 @@ and generate replays them by default) against the same programs run
 eagerly, run the serving CLI and its ops report, serve the other configs of
 the port's envelope at full width (granite-3-2b, yi-9b, moonshot-v1-16b-a3b
 and paligemma-3b paged; h2o-danube-3-4b, plain and int8 KV, whisper-tiny,
-zamba2-1.2b and xlstm-125m through the sequential prefill), then train
+zamba2-1.2b and xlstm-125m through the sequential prefill), serve
+moonshot-v1-16b-a3b at full depth with bf16 parameters, then train
 qwen3-0.6b with gradient coding, plain and then adaptive under measured
 round times, train a config of every other family (whisper-tiny,
 xlstm-125m, zamba2-1.2b, paligemma-3b, granite-3-2b, moonshot-v1-16b-a3b),
@@ -144,7 +145,21 @@ Phases (any failure raises, and the script exits non-zero):
    window on the card and on the CPU, the same weights, the logits held
    together, and the reduced paligemma, whisper, zamba and xlstm (sLSTM
    every 2nd layer) likewise: ``lm_logits`` within 2e-4 + 2e-4 |want| and
-   a 24 + 8 generate with equal tokens;
+   a 24 + 8 generate with equal tokens; then the reduced qwen3-0.6b and
+   moonshot-v1-16b-a3b with bf16 parameters alike;
+   moonshot-bf16 — moonshot-v1-16b-a3b at full depth and width (48
+   layers, 27.7 B parameters) with bf16 parameters and bf16 compute,
+   built with nothing large resident: the init's peak at most the memory
+   before + the parameters + the embedding's float32 draw + 1 GiB; the
+   serve phase's trace paged with the ``optimal`` coded head through the
+   default captured programs, counters reset before and read after (B1
+   once a decode step, B2 48 a decode step, B3 once), the serve phase's
+   coded-round checks, the serve's peak under 62 GiB; one replayed
+   one-request serve profiled (device time by group, top ops); the trace
+   again through an uncaptured server that records every coded round:
+   each within cond(G_S) 2^-22 max|logits| of its uncoded logits, each
+   coded token equal to the uncoded argmax wherever the top-2 margin
+   allows; the model's memory freed after;
 10. train   — launch counters reset, then ``Trainer.run`` of 4 gradient-
    coded steps of full-width qwen3-0.6b (seeded init, batch 16 x 512) on
    the same fleet; counters read right after; then one more steady step
@@ -2594,9 +2609,14 @@ WRAP_PROMPT, WRAP_NEW = 70, 8
 #: the reduced vlm, audio, hybrid and ssm configs held card against CPU:
 #: lm_logits over REDUCED_SEQ tokens (a multiple of the reduced mamba
 #: chunk, 16), then a generate of REDUCED_PROMPT + REDUCED_NEW positions;
-#: the xLSTM at slstm_every 2 (its reduced four layers hold no sLSTM at 6)
+#: the xLSTM at slstm_every 2 (its reduced four layers hold no sLSTM at 6).
+#: [families] holds BF16_REDUCED_RUNS card against CPU alike: qwen3-0.6b and moonshot
+#: with bf16 parameters (float32 compute; [train-families] does not train
+#: them)
 REDUCED_RUNS = (("paligemma-3b", {}), ("whisper-tiny", {}), ("zamba2-1.2b", {}),
                 ("xlstm-125m", {"slstm_every": 2}))
+BF16_REDUCED_RUNS = (("qwen3-0.6b", {"param_dtype": "bfloat16"}),
+                     ("moonshot-v1-16b-a3b", {"param_dtype": "bfloat16"}))
 REDUCED_SEQ, REDUCED_PROMPT, REDUCED_NEW = 32, 24, 8
 
 
@@ -2802,8 +2822,10 @@ def family_image(model, tag: str) -> None:
 
 
 def family_reduced(card: str) -> None:
-    """Each reduced vlm, audio, hybrid and ssm config (REDUCED_RUNS, float32)
-    with the same weights on the card and on the CPU: ``lm_logits`` of
+    """Each reduced config of REDUCED_RUNS and BF16_REDUCED_RUNS (float32
+    compute; the vlm, audio, hybrid and ssm ones, then the bf16-parameter
+    pair) with the same
+    weights on the card and on the CPU: ``lm_logits`` of
     REDUCED_SEQ tokens (with seeded extras) within 2e-4 + 2e-4 |want|, and
     a ``generate`` of REDUCED_PROMPT + REDUCED_NEW positions with equal
     tokens. The only place the scans of ``models/ssm.py`` (chunked) and
@@ -2816,7 +2838,7 @@ def family_reduced(card: str) -> None:
     from repro_torch.models.model import Model
     from repro_torch.runtime.serve_loop import Server
 
-    for name, changes in REDUCED_RUNS:
+    for name, changes in REDUCED_RUNS + BF16_REDUCED_RUNS:
         cfg = dataclasses.replace(get_arch(name).reduced(), **changes)
         cpu = Model(cfg, device="cpu", seed=0)
         card_model = Model(cfg, device="cuda", seed=0)
@@ -2916,6 +2938,243 @@ def families_phase(card: str):
     family_wrap(card)
     family_reduced(card)
     return paths, rows
+
+
+#: [moonshot-bf16]: the config served at full depth in bf16 parameters
+#: (27.7 B parameters: 111 GB in float32, 55.46 GB in bf16), and the bounds
+#: on what it allocates: the init at most the memory before it + the
+#: parameters + its largest float32 draw (the embedding) + 1 GiB, the
+#: serve's peak under 62 GiB
+BF16_ARCH, BF16_INIT_SLACK, BF16_SERVE_PEAK = "moonshot-v1-16b-a3b", 1 << 30, 62 << 30
+#: the profiled copy's device ops by a piece of their names (the rest:
+#: elementwise and other ops)
+BF16_GROUPS = (("copies and casts", ("copy",)), ("GEMMs", ("gemm", "Gemm", "nvjet", "xmma")),
+               ("index and scatter", ("index", "scatter", "gather")),
+               ("LU", ("getrf", "getrs", "trsm", "lu_")))
+
+
+def recording_server(model, cluster, conf):
+    """A coded server that runs its program functions uncaptured
+    (``Server._capture = False``, so Python runs every dispatch) and
+    records each coded round in ``server.rounds``: the logits the round
+    was given (cloned: the serve state reuses them), the decoded logits,
+    ok and the (W,) finish mask."""
+    from repro_torch.runtime.serve_loop import Server
+
+    class Recording(Server):
+        def coded_select(self, logits, generator, deadline=None):
+            sel, ok, mask = super().coded_select(logits, generator, deadline)
+            self.rounds.append((logits.float().clone(), sel, ok, mask))
+            return sel, ok, mask
+
+    server = Recording(model, cluster, conf)
+    server._capture = False
+    server.rounds = []
+    return server
+
+
+def bf16_rounds(tag: str, server, vocab: int) -> tuple[int, int, float]:
+    """Every recorded coded round: the decoded logits within cond(G_S)
+    2^-22 max|logits| of the plain ones (a failed round returns them), and
+    each slot's coded token (argmax) equal to the plain one wherever the
+    plain top-2 margin exceeds twice that. Returns (tokens equal, of them
+    with a clear margin, the worst error over its tolerance)."""
+    import torch
+
+    head = server.coded_head
+    equal = covered = 0
+    worst = 0.0
+    for lg, sel, ok, mask in server.rounds:
+        want, got = lg[:, :vocab], sel[:, :vocab].float()
+        tol = round_cond(head, ok, mask) * 2.0**-22 * float(want.abs().max())
+        err = max_err(got, want)
+        check(err <= tol, f"{tag}: a round's decoded logits disagree with the uncoded ones "
+                          f"({err:.3e} > {tol:.3e})")
+        worst = max(worst, err / tol if tol > 0 else 0.0)
+        top = want.topk(2, dim=1).values
+        clear = (top[:, 0] - top[:, 1]) > 2 * tol
+        same = got.argmax(1) == want.argmax(1)
+        check(bool((same | ~clear).all()), f"{tag}: a coded token differs from the uncoded "
+                                           f"one with a clear margin")
+        equal += int(same.sum())
+        covered += int((same & clear).sum())
+    return equal, covered, worst
+
+
+def bf16_profile(tag: str, server) -> None:
+    """One profiled replayed one-request serve (``obs_trace``: two
+    dispatches, a prefill chunk and a decode chunk) on ``server``, served
+    twice unprofiled first (built, then captured): its wall, device-op
+    time and busy share, the device time by group (BF16_GROUPS, B1-B3)
+    and the top ten ops. Its stream against the unprofiled ones is
+    reported, not held: ``moe_ffn``'s ``index_add_`` combine adds a
+    token's experts in no fixed order on the card (ROADMAP C), and in bf16
+    that moves a sum by an ulp, which 48 layers can carry to a token."""
+    import tempfile
+
+    from repro_torch.obs import profile
+
+    trace = obs_trace(server.model.config)
+    kw = dict(slots=SLOTS, block_len=BLOCK_LEN, prefill_chunk=CHUNK,
+              decode_block=DECODE_BLOCK, seed=0)
+    first = [server.serve(trace, **kw) for _ in range(2)]
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile.capture(tmp, "moonshot_bf16"):
+            rep = server.serve(trace, **kw)
+        s = profile.summarize(tmp, ["moonshot_bf16"], top_k=10, events=True)["moonshot_bf16"]
+    same = [rep.streams == f.streams for f in first]
+    wall, dev = s["wall_us"] / 1e3, s["op_total_us"] / 1e3
+    groups = {g: [0, 0.0] for g, _ in BF16_GROUPS}
+    mine, rest, long_copies = {}, [0, 0.0], [0, 0.0]
+    for e in s.pop("events"):
+        k = repo_kernel(e)
+        g = next((g for g, parts in BF16_GROUPS if any(x in e["name"] for x in parts)), None)
+        slot = (mine.setdefault(k, [0, 0.0]) if k is not None
+                else groups[g] if g is not None else rest)
+        slot[0] += 1
+        slot[1] += e["dur"] / 1e3
+        if g == BF16_GROUPS[0][0] and e["dur"] >= 100:
+            long_copies[0] += 1
+            long_copies[1] += e["dur"] / 1e3
+    print(f"[{tag}] profiled replay of a {len(trace)}-request serve ({rep.decode_rounds} "
+          f"decode steps, {rep.prefill_rounds} prefill round; {server.programs.replays} "
+          f"replays in all; its stream equal to the two unprofiled runs': {same}, "
+          f"reported: the MoE's combine adds in no fixed order): wall {wall:.1f} ms, "
+          f"device ops {dev:.1f} ms ({dev / wall:.3f} "
+          f"of the wall), {s['n_ops']} device ops; by group: " + ", ".join(
+              f"{g} {ms:.2f} ms (x{n})" for g, (n, ms) in
+              [*groups.items(), *mine.items(), ("other", rest)])
+          + f"; of the copies and casts, {long_copies[0]} took >= 0.1 ms each, "
+            f"{long_copies[1]:.2f} ms together")
+    for o in s["ops"]:
+        print(f"[{tag}]   {o['total_us'] / 1e3:9.3f} ms x{o['count']:<6d} {o['name'][:100]}")
+
+
+def moe_repeats(tag: str, model, calls: int = 8) -> None:
+    """Layer 0's FFN (``moe_ffn``) on one seeded (SLOTS, CHUNK) input in the
+    compute dtype (a prefill round's rows), ``calls`` times: how many
+    results differ from the first, bit for bit (reported: the combine's
+    ``index_add_`` adds a token's experts in no fixed order on the card)."""
+    import torch
+
+    c = model.config
+    gen = torch.Generator(device=model.device).manual_seed(8)
+    x = torch.randn((SLOTS, CHUNK, c.d_model), generator=gen, device=model.device)
+    x = x.to(c.cdtype)
+    p = model._layer(0)
+    with torch.no_grad():
+        outs = [model._ffn(p, x) for _ in range(calls)]
+    differ = sum(not torch.equal(o, outs[0]) for o in outs[1:])
+    worst = max(max_err(o.float(), outs[0].float()) for o in outs[1:])
+    print(f"[{tag}] moe_ffn of layer 0 on one {str(c.cdtype)[6:]} input ({SLOTS} x {CHUNK} "
+          f"rows), {calls} calls: {differ}/{calls - 1} differ from the first bit for bit, "
+          f"max |d| {worst:.3e} (max |out| {float(outs[0].abs().max()):.3e}; reported)")
+
+
+def moonshot_bf16_phase(card: str) -> dict:
+    """[moonshot-bf16]: BF16_ARCH at full depth and width with bf16
+    parameters and bf16 compute, built with nothing large resident (the
+    allocator checked first), then served through the default captured
+    programs: the serve phase's trace paged with the ``optimal`` coded
+    head on CLUSTER (``serve_phase``: its launch and coded-round checks),
+    B3 once; the init's and the serve's peaks held to BF16_INIT_SLACK and
+    BF16_SERVE_PEAK; the trace served again, all replays (the steady
+    wall); one replayed dispatch profiled (``bf16_profile``); layer 0's
+    FFN called repeatedly on one input (``moe_repeats``); the same
+    trace again through an uncaptured recording server, every
+    coded round and token held (``bf16_rounds``); the model's memory
+    freed after. Returns the main serve's launch counts."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.runtime_model import ClusterSpec
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.serve_loop import ServeConfig
+
+    tag = "moonshot-bf16"
+    cfg = dataclasses.replace(get_arch(BF16_ARCH), param_dtype="bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    print(f"[{tag}] allocated before the build: {before / 2**20:.1f} MiB")
+    check(before <= 2 << 30, f"{tag}: nothing large resident before the build")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = model.param_count()
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    draw = model.embed.numel() * 4  # the largest float32 draw: the embedding
+    f32 = sorted(n for n, p in model.named_parameters() if p.dtype == torch.float32)
+    bound = before + n_bytes + draw + BF16_INIT_SLACK
+    print(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_experts} "
+          f"experts top-{cfg.top_k}, {n_params / 1e9:.3f} B parameters in {n_bytes / 1e9:.2f} "
+          f"GB (bf16; float32: {f32}), compute {str(cfg.cdtype)[6:]}; init {init_s:.2f} s, "
+          f"its peak {init_peak / 1e9:.2f} GB <= {bound / 1e9:.2f} GB (before + parameters + "
+          f"the embedding's float32 draw {draw / 1e9:.2f} GB + 1 GiB)")
+    check(cfg.num_layers == 48 and f32 == ["w_router"],
+          f"{tag}: 48 layers, bf16 leaves but the float32 router")
+    check(init_peak <= bound, f"{tag}: the init's peak exceeds its bound")
+
+    torch.cuda.reset_peak_memory_stats()
+    kept = {}
+    counts, rep = serve_phase(model, tag, keep=kept)
+    torch.cuda.synchronize()
+    serve_peak = torch.cuda.max_memory_allocated()
+    server = kept.pop(tag)
+    print(f"[{tag}] serve peak {serve_peak / 2**30:.2f} GiB allocated (< "
+          f"{BF16_SERVE_PEAK / 2**30:.0f} GiB); captured programs: "
+          f"{server.programs.builds.get('serve', 0)} built, {server.programs.captures} "
+          f"captured, {server.programs.replays} replays; launches B1 {counts['coded_matvec']}, "
+          f"B2 {counts['paged_decode']} ({cfg.num_layers} x {rep.decode_rounds} decode "
+          f"steps), B3 {counts['mds_encode']}; {card}")
+    check(counts["mds_encode"] == 1, f"{tag}: mds_encode launches == 1")
+    check(serve_peak < BF16_SERVE_PEAK, f"{tag}: the serve's peak exceeds 62 GiB")
+    steady = server.serve(serve_trace(cfg), slots=SLOTS, block_len=BLOCK_LEN,
+                          prefill_chunk=CHUNK, decode_block=DECODE_BLOCK, seed=0)
+    print(f"[{tag}] the trace again, every dispatch a replay (steady): wall "
+          f"{steady.wall_s:.3f} s, {steady.tokens_per_s:.2f} tokens/s, decode ok "
+          f"{steady.decode_ok}/{steady.decode_rounds} (the first run {rep.wall_s:.3f} s, "
+          f"{rep.tokens_per_s:.2f} tokens/s); {server.programs.builds.get('serve', 0)} "
+          f"built, {server.programs.captures} captured; "
+          f"{sum(steady.streams[r] == rep.streams[r] for r in rep.streams)}/"
+          f"{len(rep.streams)} streams equal the first run's (reported)")
+    check(steady.tokens == rep.tokens and steady.decode_rounds == rep.decode_rounds,
+          f"{tag}: the steady run's tokens and decode steps")
+    bf16_profile(tag, server)
+    moe_repeats(tag, model)
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rec = recording_server(model, ClusterSpec.make(*CLUSTER),
+                           ServeConfig(block_rows=256, deadline_safety=SAFETY, scheme="optimal"))
+    again = rec.serve(serve_trace(cfg), slots=SLOTS, block_len=BLOCK_LEN, prefill_chunk=CHUNK,
+                      decode_block=DECODE_BLOCK, seed=0)
+    equal, covered, worst = bf16_rounds(tag, rec, cfg.vocab_size)
+    tokens = sum(lg.shape[0] for lg, *_ in rec.rounds)
+    same = sum(again.streams[r] == rep.streams[r] for r in rep.streams)
+    print(f"[{tag}] uncaptured recording serve: {len(rec.rounds)} coded rounds (decode ok "
+          f"{again.decode_ok}/{again.decode_rounds}, erased {again.erased_rounds}), each "
+          f"within {worst:.3f} x cond(G_S) 2^-22 max|logits| of its uncoded logits; "
+          f"{equal}/{tokens} slot tokens equal the uncoded argmax, {covered} with a clear "
+          f"margin; {same}/{len(rep.streams)} streams equal the captured serve's (reported: "
+          f"the MoE's index_add_ combine sums in no fixed order)")
+    check(len(rec.rounds) == again.decode_rounds == rep.decode_rounds,
+          f"{tag}: one recorded coded round a decode step")
+    del rec, model, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    print(f"[{tag}] allocated after: {after / 2**20:.1f} MiB")
+    check(after <= before + (64 << 20), f"{tag}: the model's memory was not freed "
+                                        f"({before} -> {after} bytes)")
+    return counts
 
 
 def profile_step(trainer, opt_state, steady_s: float, top: int = 16, tag: str = "train"):
@@ -3769,6 +4028,8 @@ def main(argv=None) -> int:
     fam_paths, fam_rows = families_phase(card)
     paths.update(fam_paths)
     lap("families")
+    paths["moonshot_bf16"] = moonshot_bf16_phase(card)
+    lap("moonshot-bf16")
     paths["train"] = train_phase(get_arch("qwen3-0.6b"))
     torch.cuda.empty_cache()
     lap("train")

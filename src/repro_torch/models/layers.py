@@ -9,6 +9,22 @@ import torch
 import torch.nn.functional as F
 
 
+def normal_init(shape: tuple, scale: float, dtype: torch.dtype, *, generator=None,
+                device=None, stacked: bool = False) -> torch.Tensor:
+    """A normal(0, scale^2) leaf in ``dtype``: a float32 draw scaled in place,
+    then cast. ``stacked``: ``shape[0]`` layers, allocated in ``dtype`` and
+    filled a layer at a time from a float32 draw of that layer, so the
+    peak is the leaf plus one layer's draw, and a seed gives the same
+    values in every dtype up to the cast."""
+    if not stacked:
+        return torch.randn(shape, generator=generator, device=device).mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if out.device.type != "meta":  # a meta model holds shapes only
+        for layer in out:
+            layer.copy_(torch.randn(shape[1:], generator=generator, device=device).mul_(scale))
+    return out
+
+
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
     y = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)

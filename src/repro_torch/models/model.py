@@ -29,7 +29,12 @@ path (``JAX_NAMES``, ``jax_path``); a Python loop over layers takes
 the place of ``lax.scan``. ``params_from_jax`` carries the reference's
 ``Model.init_params`` tree across and fails on a leaf missing or left
 over; otherwise the module draws its own seeded init on its device at
-any width, one full-size tensor at a time.
+any width, each leaf allocated in its final dtype (``param_dtype``; the
+router, the Mamba2 scalars and the xLSTM gate weights float32, as the
+reference's) and a stacked one filled a layer at a time from a float32
+draw (``layers.normal_init``): a seed gives the same weights in every
+parameter dtype up to the cast, and the init's peak is the parameters
+plus one float32 draw (at most the embedding's).
 
 The paged KV cache is ``{"k", "v"}`` of shape (L, NB+1, BL, KV, hd);
 both paged entry points update it in place and return it (under
@@ -182,27 +187,28 @@ class Model(nn.Module):
         #: layer, and the hybrid's one shared block
         self._groups = {"blocks": [], "encoder": [], "shared": []}
 
-        def add(group, name, t, keep_dtype=False):
-            setattr(self, name, nn.Parameter(t if keep_dtype else t.to(c.pdtype)))
+        def add(group, name, t):  # t in its final dtype
+            setattr(self, name, nn.Parameter(t))
             if group is not None:
                 self._groups[group].append(name)
 
-        def normal(shape, scale):  # scaled in place: one full-size tensor at a time
-            return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+        def normal(lead, shape, scale):  # a stacked leaf (lead: (L,)) a layer at a time
+            return L.normal_init((*lead, *shape), scale, c.pdtype, generator=gen,
+                                 device=dev, stacked=bool(lead))
 
         def ones(*shape):
-            return torch.ones(shape, device=dev)
+            return torch.ones(shape, dtype=c.pdtype, device=dev)
 
         def norm(group, name, lead, bias=False):
             add(group, name, ones(*lead, d))
             if bias:
-                add(group, f"{name}_bias", torch.zeros((*lead, d), device=dev))
+                add(group, f"{name}_bias", torch.zeros((*lead, d), dtype=c.pdtype, device=dev))
 
         def attn(group, prefix, lead, qk_norm=False):
             h, kv = c.num_heads * hd, c.num_kv_heads * hd
             for n, shape in (("wq", (d, h)), ("wk", (d, kv)), ("wv", (d, kv)),
                              ("wo", (h, d))):
-                add(group, prefix + n, normal((*lead, *shape), 1 / math.sqrt(shape[0])))
+                add(group, prefix + n, normal(lead, shape, 1 / math.sqrt(shape[0])))
             if qk_norm:
                 add(group, prefix + "q_norm", ones(*lead, hd))
                 add(group, prefix + "k_norm", ones(*lead, hd))
@@ -211,9 +217,9 @@ class Model(nn.Module):
             shapes = ((("w_gate", (d, f)),) if gated else ()) + (("w_up", (d, f)),
                                                                  ("w_down", (f, d)))
             for n, shape in shapes:
-                add(group, prefix + n, normal((*lead, *shape), 1 / math.sqrt(shape[0])))
+                add(group, prefix + n, normal(lead, shape, 1 / math.sqrt(shape[0])))
 
-        self.embed = nn.Parameter(normal((padded_vocab(c.vocab_size), d), 0.02).to(c.pdtype))
+        self.embed = nn.Parameter(normal((), (padded_vocab(c.vocab_size), d), 0.02))
         norm(None, "final_norm", (), bias=fam == "audio")
         gated = c.activation == "silu"
         if fam in ("dense", "vlm", "moe"):
@@ -222,7 +228,7 @@ class Model(nn.Module):
             attn("blocks", "", (nl,), c.qk_norm)
             if fam == "moe":
                 moe = init_moe(nl, d, f, c.num_experts, c.pdtype, generator=gen, device=dev)
-                add("blocks", "w_router", moe.pop("w_router"), keep_dtype=True)  # float32
+                add("blocks", "w_router", moe.pop("w_router"))  # float32
                 for n, t in moe.items():
                     add("blocks", f"expert_{n[2:]}", t)
             else:
@@ -232,7 +238,7 @@ class Model(nn.Module):
             for n, t in ssm.init_mamba2(nl, d, c.ssm_state, c.pdtype, expand=c.mamba_expand,
                                         head_dim=c.mamba_head_dim, generator=gen,
                                         device=dev).items():
-                add("blocks", f"mamba_{n}", t, keep_dtype=True)  # a_log, dt_bias, d_skip f32
+                add("blocks", f"mamba_{n}", t)  # a_log, dt_bias, d_skip float32
             norm("shared", "shared_ln1", ())
             attn("shared", "shared_", (), c.qk_norm)
             norm("shared", "shared_ln2", ())
@@ -245,7 +251,7 @@ class Model(nn.Module):
                         xlstm.init_mlstm(d, c.num_heads, c.pdtype, c.proj_factor,
                                          generator=gen, device=dev))
                 self.cells.append(nn.ParameterDict(
-                    {"ln": nn.Parameter(ones(d).to(c.pdtype)),
+                    {"ln": nn.Parameter(ones(d)),
                      **{n: nn.Parameter(t) for n, t in cell.items()}}))
         else:  # audio: the encoder and the decoder, LayerNorm and GELU throughout
             ne = (c.num_encoder_layers,)

@@ -24,17 +24,20 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import normal_init
+
 
 def init_moe(layers: int, d_model: int, d_ff: int, num_experts: int, dtype: torch.dtype,
              *, generator: torch.Generator, device) -> dict:
     """``layers`` stacked MoE layers: ``w_router`` (L, D, E) float32 and the
     experts ``w_gate``, ``w_up`` (L, E, D, F) and ``w_down`` (L, E, F, D) in
     ``dtype``, each layer drawn as the reference's ``_dense_init`` (normal
-    over the square root of its first dimension), scaled in place."""
+    over the square root of its first dimension) into a stack allocated
+    in its final dtype (``normal_init``)."""
 
     def normal(shape, dt):
-        t = torch.randn((layers,) + shape, generator=generator, device=device)
-        return t.mul_(1.0 / math.sqrt(shape[0])).to(dt)
+        return normal_init((layers,) + shape, 1.0 / math.sqrt(shape[0]), dt,
+                           generator=generator, device=device, stacked=True)
 
     return {"w_router": normal((d_model, num_experts), torch.float32),
             "w_gate": normal((num_experts, d_model, d_ff), dtype),

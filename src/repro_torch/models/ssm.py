@@ -18,7 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import normal_init, rmsnorm
 
 CONV_K = 4  # causal depthwise conv kernel size
 
@@ -37,13 +37,13 @@ def init_mamba2(layers: int, d_model: int, d_state: int, dtype: torch.dtype, *,
                 expand: int = 2, head_dim: int = 64, generator=None, device=None
                 ) -> dict:
     """Stacked (``layers`` leading) parameters with the reference's shapes,
-    dtypes and constants; the random ones drawn from ``generator``, one
-    full-size tensor at a time."""
+    dtypes and constants; the random ones drawn from ``generator`` a layer
+    at a time into stacks in their final dtype (``normal_init``)."""
     d_inner, n_heads, conv_dim = dims(d_model, d_state, expand, head_dim)
-    kw = dict(generator=generator, device=device)
 
     def normal(shape, scale):
-        return torch.randn((layers, *shape), **kw).mul_(scale).to(dtype)
+        return normal_init((layers, *shape), scale, dtype, generator=generator,
+                           device=device, stacked=True)
 
     def const(row: torch.Tensor) -> torch.Tensor:  # float32, as the reference
         return row.to(device).repeat(layers, 1)

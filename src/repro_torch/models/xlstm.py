@@ -17,20 +17,16 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import normal_init, rmsnorm
 
 #: the cells' parameter names (the reference's ``blocks/<i>/cell/*``)
 MLSTM_PARAMS = ("w_up", "wq", "wk", "wv", "w_if", "b_i", "b_f", "norm_scale", "w_down")
 SLSTM_PARAMS = ("w_x", "w_h", "b", "norm_scale", "w_out")
 
 
-def _normal(shape, scale, dtype, generator, device):
-    return torch.randn(shape, generator=generator, device=device).mul_(scale).to(dtype)
-
-
 def _dense(d_in, d_out, dtype, generator, device, scale=None):
-    return _normal((d_in, d_out), 1 / math.sqrt(d_in) if scale is None else scale,
-                   dtype, generator, device)
+    return normal_init((d_in, d_out), 1 / math.sqrt(d_in) if scale is None else scale,
+                       dtype, generator=generator, device=device)
 
 
 # ---------------------------------------------------------------- mLSTM
@@ -112,7 +108,7 @@ def init_slstm(d_model: int, num_heads: int, dtype: torch.dtype, *, generator=No
         # input projections of the gates (i, f, z, o)
         "w_x": _dense(d_model, 4 * d_model, dtype, **kw),
         # recurrent, block-diagonal per head
-        "w_h": _normal((num_heads, hd, 4 * hd), 1 / math.sqrt(hd), dtype, **kw),
+        "w_h": normal_init((num_heads, hd, 4 * hd), 1 / math.sqrt(hd), dtype, **kw),
         "b": torch.cat([torch.zeros(d_model), torch.ones(d_model),  # forget bias > 0
                         torch.zeros(2 * d_model)]).to(device),
         "norm_scale": torch.ones(d_model, dtype=dtype, device=device),

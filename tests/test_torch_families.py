@@ -69,11 +69,13 @@ _PAIRS = {}
 
 def _pair(name, **changes):
     """(reference model, params, port model) of a reduced config, memoised.
-    ``changes`` leave the parameter shapes alone: one init per arch."""
+    ``changes`` leave the parameter shapes alone: one init per arch and
+    parameter dtype (``param_dtype``)."""
     key = (name, tuple(sorted(changes.items())))
     if key not in _PAIRS:
         ref = RefModel(dataclasses.replace(REF_ARCHS[name].reduced(), **changes))
-        params = (_pair(name)[1] if changes
+        dtype = {k: v for k, v in changes.items() if k == "param_dtype"}
+        params = (_pair(name, **dtype)[1] if changes != dtype
                   else jax.block_until_ready(jax.jit(ref.init_params)(KEY)))
         ours = Model(dataclasses.replace(ARCHS[name].reduced(), **changes), device="cpu")
         ours.params_from_jax(jax.tree.map(np.asarray, params))
@@ -212,8 +214,8 @@ def test_lm_logits_and_decode_step_match_reference(name, changes, steps):
 
 
 @pytest.mark.parametrize("name", ["granite-3-2b", MOE])
-def test_prefill_and_decode_step_slots_match_reference(name):
-    ref, params, ours = _pair(name)
+def test_prefill_and_decode_step_slots_match_reference(name, **changes):
+    ref, params, ours = _pair(name, **changes)
     rng = np.random.default_rng(2)
     toks = rng.integers(0, 512, (3, 40)).astype(np.int32)
     lens = np.array([40, 23, 1], np.int32)
@@ -238,11 +240,11 @@ def test_prefill_and_decode_step_slots_match_reference(name):
 
 
 @pytest.mark.parametrize("name", ["granite-3-2b", MOE])
-def test_chunked_prefill_and_paged_decode_match_reference(name):
+def test_chunked_prefill_and_paged_decode_match_reference(name, **changes):
     """Prompts of 7 and 5 tokens in 3-token chunks (the padded rows of the
     chunk fed to both packages alike: an MoE layer routes them), then four
     paged decode steps, slot 1 frozen for one."""
-    ref, params, ours = _pair(name)
+    ref, params, ours = _pair(name, **changes)
     slots, chunk, bl, steps, plens = 2, 3, 4, 4, [7, 5]
     mb = -(-(max(plens) + steps + 1) // bl)
     nb = slots * mb + 2
@@ -329,12 +331,12 @@ def _ref_streams(refsrv, trace, monkeypatch, **kw):
 
 @pytest.mark.parametrize("name,paged", [("granite-3-2b", True), ("granite-3-2b", False),
                                         (MOE, True), (MOE, False)])
-def test_serve_matches_reference(name, paged, monkeypatch):
+def test_serve_matches_reference(name, paged, monkeypatch, **changes):
     trace_kw = dict(num_requests=4, prompt_len=(4, 20), out_len=(2, 5), vocab=512)
     serve_kw = dict(slots=2, decode_block=2, paged=paged)
     if paged:
         serve_kw["prefill_chunk"] = 8
-    refsrv, server = _servers(name)
+    refsrv, server = _servers(name, **changes)
     ref_rep, ref_streams = _ref_streams(
         refsrv, ref_wl.make_workload("poisson", **trace_kw).trace(seed=0), monkeypatch,
         **serve_kw)
