@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one H100: build, check and time its kernels,
 run the paper's coded matvec at full width (in one process, then split over
-the ranks of its workers mesh), serve full-width qwen3-0.6b
+the ranks of its workers mesh), run the paper's Monte-Carlo evaluation on
+the card, serve full-width qwen3-0.6b
 through the coded server (paged and dense), generate with it under every
 baseline allocation scheme, profile those serving paths phase by phase with
 their spans on a telemetry stream, generate under a drifting fleet with
@@ -53,12 +54,25 @@ Phases (any failure raises, and the script exits non-zero):
    matvec-mesh — Path M on the paper's workers mesh: worlds of 1 (NCCL,
    ``make_workers_mesh()``), 2 and 4 ranks (gloo: the ranks share the one
    card), each rank a process of its own, one world at a time; counters
-   reset before ``end_to_end_coded_matvec(..., mesh=)`` and read after:
-   one B1 launch on the rank's block of W / R workers and one B3 a rank;
-   z and the gathered products on every rank bit-identical to [matvec]'s,
-   ok True, the insufficient mask False and zeros, no JAX imported; each
-   world's wall split into encode, products and gather, decode, and each
-   rank's B1 device time;
+   and the peak allocated reset before ``end_to_end_coded_matvec(...,
+   mesh=)`` (A passed on the master only) and read after: the master
+   draws G, runs B3 once and packs, then scatters each rank its block of
+   W / R workers (B3 0 on every other rank, whose peak stays within its
+   block + 64 MiB); one B1 launch a rank on its block; z and the gathered
+   products on every rank bit-identical to [matvec]'s, ok True, the
+   insufficient mask False and zeros, no JAX imported; each world's wall
+   split into the master's encode, the scatter, products and gather, and
+   decode, each rank's peak, and B1's device time on a block of each
+   world's shape;
+   paper — the paper's Section IV Monte Carlo on the card: Fig. 4's
+   setting (five groups, k 100,000, N 250 to 8,000, 10,000 trials) through
+   ``CodedComputeEngine`` with a CUDA ``torch.Generator`` for the proposed
+   scheme, uniform at n* and at 2k, uncoded and the group code at r 100,
+   beside T* (``lower_bound``): proposed >= 0.95 T*, proposed / T* within
+   1e-3 of 1 at N 8,000, uniform_n* above proposed, the group code >= 10x
+   at N 8,000, the card's N 1,000 mean within 4 standard errors of the
+   CPU's; Fig. 2's N T* on the host through ``scale_mu`` and
+   ``lower_bound``, invariant to 1e-9 over scales 1, 2 and 4;
 4. serve    — launch counters reset, then ``Server`` + ``serve`` of a
    seeded 8-request trace on full-width qwen3-0.6b (random seeded
    weights) with the coded LM head on a 12-worker cluster; counters read
@@ -1015,12 +1029,12 @@ def matvec_mesh_rank() -> None:
     ``python -c MESH_RANK_CMD world rank store go out device``: waits for
     the file ``go``, joins its world (R = 1: ``make_workers_mesh``'s own
     group; else gloo over the ``FileStore`` ``store``), runs Path M's
-    ``end_to_end_coded_matvec`` on the workers mesh (counters reset just
-    before, read just after), then its pieces timed from a barrier each
-    (encode, products and gather, the master's decode and broadcast), the
-    insufficient mask, and this rank's B1 block by device time (one rank
-    at a time). Saves z and the products to ``out`` and prints one JSON
-    line."""
+    ``end_to_end_coded_matvec`` on the workers mesh with A on the master
+    only (counters reset and the peak allocated reset just before, read
+    just after), then its pieces timed from a barrier each (the master's
+    encode: generator, B3 and pack; the scatter of the blocks; products
+    and gather; the master's decode and broadcast) and the insufficient
+    mask. Saves z and the products to ``out`` and prints one JSON line."""
     import datetime
     import os
 
@@ -1030,12 +1044,12 @@ def matvec_mesh_rank() -> None:
     import repro_torch.kernels as kernels
     from repro_torch.core.coded_matvec import (
         DecodePipeline,
-        coded_matvec,
+        coded_matvec_block,
         end_to_end_coded_matvec,
         pack_coded_matrix,
+        shard_packed,
     )
     from repro_torch.core.coding import make_generator
-    from repro_torch.kernels.coded_matvec.ops import blocked_matvec_batch
     from repro_torch.launch.mesh import destroy_local_mesh, make_workers_mesh
     from repro_torch.runtime.serve_loop import set_full_fp32
 
@@ -1066,47 +1080,49 @@ def matvec_mesh_rank() -> None:
     t_mesh = together()
     exe, a, x, mask = matvec_inputs(dev)
     plan = exe.plan
+    master = rank == 0
+    if not master:  # only the master reads A
+        del a
+        a = None
     kernels.reset_launch_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if cuda else 0
     t = together()
     z, ok = end_to_end_coded_matvec(a, x, plan, mask, seed=0, device=dev, mesh=mesh)
     if cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - base if cuda else None
     counts = kernels.launch_counts()
 
     t0 = together()
-    g = make_generator(plan.n, MATVEC_K, seed=0, device=dev)
-    packed, row_of = pack_coded_matrix(g, a, plan)
+    g = packed = row_of = None
+    if master:
+        g = make_generator(plan.n, MATVEC_K, seed=0, device=dev)
+        packed, row_of = pack_coded_matrix(g, a, plan)
     t1 = together()
-    partials = coded_matvec(packed, x, mesh=mesh)
+    block = shard_packed(packed, plan, mesh)
     t2 = together()
-    pipe = DecodePipeline(g, row_of, mesh=mesh)
-    z2, ok2 = pipe.decode(partials, mask)
+    partials = coded_matvec_block(block, x, mesh)
     t3 = together()
+    pipe = DecodePipeline(g, row_of, mesh=mesh, k=plan.k)
+    z2, ok2 = pipe.decode(partials, mask)
+    t4 = together()
     bad = torch.from_numpy(plan.group_of_worker == 2).to(dev)  # fewer than k rows
-    zb, okb = pipe(packed, x, bad)
-    per = plan.num_workers // world
-    block = packed[rank * per:(rank + 1) * per]
-    t_prof = together()
-    b1_ms = None
-    if cuda:  # a process's first profiler session starts CUPTI (seconds): all ranks at once
-        profiled(lambda: None)
-    for r in range(world):
-        together()
-        if r == rank and cuda:
-            b1_ms = device_ms(lambda: blocked_matvec_batch(block, x), calls=20, match="narrow")
-    together()
+    zb, okb = pipe.on_block(block, x, bad)
+    t_end = together()
     torch.save({"z": z.cpu(), "partials": partials.cpu()}, out)
     rec = dict(world=world, rank=rank, backend=dist.get_backend(),
                mesh=[list(mesh.mesh_dim_names), mesh.size()], ok=bool(ok),
                ok_type=[str(ok.dtype), list(ok.shape)], counts=counts, wall=wall,
-               encode=t1 - t0, products=t2 - t1, decode=t3 - t2,
+               peak=peak, block_bytes=block.numel() * block.element_size(),
+               block_shape=list(block.shape), encode=t1 - t0, scatter=t2 - t1,
+               products=t3 - t2, decode=t4 - t3,
                pieces_equal=torch.equal(z2, z) and bool(ok2) == bool(ok),
-               insufficient=[bool(okb), bool((zb == 0).all())], b1_rows=per * plan.max_load,
-               b1_device_ms=b1_ms, stages=dict(
-                   mesh=t_mesh - t_go, inputs=t - t_mesh, runs=t_prof - t,
-                   profile=time.perf_counter() - t_prof))
-    del g, packed, a
+               insufficient=[bool(okb), bool((zb == 0).all())],
+               stages=dict(mesh=t_mesh - t_go, inputs=t - t_mesh, runs=t_end - t))
+    del g, packed, a, block
     if world > 1:
         dist.destroy_process_group()
     else:
@@ -1115,22 +1131,34 @@ def matvec_mesh_rank() -> None:
     print(json.dumps(rec))
 
 
+#: a non-master rank's peak allocated during ``end_to_end_coded_matvec``
+#: may exceed its block by this much (x, the products, z, the mask)
+MESH_PEAK_SLACK = 64 * 2**20
+
+
 def matvec_mesh_phase(card: str, want: dict, device: str = "cuda") -> dict:
     """[matvec-mesh]: Path M on the paper's workers mesh, R ranks of
     ``MESH_WORLDS`` in turn, each rank a process of its own
     (``matvec_mesh_rank``; all started at once, each world let go when the
-    one before it has exited). Every rank: ok, one B1 and one B3 launch,
-    z and the gathered products bit-identical to [matvec]'s one-process
-    run (``want``: the narrow branch sums each row in the same order
-    whatever the block, and the master's decode sees the same products),
-    the insufficient mask False and zeros, no JAX. Prints each world's
-    wall split into encode, products and gather, and decode, and each
-    rank's B1 device time. Returns each world's launches summed over its
-    ranks."""
+    one before it has exited). Every rank: ok, one B1 launch on its block;
+    B3 once on the master and never elsewhere (the master draws G, encodes
+    and packs, then scatters the blocks); a non-master's peak allocated
+    during the call at most its block + ``MESH_PEAK_SLACK``; z and the
+    gathered products bit-identical to [matvec]'s one-process run
+    (``want``: the narrow branch sums each row in the same order whatever
+    the block, and the master's decode sees the same products), the
+    insufficient mask False and zeros, no JAX. Prints each world's wall
+    split into the master's encode, the scatter, products and gather, and
+    decode, each rank's peak against its block, and B1's device time on a
+    block of each world's shape (in this process, after the worlds: each
+    rank's first profiler session would start CUPTI anew, seconds a
+    world). Returns each world's launches summed over its ranks."""
     import torch
 
+    from repro_torch.kernels.coded_matvec.ops import blocked_matvec_batch
+
     t0 = time.perf_counter()
-    paths = {}
+    paths, blocks = {}, {}
     with tempfile.TemporaryDirectory(prefix="matvec-mesh-") as tmp:
         tmp = Path(tmp)
         procs = {R: start_procs([["-c", MESH_RANK_CMD, str(R), str(r), str(tmp / f"store{R}"),
@@ -1146,14 +1174,21 @@ def matvec_mesh_phase(card: str, want: dict, device: str = "cuda") -> dict:
                 backend = "nccl" if R == 1 and device == "cuda" else "gloo"
                 same_z = all(torch.equal(o["z"], want["z"]) for o in outs)
                 same_p = all(torch.equal(o["partials"], want["partials"]) for o in outs)
-                b1 = [rec["b1_device_ms"] for rec in recs]
+                blocks[R] = recs[0]["block_shape"]
                 print(f"[matvec-mesh] world {R} ({recs[0]['backend']}, {card}): wall "
                       f"{max(rec['wall'] for rec in recs):.3f} s (end_to_end_coded_matvec, "
-                      f"slowest rank); pieces from a barrier each: encode (generator, B3, "
-                      f"pack) {recs[0]['encode']:.3f} s, products and gather "
+                      f"slowest rank); pieces from a barrier each: the master's encode "
+                      f"(generator, B3, pack) {recs[0]['encode']:.3f} s, products and gather "
                       f"{recs[0]['products'] * 1e3:.2f} ms, decode and broadcast "
-                      f"{recs[0]['decode'] * 1e3:.2f} ms; B1 device time a rank over "
-                      f"{recs[0]['b1_rows']} rows: {', '.join(fmt_ms(m) for m in b1)}")
+                      f"{recs[0]['decode'] * 1e3:.2f} ms")
+                print(f"[matvec-mesh] world {R}: scatter of the {recs[0]['block_shape']} "
+                      f"blocks ({recs[0]['block_bytes'] / 1e6:.1f} MB a rank) "
+                      f"{recs[0]['scatter'] * 1e3:.2f} ms")
+                if device == "cuda":
+                    print(f"[matvec-mesh] world {R}: peak allocated during the call over "
+                          f"what was resident, by rank: " + ", ".join(
+                              f"{rec['peak'] / 1e6:.1f} MB" for rec in recs)
+                          + f" (a block {recs[0]['block_bytes'] / 1e6:.1f} MB)")
                 print(f"[matvec-mesh] world {R}: z on every rank bit-identical to [matvec]'s: "
                       f"{same_z}; the gathered products: {same_p}; launches "
                       f"{[rec['counts'] for rec in recs]}")
@@ -1163,9 +1198,14 @@ def matvec_mesh_phase(card: str, want: dict, device: str = "cuda") -> dict:
                           f"{tag}: a {backend} ('workers',) mesh of {R}")
                     check(rec["ok"] and rec["ok_type"] == ["torch.bool", []],
                           f"{tag}: ok, a 0-d bool")
-                    check(rec["counts"]["coded_matvec"] == 1 and rec["counts"]["mds_encode"] == 1
+                    b3 = int(rec["rank"] == 0)
+                    check(rec["counts"]["coded_matvec"] == 1 and rec["counts"]["mds_encode"] == b3
                           and rec["counts"]["paged_decode"] == 0,
-                          f"{tag}: one B1 and one B3 launch")
+                          f"{tag}: one B1 launch, B3 {b3}")
+                    if rec["rank"] and device == "cuda":
+                        check(rec["peak"] <= rec["block_bytes"] + MESH_PEAK_SLACK,
+                              f"{tag}: peak {rec['peak']} bytes over its block "
+                              f"{rec['block_bytes']} + {MESH_PEAK_SLACK}")
                     check(rec["pieces_equal"], f"{tag}: the timed pieces give the same z")
                     check(rec["insufficient"] == [False, True],
                           f"{tag}: fewer than k rows must flag and zero")
@@ -1180,8 +1220,149 @@ def matvec_mesh_phase(card: str, want: dict, device: str = "cuda") -> dict:
                     if p.poll() is None:
                         p.kill()
                         p.wait()
+    if device == "cuda":  # a rank's B1 launch by device time, here (CUPTI is up)
+        gen = torch.Generator(device=device).manual_seed(6)
+        for R, shape in blocks.items():
+            block = torch.randn(shape, generator=gen, device=device)
+            x = torch.randn(shape[2], generator=gen, device=device)
+            ms = device_ms(lambda: blocked_matvec_batch(block, x), calls=20, match="narrow")
+            print(f"[matvec-mesh] world {R}: B1 on a rank's block {shape} ({shape[0] * shape[1]} "
+                  f"rows), device time {fmt_ms(ms)}")
+            del block
     print(f"[matvec-mesh] {time.perf_counter() - t0:.1f} s")
     return paths
+
+
+#: [paper]: the paper's Fig. 4 setting (benchmarks/fig4.py): groups (3, 4,
+#: 5, 6, 7) N / 25 with mu (16, 12, 8, 4, 1), alpha 1, k 100,000, the group
+#: code of [33] at r 100, 10,000 Monte-Carlo trials a point (the paper's)
+PAPER_NS = (250, 500, 1_000, 2_000, 4_000, 8_000)
+PAPER_MUS = (16.0, 12.0, 8.0, 4.0, 1.0)
+PAPER_K, PAPER_TRIALS, PAPER_R = 100_000, 10_000, 100
+#: Fig. 2's cluster (benchmarks/fig2.py) and the reference's frozen N T* at
+#: q = 1 (tests/test_fig_golden.py)
+FIG2_FLEET, FIG2_NT_Q1 = ([1000, 2000, 3000], [2.0, 1.0, 0.5]), 3.4968381270239273
+
+
+def paper_cluster(n_total: int):
+    from repro_torch.core.runtime_model import ClusterSpec
+
+    return ClusterSpec.make([p * n_total // 25 for p in (3, 4, 5, 6, 7)], PAPER_MUS, 1.0)
+
+
+def paper_point(c, device, seed: int, schemes: dict) -> dict:
+    """Each scheme's Monte-Carlo mean and standard error on ``c`` through
+    ``CodedComputeEngine``, every sample drawn on ``device`` from one
+    generator; the mean also through ``expected_latency`` from the same
+    generator state, which must give the same number."""
+    import torch
+
+    from repro_torch.core.engine import CodedComputeEngine
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for name, scheme in schemes.items():
+        eng = CodedComputeEngine(c, PAPER_K, scheme)
+        state = gen.get_state()
+        samples = eng.simulate(gen, PAPER_TRIALS)
+        check(samples.device.type == torch.device(device).type
+              and tuple(samples.shape) == (PAPER_TRIALS,),
+              f"{name}: {PAPER_TRIALS} samples on {device}")
+        check(bool(torch.isfinite(samples).all()), f"{name}: finite samples")
+        mean = float(samples.mean())
+        gen.set_state(state)
+        check(eng.expected_latency(gen, PAPER_TRIALS) == mean,
+              f"{name}: expected_latency is the samples' mean")
+        out[name] = (mean, float(samples.std()) / math.sqrt(PAPER_TRIALS))
+    return out
+
+
+def paper_phase(card: str, device: str = "cuda") -> dict:
+    """[paper]: the paper's Section IV Monte Carlo on the card. Fig. 4's
+    setting at every N of ``PAPER_NS`` through ``CodedComputeEngine`` with
+    a ``torch.Generator`` on ``device``: the proposed scheme (``Optimal``),
+    ``UniformN`` at its n* and at 2k, ``Uncoded`` and the group code
+    (``UniformR`` at r 100), each the mean of ``PAPER_TRIALS`` samples
+    beside T* (``lower_bound``). Held: proposed >= 0.95 T* at every N
+    (the reference's golden relation), |proposed / T* - 1| <= 1e-3 at the
+    largest N, uniform_n* above proposed at every N, the group code >= 10x
+    proposed at the largest N; at N 1,000 the card's proposed mean within
+    4 combined standard errors of the same run on the CPU. Then Fig. 2 on
+    the host through ``scale_mu`` and ``lower_bound``: N T* over q
+    decreasing, at q 1 the reference's frozen value to 1e-9, and equal to
+    1e-9 at scales 1, 2 and 4 of the cluster. Returns the launch counts
+    (the simulation launches none of the port's kernels)."""
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.core.runtime_model import ClusterSpec
+    from repro_torch.core.schemes import Optimal, Uncoded, UniformN, UniformR
+
+    t0 = time.perf_counter()
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    kernels.reset_launch_counts()
+    rows = []
+    for i, n_total in enumerate(PAPER_NS):
+        c = paper_cluster(n_total)
+        opt = Optimal()
+        t_star = opt.lower_bound(c, PAPER_K)
+        schemes = {"proposed": opt,
+                   "uniform_n*": UniformN(n=opt.allocate(c, PAPER_K).n),
+                   "uniform_2k": UniformN(n=2.0 * PAPER_K), "uncoded": Uncoded(),
+                   f"group_r{PAPER_R}": UniformR(r=PAPER_R)}
+        sync()
+        t = time.perf_counter()
+        point = paper_point(c, device, 2019 + i, schemes)
+        sync()
+        row = {"N": c.total_workers, "T*": t_star, "s": time.perf_counter() - t, **point}
+        rows.append(row)
+        print(f"[paper] N {row['N']}: T* {t_star:.6e}; " + ", ".join(
+            f"{name} {m:.6e} (se {se:.1e})" for name, (m, se) in point.items())
+            + f"; proposed / T* {point['proposed'][0] / t_star:.5f}; {row['s']:.3f} s")
+    counts = kernels.launch_counts()
+    for row in rows:
+        prop = row["proposed"][0]
+        check(prop >= 0.95 * row["T*"], f"N {row['N']}: proposed >= 0.95 T*")
+        check(row["uniform_n*"][0] > prop, f"N {row['N']}: uniform_n* above proposed")
+    last = rows[-1]
+    ratio = last["proposed"][0] / last["T*"]
+    gain = last[f"group_r{PAPER_R}"][0] / last["proposed"][0]
+    gain_n = 1 - last["proposed"][0] / last["uniform_n*"][0]
+    print(f"[paper] N {last['N']} ({card}): {PAPER_TRIALS} trials of five schemes in "
+          f"{last['s']:.3f} s on {device}; proposed / T* {ratio:.6f}; the group code at r "
+          f"{PAPER_R} {gain:.1f}x proposed (paper: >= 10x); proposed {100 * gain_n:.1f}% "
+          f"below uniform_n* (paper: ~18%)")
+    check(abs(ratio - 1) <= 1e-3, f"N {last['N']}: |proposed / T* - 1| <= 1e-3")
+    check(gain >= 10, f"N {last['N']}: the group code >= 10x proposed")
+
+    n_cpu = 1_000
+    i = PAPER_NS.index(n_cpu)
+    card_mean, card_se = rows[i]["proposed"]
+    t = time.perf_counter()
+    cpu_mean, cpu_se = paper_point(paper_cluster(n_cpu), "cpu", 2019 + i,
+                                   {"proposed": Optimal()})["proposed"]
+    z = abs(card_mean - cpu_mean) / math.hypot(card_se, cpu_se)
+    print(f"[paper] N {n_cpu}: proposed on {device} {card_mean:.6e}, on the CPU "
+          f"{cpu_mean:.6e} ({time.perf_counter() - t:.2f} s): {z:.2f} combined standard "
+          f"errors apart")
+    check(z <= 4, f"N {n_cpu}: the card's proposed mean within 4 standard errors of the CPU's")
+
+    base = ClusterSpec.make(*FIG2_FLEET, 1.0)
+    qs = [10 ** (e / 4) for e in range(-8, 9)]
+    nt = [base.total_workers * Optimal().lower_bound(base.scale_mu(q), 10_000) for q in qs]
+    q1 = qs.index(1.0)
+    scales = [ClusterSpec.make([n * s for n in FIG2_FLEET[0]], FIG2_FLEET[1], 1.0)
+              for s in (1, 2, 4)]
+    inv = [c.total_workers * Optimal().lower_bound(c, 10_000) for c in scales]
+    spread = max(abs(v / inv[0] - 1) for v in inv)
+    print(f"[paper] Fig. 2 (host): N T* over q 1e-2..1e2 from {nt[0]:.4f} to {nt[-1]:.6f}, "
+          f"at q 1 {nt[q1]!r}; at scales 1, 2, 4: {inv} (spread {spread:.1e})")
+    check(all(a > b for a, b in zip(nt, nt[1:])), "Fig. 2: N T* decreasing in q")
+    check(abs(nt[q1] / FIG2_NT_Q1 - 1) <= 1e-9, "Fig. 2: N T* at q 1 the reference's")
+    check(spread <= 1e-9, "Fig. 2: N T* invariant to 1e-9 over scales 1, 2, 4")
+    check(all(v == 0 for v in counts.values()), "[paper] launches none of the port's kernels")
+    print(f"[paper] {time.perf_counter() - t0:.1f} s")
+    return counts
 
 
 def make_model(cfg, device: str = "cuda", tag: str = "serve"):
@@ -3978,6 +4159,8 @@ def main(argv=None) -> int:
     paths.update(matvec_mesh_phase(card, matvec_out))
     del matvec_out
     lap("matvec-mesh")
+    paths["paper"] = paper_phase(card)
+    lap("paper")
     model = make_model(get_arch("qwen3-0.6b"))
     served = {}  # [serve]'s and [serve-dense]'s servers, for [programs]
     paths["serve"], paged_rep = serve_phase(model, keep=served)

@@ -88,6 +88,10 @@ class ModelConfig:
         """O(1) or O(window) decode state (ssm, hybrid, sliding window)."""
         return self.family in ("ssm", "hybrid") or self.sliding_window is not None
 
+    @property
+    def has_decode(self) -> bool:
+        return True  # every registered config is decoder-bearing
+
     def reduced(self) -> "ModelConfig":
         """Tiny same-family variant for CPU tests (the reference's sizes)."""
         return dataclasses.replace(

@@ -6,12 +6,18 @@ Counterpart of ``repro/core/coded_matvec.py``. The master encodes
 block padded to the plan's ``max_load``, every worker computes its block
 times x, and the master decodes ``A x`` from the workers that met the
 deadline. With no mesh the workers are the leading dimension of one
-(W * max_load, d) B1 launch. With a 1-D ``workers`` mesh of R ranks
-(``launch.mesh.make_workers_mesh``; the reference's ``shard_map`` over
-its ``workers`` axis) rank r computes workers [r W/R, (r+1) W/R) in one
-B1 launch, the products are all-gathered in worker order, rank 0 of the
-group (the master) decodes and broadcasts (z, ok): every rank returns
-the same result.
+(W * max_load, d) B1 launch.
+
+With a 1-D ``workers`` mesh of R ranks (``launch.mesh.make_workers_mesh``)
+the packed A~ is sharded over the axis, as the reference's ``shard_map``
+takes it (``in_specs=P(axis, None, None)``: its single controller encodes
+once and each device receives its workers' block). Here the master, rank
+0 of the axis's group, draws G, runs B3 and packs; ``shard_packed`` sends
+rank r the (W/R, max_load, d) block of workers [r W/R, (r+1) W/R), so no
+other rank holds G, A or the whole A~. Each rank computes its block in
+one B1 launch (``coded_matvec_block``), the products are all-gathered in
+worker order, and the master decodes and broadcasts (z, ok): every rank
+returns the same result.
 
 * ``DecodePipeline`` — the hot path: products, erasure mask and the
   fixed-shape decode (``masked_decode`` -> ``decode_systematic``) on the
@@ -68,30 +74,89 @@ def _workers_group(mesh, axis: str, device: torch.device):
     return group, dist.get_world_size(group), dist.get_rank(group)
 
 
+def _mesh_device(mesh) -> torch.device:
+    """This rank's device of the mesh's type (the current card on CUDA)."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _per_rank(w: int, r: int, axis: str) -> int:
+    if w % r:
+        raise ValueError(f"{w} workers do not split over {r} ranks of the {axis!r} axis")
+    return w // r
+
+
+def shard_packed(packed: torch.Tensor | None, plan: DeploymentPlan, mesh, *,
+                 axis: str = "workers") -> torch.Tensor:
+    """This rank's (W/R, max_load, d) block of the packed A~: workers
+    [r W/R, (r+1) W/R) of a ``workers`` mesh of R ranks.
+
+    The master, rank 0 of the axis's group, passes the whole packed array
+    (float32, as ``pack_coded_matrix`` gives it) and scatters it; its own
+    block is a view of it. Every other rank passes ``None`` and allocates
+    only its block (d comes from the master in a one-element broadcast).
+    R must divide the plan's W.
+    """
+    dev = _mesh_device(mesh) if packed is None else packed.device
+    group, r, rank = _workers_group(mesh, axis, dev)
+    w, ml = plan.num_workers, plan.max_load
+    per = _per_rank(w, r, axis)
+    if (rank == 0) != (packed is not None):
+        raise ValueError("the master (rank 0 of the axis) passes the packed A~, "
+                         f"every other rank None; rank {rank} passed "
+                         f"{'None' if packed is None else 'an array'}")
+    if packed is not None and (tuple(packed.shape[:2]) != (w, ml)
+                               or packed.dtype != torch.float32):
+        raise ValueError(f"packed A~ of shape {tuple(packed.shape)} in {packed.dtype}, "
+                         f"the plan packs ({w}, {ml}, d) in torch.float32")
+    if r == 1:
+        return packed
+    master = dist.get_global_rank(group, 0)
+    d = torch.tensor([0 if packed is None else packed.shape[2]], dtype=torch.int64,
+                     device=dev)
+    dist.broadcast(d, master, group=group)
+    if rank == 0:
+        chunks = list(packed.contiguous().split(per))
+        block = chunks[0]
+    else:
+        chunks = None
+        block = torch.empty((per, ml, int(d)), dtype=torch.float32, device=dev)
+    dist.scatter(block, chunks, master, group=group)
+    return block
+
+
+def coded_matvec_block(block: torch.Tensor, x: torch.Tensor, mesh, *,
+                       axis: str = "workers") -> torch.Tensor:
+    """All workers' products ``A~_i x``, (W, max_load), from this rank's
+    (W/R, max_load, d) block (``shard_packed``) of a ``workers`` mesh of R
+    ranks: one B1 launch on the block, then an all-gather of the
+    (W/R, max_load) products into worker order, returned on every rank
+    (the reference's ``out_specs=P(axis, None)``)."""
+    group, r, _ = _workers_group(mesh, axis, block.device)
+    local = blocked_matvec_batch(block, x)
+    per = block.shape[0]
+    out = torch.empty((r * per, block.shape[1]), dtype=local.dtype, device=local.device)
+    dist.all_gather(list(out.split(per)), local, group=group)
+    return out
+
+
 def coded_matvec(packed: torch.Tensor, x: torch.Tensor, *, mesh=None,
                  axis: str = "workers") -> torch.Tensor:
     """All workers' products ``A~_i x``: (W, max_load).
 
     With no mesh, one B1 launch over the (W * max_load, d) view. With a
-    mesh of R ranks on ``axis`` (R must divide W), this rank's workers
-    [r W/R, (r+1) W/R) in one B1 launch, then an all-gather of the
-    (W/R, max_load) blocks into the global (W, max_load) in worker order,
-    returned on every rank (the reference's ``out_specs=P(axis, None)``).
-    ``packed`` comes in whole on every rank, as a replicated input to the
-    reference's jit: every rank packs it from the same seed, so B3 runs
-    once a rank.
+    mesh of R ranks on ``axis`` (R must divide W), for a caller that holds
+    the whole packed A~ on every rank: this rank's slice of workers
+    [r W/R, (r+1) W/R) through ``coded_matvec_block``. The mesh path
+    proper (``end_to_end_coded_matvec``) has only the master pack A~ and
+    hands each rank its block (``shard_packed``).
     """
     if mesh is None:
         return blocked_matvec_batch(packed, x)
-    group, r, rank = _workers_group(mesh, axis, packed.device)
-    w = packed.shape[0]
-    if w % r:
-        raise ValueError(f"{w} workers do not split over {r} ranks of the {axis!r} axis")
-    per = w // r
-    local = blocked_matvec_batch(packed[rank * per:(rank + 1) * per], x)
-    out = torch.empty((w, packed.shape[1]), dtype=local.dtype, device=local.device)
-    dist.all_gather(list(out.split(per)), local, group=group)
-    return out
+    _, r, rank = _workers_group(mesh, axis, packed.device)
+    per = _per_rank(packed.shape[0], r, axis)
+    return coded_matvec_block(packed[rank * per:(rank + 1) * per], x, mesh, axis=axis)
 
 
 def decode_coded_result(generator, row_of, partials, finished_workers, k: int):
@@ -142,33 +207,50 @@ class DecodePipeline:
     """The master step: worker products -> erasure mask -> decode, on the
     device, bound to one deployment's generator and slot map.
 
-    With a ``workers`` mesh the products are split over its ranks
-    (``coded_matvec``); the master, rank 0 of the axis's group, decodes
-    and broadcasts (z, ok), so that every rank returns the same result
-    and one (k, k) solve runs, not R copies of it.
+    With a ``workers`` mesh the products are split over its ranks; the
+    master, rank 0 of the axis's group, decodes and broadcasts (z, ok), so
+    that every rank returns the same result and one (k, k) solve runs, not
+    R copies of it. Only the master needs ``generator`` and ``row_of``:
+    every other rank may pass ``None`` for both and gives ``k``, the
+    decoded length.
     """
 
-    def __init__(self, generator: torch.Tensor, row_of: torch.Tensor, *, mesh=None,
-                 axis: str = "workers"):
+    def __init__(self, generator: torch.Tensor | None, row_of: torch.Tensor | None, *,
+                 mesh=None, axis: str = "workers", k: int | None = None):
+        if generator is None and (mesh is None or k is None):
+            raise ValueError("without the generator, give a mesh and k "
+                             "(a rank other than the master)")
         self.generator = generator
         self.row_of = row_of
         self.mesh = mesh
         self.axis = axis
+        self.k = generator.shape[1] if k is None else int(k)
 
     def __call__(self, packed: torch.Tensor, x: torch.Tensor,
                  finished_workers: torch.Tensor):
+        """A round from the whole packed A~ (on every rank, with a mesh)."""
         partials = coded_matvec(packed, x, mesh=self.mesh, axis=self.axis)
+        return self.decode(partials, finished_workers)
+
+    def on_block(self, block: torch.Tensor, x: torch.Tensor,
+                 finished_workers: torch.Tensor):
+        """A round from this rank's block of the mesh (``shard_packed``)."""
+        partials = coded_matvec_block(block, x, self.mesh, axis=self.axis)
         return self.decode(partials, finished_workers)
 
     def decode(self, partials: torch.Tensor, finished_workers: torch.Tensor):
         """``masked_decode`` of the gathered (W, max_load) products: here,
         or with a mesh at the master and broadcast to every rank."""
-        decode = lambda: masked_decode(self.generator, self.row_of, partials,  # noqa: E731
-                                       finished_workers)
+        def decode():
+            if self.generator is None or self.row_of is None:
+                raise ValueError("the master (rank 0 of the axis) decodes: "
+                                 "give it the generator and row_of")
+            return masked_decode(self.generator, self.row_of, partials, finished_workers)
+
         if self.mesh is None:
             return decode()
-        shape = (self.generator.shape[1], *partials.shape[2:])
-        return _at_master(self.mesh, self.axis, partials, shape, decode)
+        return _at_master(self.mesh, self.axis, partials, (self.k, *partials.shape[2:]),
+                          decode)
 
 
 def _at_master(mesh, axis: str, like: torch.Tensor, shape: tuple, decode):
@@ -200,28 +282,41 @@ def end_to_end_coded_matvec(a, x, plan: DeploymentPlan, finished_workers=None, *
     finishes unless ``finished_workers`` (W,) says otherwise. Returns
     ``DecodePipeline``'s (z, ok) on the device, or with ``host_decode``
     ``decode_coded_result``'s host least squares of the gathered products
-    (numpy z, bool ok). A ``workers`` ``mesh`` (on ``device``'s type)
-    splits the products over its ranks and the master decodes: every rank
-    returns the master's (z, ok).
+    (numpy z, bool ok).
+
+    With a ``workers`` ``mesh`` (on ``device``'s type) only the master,
+    rank 0 of the axis, reads ``a`` (any other rank may pass ``None``),
+    draws the generator, runs B3 and packs; ``shard_packed`` hands each
+    rank its block, each rank runs B1 on it, and the master decodes: every
+    rank returns the master's (z, ok).
     """
     if mesh is not None and torch.device(device).type != mesh.device_type:
         raise ValueError(f"device {device} and a {mesh.device_type} mesh")
     dev = resolve_device(device)
-    a = torch.as_tensor(a, dtype=torch.float32).to(dev)
     x = torch.as_tensor(x, dtype=torch.float32).to(dev)
-    k = a.shape[0]
-    if k != plan.k:
-        raise ValueError(f"A has {k} rows, the plan codes k={plan.k}")
-    gen = make_generator(plan.n, k, seed=seed, g=g, device=dev)
-    packed, row_of = pack_coded_matrix(gen, a.contiguous(), plan)
     if finished_workers is None:
         finished_workers = torch.ones((plan.num_workers,), dtype=torch.bool)
     finished_workers = torch.as_tensor(finished_workers, dtype=torch.bool).to(dev)
+    master = mesh is None or _workers_group(mesh, "workers", dev)[2] == 0
+    gen = row_of = packed = None
+    if master:
+        a = torch.as_tensor(a, dtype=torch.float32).to(dev)
+        if a.shape[0] != plan.k:
+            raise ValueError(f"A has {a.shape[0]} rows, the plan codes k={plan.k}")
+        gen = make_generator(plan.n, plan.k, seed=seed, g=g, device=dev)
+        packed, row_of = pack_coded_matrix(gen, a.contiguous(), plan)
+        del a
+    if mesh is None:
+        if host_decode:
+            return decode_coded_result(gen, row_of, coded_matvec(packed, x),
+                                       finished_workers, plan.k)
+        return DecodePipeline(gen, row_of)(packed, x, finished_workers)
+    block = shard_packed(packed, plan, mesh)
     if host_decode:
-        partials = coded_matvec(packed, x, mesh=mesh)
-        decode = lambda: decode_coded_result(gen, row_of, partials, finished_workers, k)  # noqa: E731
-        if mesh is None:
-            return decode()
-        z, ok = _at_master(mesh, "workers", partials, (k,), decode)
+        partials = coded_matvec_block(block, x, mesh)
+        decode = lambda: decode_coded_result(gen, row_of, partials,  # noqa: E731
+                                             finished_workers, plan.k)
+        z, ok = _at_master(mesh, "workers", partials, (plan.k,), decode)
         return z.cpu().numpy(), bool(ok)
-    return DecodePipeline(gen, row_of, mesh=mesh)(packed, x, finished_workers)
+    return DecodePipeline(gen, row_of, mesh=mesh, k=plan.k).on_block(block, x,
+                                                                     finished_workers)

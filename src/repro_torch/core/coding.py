@@ -9,6 +9,7 @@ master recovers ``A x`` from any k coded products by solving
 * ``make_generator`` — the port's own seeded G, or an injected numpy G
   (the parity tests hand over the reference's);
 * ``encode``         — ``A~ = G A`` through the B3 ``mds_encode`` kernel;
+* ``split_loads``    — each worker's row range of A~ from integer loads;
 * ``decode_systematic`` — the torch twin of the reference's
   ``decode_systematic_jit``: fixed shape, no host branch on the data;
 * ``decode_from_rows`` — least-squares recovery from any >= k surviving
@@ -49,6 +50,12 @@ def make_generator(n: int, k: int, *, seed: int = 0, g: np.ndarray | None = None
 def encode(generator: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """A~ = G A (rows of A are coded; columns untouched), via ``mds_encode``."""
     return mds_encode(generator, a)
+
+
+def split_loads(loads_int_per_worker):
+    """Row ranges [(start, stop)) of A~ for each worker, from integer loads."""
+    starts = np.concatenate([[0], np.cumsum(loads_int_per_worker)[:-1]])
+    return [(int(s), int(s + l)) for s, l in zip(starts, loads_int_per_worker)]
 
 
 def decode_from_rows(generator_rows: torch.Tensor, coded_values: torch.Tensor

@@ -179,6 +179,12 @@ class ClusterSpec:
         al = np.asarray([g.alpha for g in self.groups], np.float64)
         return n, mu, al
 
+    def scale_mu(self, q: float) -> "ClusterSpec":
+        """Scale every group's straggling parameter by q (the paper's Fig 2/5)."""
+        return ClusterSpec(tuple(
+            GroupSpec(g.num_workers, g.mu * q, g.alpha, g.bandwidth) for g in self.groups
+        ))
+
     def with_bandwidths(self, bandwidths: Sequence[float] | float) -> "ClusterSpec":
         """Same cluster with per-group (or one shared) link bandwidths."""
         if not hasattr(bandwidths, "__len__"):

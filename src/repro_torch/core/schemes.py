@@ -98,6 +98,10 @@ class AllocationScheme:
             r=plan.r.copy(), scheme_obj=self, scheme=self.tag,
         )
 
+    def replan(self, new_cluster: ClusterSpec, k: int) -> AllocationPlan:
+        """Closed-form re-plan on a new membership, params preserved."""
+        return self.allocate(new_cluster, k)
+
     def simulate(
         self,
         generator: torch.Generator,
@@ -121,6 +125,10 @@ class AllocationScheme:
         return float(torch.mean(
             self.simulate(generator, cluster, plan, num_trials, **kwargs)
         ))
+
+    def lower_bound(self, cluster: ClusterSpec, k: int) -> float:
+        """The scheme's analytic expected latency (NaN when unknown)."""
+        return float(self.allocate(cluster, k).t_star)
 
 
 @dataclasses.dataclass(frozen=True)

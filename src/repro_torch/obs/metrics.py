@@ -1,12 +1,12 @@
 """Typed metrics registry: counters, gauges, fixed-bucket histograms.
 
-Host-only copy of the part of ``repro/obs/metrics.py`` that the slot
-scheduler and the block pool use. Metrics are keyed ``(name, sorted
-labels)``; ``counter``/``gauge``/``histogram`` are get-or-create.
-``snapshot()`` renders everything JSON-safe and ``emit()`` writes one
-``metrics_snapshot`` telemetry event. ``REGISTRY`` is the process-global
-one: the allocation memo's hit and miss counters live there, and the
-trainer emits it at the end of a run.
+Host-only copy of ``repro/obs/metrics.py``. Metrics are keyed ``(name,
+sorted labels)``; ``counter``/``gauge``/``histogram`` are get-or-create;
+each metric and the registry ``merge`` another (a fleet view of per-host
+registries). ``snapshot()`` renders everything JSON-safe and ``emit()``
+writes one ``metrics_snapshot`` telemetry event. ``REGISTRY`` is the
+process-global one: the allocation memo's hit and miss counters live
+there, and the trainer emits it at the end of a run.
 """
 from __future__ import annotations
 
@@ -39,6 +39,8 @@ class Counter:
     def reset(self) -> None:
         self.value = 0
 
+    def merge(self, other: "Counter") -> None:
+        self.value += other.value
 
 
 class Gauge:
@@ -53,13 +55,16 @@ class Gauge:
         self.value = float(v)
         return self.value
 
+    def merge(self, other: "Gauge") -> None:
+        self.value = other.value  # last writer wins
 
 
 class Histogram:
     """Fixed-bucket histogram with interpolated percentiles.
 
     ``bounds`` are upper bucket edges; observations past the last edge
-    land in an overflow bucket.
+    land in an overflow bucket. Mergeable: two histograms with equal
+    bounds add counts (per-host registries fold into one fleet view).
     """
 
     __slots__ = ("bounds", "counts", "count", "sum", "min", "max")
@@ -110,6 +115,18 @@ class Histogram:
                 return max(self.min, min(est, self.max))
             seen += c
         return self.max
+
+    def merge(self, other: "Histogram") -> None:
+        if other.bounds != self.bounds:
+            raise ValueError(
+                f"cannot merge histograms with different bounds: "
+                f"{self.bounds} vs {other.bounds}"
+            )
+        self.counts = [a + b for a, b in zip(self.counts, other.counts)]
+        self.count += other.count
+        self.sum += other.sum
+        self.min = min(self.min, other.min)
+        self.max = max(self.max, other.max)
 
 
 class MetricsRegistry:
@@ -170,6 +187,16 @@ class MetricsRegistry:
                 )
             out.append(row)
         return out
+
+    def merge(self, other: "MetricsRegistry") -> None:
+        """Fold another registry in (same-keyed metrics must agree in
+        type and, for histograms, bounds)."""
+        for key, om in other._metrics.items():
+            m = self._metrics.get(key)
+            if m is None:
+                self._metrics[key] = om
+            else:
+                m.merge(om)
 
     def emit(self, telemetry, **fields) -> dict | None:
         """Write the snapshot as ONE ``metrics_snapshot`` event."""

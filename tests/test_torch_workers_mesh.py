@@ -24,7 +24,12 @@ reference's generator injected:
   branch sums each row in one order whatever the block, and
   ``test_torch_workers_mesh_cuda.py`` holds it bit for bit;
 * the refusals: W not divisible by R, a device other than the mesh's;
-* no rank imports JAX or the reference.
+* no rank imports JAX or the reference;
+* A~ sharded as the reference shards it: ``shard_packed``'s block on rank
+  r is the whole array's slice of workers [r W/R, (r+1) W/R), exactly;
+  with ``a=None`` off the master the same z and ok, both decodes; inside
+  the coded matvec only the master calls ``make_generator`` and
+  ``encode`` (counted in each rank process).
 
 Every process has a timeout; a rank that overruns fails the fixture and
 every rank is killed.
@@ -39,7 +44,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.coded_matvec import coded_matvec, end_to_end_coded_matvec
+from repro_torch.core.coded_matvec import (
+    DecodePipeline,
+    coded_matvec,
+    coded_matvec_block,
+    end_to_end_coded_matvec,
+    pack_coded_matrix,
+    shard_packed,
+)
+from repro_torch.core.coding import make_generator
 from repro_torch.core.planner import plan_deployment
 from repro_torch.core.runtime_model import ClusterSpec
 from repro_torch.launch.mesh import destroy_local_mesh, make_workers_mesh
@@ -86,8 +99,10 @@ RANK = r"""
 import datetime, json, sys
 import numpy as np, torch, torch.distributed as dist
 torch.set_num_threads(1)
-from repro_torch.core.coded_matvec import (coded_matvec, end_to_end_coded_matvec,
-                                           pack_coded_matrix)
+import repro_torch.core.coded_matvec as cm
+from repro_torch.core.coded_matvec import (coded_matvec, coded_matvec_block,
+                                           end_to_end_coded_matvec, pack_coded_matrix,
+                                           shard_packed)
 from repro_torch.core.planner import plan_deployment
 from repro_torch.core.runtime_model import ClusterSpec
 from repro_torch.launch.mesh import make_workers_mesh
@@ -103,6 +118,23 @@ plan = plan_deployment(ClusterSpec.make([4, 4], [4.0, 1.0], 1.0), 128)
 packed, _ = pack_coded_matrix(torch.from_numpy(g), torch.from_numpy(a), plan)
 out = {"partials": coded_matvec(packed, torch.from_numpy(x), mesh=mesh).numpy(),
        "mesh": json.dumps([mesh.mesh_dim_names, mesh.size()])}
+per = 8 // world
+block = shard_packed(packed if rank == 0 else None, plan, mesh)
+out["block"] = block.numpy()
+out["block_is_slice"] = torch.equal(block, packed[rank * per:(rank + 1) * per])
+out["block_partials"] = coded_matvec_block(block, torch.from_numpy(x), mesh).numpy()
+calls = {"make_generator": 0, "encode": 0}  # from here on, inside the coded matvec
+
+
+def counted(name, fn):
+    def call(*args, **kwargs):
+        calls[name] += 1
+        return fn(*args, **kwargs)
+    return call
+
+
+cm.make_generator = counted("make_generator", cm.make_generator)
+cm.encode = counted("encode", cm.encode)
 for case, workers in erased.items():
     fin = np.ones(8, bool)
     fin[workers] = False
@@ -113,6 +145,12 @@ for case, workers in erased.items():
             out[f"oktype_{case}"] = json.dumps([str(ok.dtype), list(ok.shape)])
             z = z.numpy()
         out[f"z_{case}_{host}"], out[f"ok_{case}_{host}"] = z, bool(ok)
+        # A on the master only
+        z, ok = end_to_end_coded_matvec(a if rank == 0 else None, x, plan, fin, g=g,
+                                        host_decode=bool(host), device="cpu", mesh=mesh)
+        out[f"zmaster_{case}_{host}"] = z if host else z.numpy()
+        out[f"okmaster_{case}_{host}"] = bool(ok)
+out["calls"] = json.dumps(calls)
 errors = {}
 try:
     coded_matvec(packed[:world + 1], torch.from_numpy(x), mesh=mesh)
@@ -122,6 +160,11 @@ try:
     end_to_end_coded_matvec(a, x, plan, device="cuda", mesh=mesh)
 except ValueError as e:
     errors["device"] = str(e)
+five = plan_deployment(ClusterSpec.make([2, 3], [4.0, 1.0], 1.0), 128)  # W 5
+try:  # every rank refuses before any collective: W % R, or the master without A~
+    shard_packed(None, five, mesh)
+except ValueError as e:
+    errors["shard"] = str(e)
 out["errors"] = json.dumps(errors)
 dist.destroy_process_group()
 out["jax"] = any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
@@ -235,6 +278,93 @@ def test_refusals_on_every_rank(worlds, world):
         else:
             assert errors["split"].startswith(f"{world + 1} workers do not split over "
                                               f"{world} ranks")
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_shard_packed_block_is_the_whole_arrays_slice(worlds, world):
+    """The master scatters; rank r's block equals workers [r W/R, (r+1) W/R)
+    of the whole packed A~, exactly, and its products all-gather into the
+    whole array's."""
+    whole = np.concatenate([worlds[world, rank]["block"] for rank in range(world)])
+    for rank in range(world):
+        got = worlds[world, rank]
+        assert got["block"].shape == (8 // world, 25, D)
+        assert bool(got["block_is_slice"])
+        np.testing.assert_array_equal(got["block_partials"], got["partials"])
+    np.testing.assert_array_equal(whole, worlds[1, 0]["block"])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_only_the_master_draws_the_generator_and_encodes(worlds, world):
+    """Inside the coded matvec of 12 end-to-end calls a rank (6 of them with
+    A on the master only): the master draws G and runs B3's encode once a
+    call, every other rank never."""
+    for rank in range(world):
+        calls = json.loads(str(worlds[world, rank]["calls"]))
+        n = 12 if rank == 0 else 0
+        assert calls == {"make_generator": n, "encode": n}, (world, rank)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("case,host", CASES)
+def test_a_on_the_master_only(worlds, reference, world, case, host):
+    """Non-masters pass ``a=None``: the same z and ok as with A on every
+    rank (the device decode bit for bit; the host decode's least squares
+    within the reference tolerance), on every rank, the host decode
+    included."""
+    want = reference[1]
+    for rank in range(world):
+        got = worlds[world, rank]
+        assert got[f"okmaster_{case}_{host}"] == want[f"ok_{case}_{host}"]
+        np.testing.assert_allclose(got[f"zmaster_{case}_{host}"], want[f"z_{case}_{host}"],
+                                   **TOL)
+        if not host:
+            np.testing.assert_array_equal(got[f"zmaster_{case}_{host}"],
+                                          got[f"z_{case}_{host}"])
+        np.testing.assert_array_equal(got[f"zmaster_{case}_{host}"],
+                                      worlds[world, 0][f"zmaster_{case}_{host}"])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_shard_packed_refusals_on_every_rank(worlds, world):
+    for rank in range(world):
+        error = json.loads(str(worlds[world, rank]["errors"]))["shard"]
+        if world == 1:
+            assert error.startswith("the master (rank 0 of the axis) passes the packed A~")
+        else:
+            assert error.startswith(f"5 workers do not split over {world} ranks")
+
+
+def test_block_path_on_a_world_of_one():
+    """In this process: on a world of one the master's block is the whole
+    packed array, its products are ``coded_matvec``'s, and the refusals."""
+    plan = plan_deployment(ClusterSpec.make(*FLEET), 64)
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal((64, 16)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal(16).astype(np.float32))
+    gen = make_generator(plan.n, 64, seed=0, device="cpu")
+    packed, row_of = pack_coded_matrix(gen, a, plan)
+    fin = torch.ones(plan.num_workers, dtype=torch.bool)
+    mesh = make_workers_mesh(device="cpu")
+    try:
+        block = shard_packed(packed, plan, mesh)
+        assert block is packed
+        assert torch.equal(coded_matvec_block(block, x, mesh), coded_matvec(packed, x))
+        z, ok = DecodePipeline(gen, row_of, mesh=mesh).on_block(block, x, fin)
+        want, want_ok = DecodePipeline(gen, row_of)(packed, x, fin)
+        assert bool(ok) and bool(want_ok) and torch.equal(z, want)
+        with pytest.raises(ValueError, match="the master .* passes the packed A~"):
+            shard_packed(None, plan, mesh)
+        with pytest.raises(ValueError, match=r"the plan packs \(8, 13, d\)"):
+            shard_packed(packed[:, :5], plan, mesh)
+        with pytest.raises(ValueError, match="in torch.float64"):
+            shard_packed(packed.double(), plan, mesh)
+        with pytest.raises(ValueError, match="the master .* decodes"):
+            DecodePipeline(None, None, mesh=mesh, k=64).on_block(block, x, fin)
+        with pytest.raises(ValueError, match="give a mesh and k"):
+            DecodePipeline(None, None)
+    finally:
+        destroy_local_mesh()
 
 
 def test_workers_mesh_on_a_world_of_one():

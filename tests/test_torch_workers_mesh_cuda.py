@@ -9,12 +9,15 @@ with
 The quickstart's 8-worker plan (``[4, 4]`` / ``[4.0, 1.0]``), k 2,000,
 d 1,024, seeded numpy A and x, workers 6 and 7 erased. Each rank is a
 ``python -c`` process (gloo over a ``FileStore``: NCCL takes one card a
-rank) that runs B1's narrow branch on its 4 workers' block and all-gathers
-the products; rank 0 decodes and broadcasts. The narrow branch sums each
-row in one order whatever the block, and the master's solve sees the same
-products as one process's, so the gathered products and z equal the
-one-process run's bit for bit, on both ranks, with one B1 and one B3
-launch a rank.
+rank). Rank 0, the master, alone reads A, draws G, encodes (B3) and packs,
+then scatters rank 1 its 4 workers' block; rank 1 passes ``a=None`` and
+allocates only that block. Each rank runs B1's narrow branch on its block
+and all-gathers the products; rank 0 decodes and broadcasts. The narrow
+branch sums each row in one order whatever the block, and the master's
+solve sees the same products as one process's, so the gathered products
+and z equal the one-process run's bit for bit, on both ranks, with one B1
+launch a rank and B3 once, on the master. Rank 1's peak allocated during
+the call stays within its block + 64 MiB.
 """
 import json
 import os
@@ -62,8 +65,12 @@ mesh = make_workers_mesh()
 ref = np.load(inputs)
 plan = plan_deployment(ClusterSpec.make([4, 4], [4.0, 1.0]), int(ref["k"]))
 kernels.reset_launch_counts()
-z, ok = end_to_end_coded_matvec(ref["a"], ref["x"], plan, ref["fin"], seed=0, mesh=mesh)
+torch.cuda.reset_peak_memory_stats()
+base = torch.cuda.memory_allocated()
+z, ok = end_to_end_coded_matvec(ref["a"] if rank == 0 else None, ref["x"], plan, ref["fin"],
+                                seed=0, mesh=mesh)
 torch.cuda.synchronize()
+peak = torch.cuda.max_memory_allocated() - base
 counts = kernels.launch_counts()
 g = make_generator(plan.n, plan.k, seed=0)
 packed, _ = pack_coded_matrix(g, torch.from_numpy(ref["a"]).cuda(), plan)
@@ -71,7 +78,8 @@ partials = coded_matvec(packed, torch.from_numpy(ref["x"]).cuda(), mesh=mesh)
 backend = dist.get_backend()
 dist.destroy_process_group()
 np.savez(out_path, z=z.cpu().numpy(), ok=bool(ok), partials=partials.cpu().numpy(),
-         counts=json.dumps(counts), backend=backend)
+         counts=json.dumps(counts), backend=backend, peak=peak,
+         block_bytes=plan.num_workers // world * plan.max_load * ref["a"].shape[1] * 4)
 """
 
 
@@ -122,9 +130,17 @@ def test_two_gloo_ranks_bit_identical_to_one_process(runs):
 
 
 def test_one_b1_and_one_b3_launch_a_rank(runs):
-    for got in runs[1]:
+    """One B1 launch a rank; B3 once in the world, on the master."""
+    for rank, got in enumerate(runs[1]):
         counts = json.loads(str(got["counts"]))
-        assert (counts["coded_matvec"], counts["mds_encode"]) == (1, 1)
+        assert (counts["coded_matvec"], counts["mds_encode"]) == (1, int(rank == 0))
+
+
+def test_non_master_peak_within_its_block(runs):
+    """Rank 1 never holds G, A or the whole A~: its peak allocated during
+    the call is its (4, max_load, 1,024) float32 block + at most 64 MiB."""
+    got = runs[1][1]
+    assert int(got["block_bytes"]) <= int(got["peak"]) <= int(got["block_bytes"]) + 64 * 2**20
 
 
 def test_one_process_decode_recovers_a_x(runs):
