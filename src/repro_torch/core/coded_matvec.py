@@ -28,6 +28,9 @@ returns the same result.
 On the card the kernels always run (the reference's ``use_kernel``); on
 the CPU their plain versions do. Collectives go through the mesh's group
 as they are: gloo for ranks that share a card, NCCL for one card a rank.
+Under a profiler the master step's stages are spans of
+``obs.trace.STAGES``: ``pathm.query`` around ``pathm.products`` and
+``pathm.decode``, the solve's stages under it.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from repro_torch.core.coding import (
 from repro_torch.core.planner import DeploymentPlan
 from repro_torch.device import resolve_device
 from repro_torch.kernels.coded_matvec.ops import blocked_matvec_batch
+from repro_torch.obs.trace import stage
 
 
 def pack_coded_matrix(generator: torch.Tensor, a: torch.Tensor, plan: DeploymentPlan):
@@ -134,11 +138,12 @@ def coded_matvec_block(block: torch.Tensor, x: torch.Tensor, mesh, *,
     (W/R, max_load) products into worker order, returned on every rank
     (the reference's ``out_specs=P(axis, None)``)."""
     group, r, _ = _workers_group(mesh, axis, block.device)
-    local = blocked_matvec_batch(block, x)
-    per = block.shape[0]
-    out = torch.empty((r * per, block.shape[1]), dtype=local.dtype, device=local.device)
-    dist.all_gather(list(out.split(per)), local, group=group)
-    return out
+    with stage("pathm.products", block.device):
+        local = blocked_matvec_batch(block, x)
+        per = block.shape[0]
+        out = torch.empty((r * per, block.shape[1]), dtype=local.dtype, device=local.device)
+        dist.all_gather(list(out.split(per)), local, group=group)
+        return out
 
 
 def coded_matvec(packed: torch.Tensor, x: torch.Tensor, *, mesh=None,
@@ -153,7 +158,8 @@ def coded_matvec(packed: torch.Tensor, x: torch.Tensor, *, mesh=None,
     hands each rank its block (``shard_packed``).
     """
     if mesh is None:
-        return blocked_matvec_batch(packed, x)
+        with stage("pathm.products", packed.device):
+            return blocked_matvec_batch(packed, x)
     _, r, rank = _workers_group(mesh, axis, packed.device)
     per = _per_rank(packed.shape[0], r, axis)
     return coded_matvec_block(packed[rank * per:(rank + 1) * per], x, mesh, axis=axis)
@@ -229,14 +235,16 @@ class DecodePipeline:
     def __call__(self, packed: torch.Tensor, x: torch.Tensor,
                  finished_workers: torch.Tensor):
         """A round from the whole packed A~ (on every rank, with a mesh)."""
-        partials = coded_matvec(packed, x, mesh=self.mesh, axis=self.axis)
-        return self.decode(partials, finished_workers)
+        with stage("pathm.query", packed.device, root=True):
+            partials = coded_matvec(packed, x, mesh=self.mesh, axis=self.axis)
+            return self.decode(partials, finished_workers)
 
     def on_block(self, block: torch.Tensor, x: torch.Tensor,
                  finished_workers: torch.Tensor):
         """A round from this rank's block of the mesh (``shard_packed``)."""
-        partials = coded_matvec_block(block, x, self.mesh, axis=self.axis)
-        return self.decode(partials, finished_workers)
+        with stage("pathm.query", block.device, root=True):
+            partials = coded_matvec_block(block, x, self.mesh, axis=self.axis)
+            return self.decode(partials, finished_workers)
 
     def decode(self, partials: torch.Tensor, finished_workers: torch.Tensor):
         """``masked_decode`` of the gathered (W, max_load) products: here,
@@ -247,10 +255,11 @@ class DecodePipeline:
                                  "give it the generator and row_of")
             return masked_decode(self.generator, self.row_of, partials, finished_workers)
 
-        if self.mesh is None:
-            return decode()
-        return _at_master(self.mesh, self.axis, partials, (self.k, *partials.shape[2:]),
-                          decode)
+        with stage("pathm.decode", partials.device):
+            if self.mesh is None:
+                return decode()
+            return _at_master(self.mesh, self.axis, partials, (self.k, *partials.shape[2:]),
+                              decode)
 
 
 def _at_master(mesh, axis: str, like: torch.Tensor, shape: tuple, decode):

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.mds_encode.ops import mds_encode
+from repro_torch.obs.trace import stage
 
 
 def make_generator(n: int, k: int, *, seed: int = 0, g: np.ndarray | None = None,
@@ -78,7 +79,9 @@ def decode_systematic(generator: torch.Tensor, coded_values: torch.Tensor,
     syncs with the host, so a CUDA graph can hold the decode: the solve is
     the row permutation and two triangular solves on the LU factors, not
     ``lu_solve``, whose choice of backend by size reaches MAGMA's batched
-    solve at some (k, c), a call a capture refuses.
+    solve at some (k, c), a call a capture refuses. Inside a profiled
+    Path M query its stages are the spans ``decode.gather``, ``decode.lu``
+    and ``decode.trisolve`` (``obs.trace.stage``).
 
     Args:
       generator: (n, k) generator used at encode time.
@@ -89,22 +92,26 @@ def decode_systematic(generator: torch.Tensor, coded_values: torch.Tensor,
     dtype.
     """
     n, k = generator.shape
-    mask = finished_mask.to(torch.bool)
-    order = torch.argsort((~mask).to(torch.int8), stable=True)
-    idx = order[:k]
-    g_s = generator[idx]
-    y_s = coded_values[idx].to(generator.dtype)
-    rhs = y_s if y_s.dim() == 2 else y_s[:, None]
-    lu, piv, _ = torch.linalg.lu_factor_ex(g_s)
-    perm = torch.lu_unpack(lu, piv, unpack_data=False)[0].argmax(0)  # g_s = P L U
+    dev = generator.device
+    with stage("decode.gather", dev):
+        mask = finished_mask.to(torch.bool)
+        order = torch.argsort((~mask).to(torch.int8), stable=True)
+        idx = order[:k]
+        g_s = generator[idx]
+        y_s = coded_values[idx].to(generator.dtype)
+        rhs = y_s if y_s.dim() == 2 else y_s[:, None]
+    with stage("decode.lu", dev):
+        lu, piv, _ = torch.linalg.lu_factor_ex(g_s)
+        perm = torch.lu_unpack(lu, piv, unpack_data=False)[0].argmax(0)  # g_s = P L U
 
     def solve(b):
         y = torch.linalg.solve_triangular(lu, b[perm], upper=False, unitriangular=True)
         return torch.linalg.solve_triangular(lu, y, upper=True)
 
-    z = solve(rhs)
-    z = z + solve(rhs - g_s @ z)  # refine
-    z = z if y_s.dim() == 2 else z[:, 0]
-    ok = mask.sum() >= k
-    z = z.to(coded_values.dtype)
-    return torch.where(ok, z, torch.zeros_like(z)), ok
+    with stage("decode.trisolve", dev):
+        z = solve(rhs)
+        z = z + solve(rhs - g_s @ z)  # refine
+        z = z if y_s.dim() == 2 else z[:, 0]
+        ok = mask.sum() >= k
+        z = z.to(coded_values.dtype)
+        return torch.where(ok, z, torch.zeros_like(z)), ok

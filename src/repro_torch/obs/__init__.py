@@ -1,14 +1,15 @@
 """The port's observability layer, one import point.
 
 * :mod:`repro_torch.obs.trace` — nested wall-clock span tracing over the
-  telemetry JSONL stream, exportable to Chrome ``trace_event`` JSON;
+  telemetry JSONL stream, exportable to Chrome ``trace_event`` JSON, and
+  Path M's stage spans (``STAGES``), live under a profiler;
 * :mod:`repro_torch.obs.metrics` — typed counters/gauges/mergeable
   histograms with per-deadline-class latency percentiles;
 * :mod:`repro_torch.obs.schema` — the event-schema registry every
   ``Telemetry.event`` emitter declares through (rendered into README.md);
 * :mod:`repro_torch.obs.profile` — ``torch.profiler`` capture per phase
   and its summary: device time attributed to the phase that launched it,
-  top-K ops and golden diffs.
+  and top-K ops.
 """
 from repro_torch.obs.metrics import (  # noqa: F401
     Counter,

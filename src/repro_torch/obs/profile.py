@@ -28,9 +28,6 @@ per phase: a long session's event volume is what breaks first.
   (``user_annotation``, the profiler's own ``Trace`` span,
   ``ProfilerStep#...``) and flow events are never ops.
 
-``diff_summaries`` compares a fresh summary against a golden one and
-names the phase whose wall time grew most, with its op-level deltas.
-
 Reads the torch layout (``*.pt.trace.json[.gz]`` from ``capture``,
 ``export_chrome_trace`` or ``tensorboard_trace_handler``) and the
 reference's ``plugins/profile/*/*.trace.json.gz``. Stdlib-only parsing;
@@ -45,9 +42,9 @@ import json
 import os
 
 __all__ = ["capture", "find_trace_file", "find_trace_files", "load_trace_events",
-           "summarize", "diff_summaries", "format_diff", "TOP_K"]
+           "summarize", "TOP_K"]
 
-#: ops kept per phase in summaries and diffs
+#: ops kept per phase in summaries
 TOP_K = 5
 
 #: device-timeline categories: the ops of a trace that holds any of them
@@ -169,7 +166,7 @@ def summarize(profile_dir: str, phases, *, top_k: int = TOP_K,
     the module docstring says: device events by their launch, otherwise
     host events by their midpoint. Host events nest, so in a trace with
     no device events the totals are an attribution signal consistent
-    between golden and fresh captures, not an exclusive decomposition;
+    between captures, not an exclusive decomposition;
     device events on one stream do not overlap. ``events=True`` also
     keeps each phase's filed op events, raw (``args`` included, e.g. a
     kernel's ``grid``), under ``"events"``.
@@ -213,81 +210,3 @@ def summarize(profile_dir: str, phases, *, top_k: int = TOP_K,
             )[:top_k]
         ]
     return out
-
-
-def diff_summaries(measured: dict, golden: dict, *,
-                   top_k: int = TOP_K) -> dict:
-    """Compare a fresh phase summary against the golden one.
-
-    Returns ``{"phases": {phase: {"wall_ratio", "measured_wall_us",
-    "golden_wall_us"}}, "worst_phase", "worst_ratio", "worst_ops":
-    [{"name", "measured_us", "golden_us", "ratio"}, ...]}`` over the
-    phases present in both summaries; ``worst_phase`` is the one whose
-    wall time grew the most relative to golden.
-    """
-    shared = sorted(set(measured) & set(golden))
-    phases = {}
-    for p in shared:
-        m, g = measured[p]["wall_us"], golden[p]["wall_us"]
-        phases[p] = {
-            "wall_ratio": (m / g) if g > 0 else float("inf"),
-            "measured_wall_us": m,
-            "golden_wall_us": g,
-        }
-    if not phases:
-        return {"phases": {}, "worst_phase": None, "worst_ratio": None,
-                "worst_ops": []}
-    worst = max(phases, key=lambda p: phases[p]["wall_ratio"])
-    m_ops = {o["name"]: o for o in measured[worst].get("ops", [])}
-    g_ops = {o["name"]: o for o in golden[worst].get("ops", [])}
-    rows = []
-    for name in sorted(set(m_ops) | set(g_ops)):
-        mu = m_ops.get(name, {}).get("total_us", 0.0)
-        gu = g_ops.get(name, {}).get("total_us", 0.0)
-        rows.append({
-            "name": name,
-            "measured_us": mu,
-            "golden_us": gu,
-            "ratio": (mu / gu) if gu > 0 else float("inf"),
-        })
-    rows.sort(key=lambda r: max(r["measured_us"], r["golden_us"]),
-              reverse=True)
-    return {
-        "phases": phases,
-        "worst_phase": worst,
-        "worst_ratio": phases[worst]["wall_ratio"],
-        "worst_ops": rows[:top_k],
-    }
-
-
-def format_diff(diff: dict) -> str:
-    """Human-readable rendering of a ``diff_summaries`` result."""
-    if not diff.get("phases"):
-        return "profile diff: no shared phases between capture and golden"
-    lines = ["profile attribution (phase wall time vs golden):"]
-    for p, row in sorted(diff["phases"].items(),
-                         key=lambda kv: kv[1]["wall_ratio"],
-                         reverse=True):
-        mark = "  <-- regressed" if p == diff["worst_phase"] else ""
-        lines.append(
-            f"  {p:<16s} {row['measured_wall_us'] / 1e3:10.2f} ms vs "
-            f"{row['golden_wall_us'] / 1e3:10.2f} ms  "
-            f"(x{row['wall_ratio']:.2f}){mark}"
-        )
-    lines.append(
-        f"top ops in regressed phase '{diff['worst_phase']}' "
-        f"(measured vs golden, us):"
-    )
-    for o in diff["worst_ops"]:
-        ratio = ("inf" if o["ratio"] == float("inf")
-                 else f"{o['ratio']:.2f}")
-        lines.append(
-            f"  {o['name'][:48]:<48s} {o['measured_us']:10.0f} vs "
-            f"{o['golden_us']:10.0f}  (x{ratio})"
-        )
-    if not diff["worst_ops"]:
-        lines.append(
-            "  (no ops attributed — wall-time growth is host-side: "
-            "sleeps, Python overhead, or dispatch gaps)"
-        )
-    return "\n".join(lines)

@@ -15,17 +15,36 @@ span is
 
 A span costs two ``perf_counter`` calls and one append (plus one JSONL
 line with telemetry). Code that may run untraced holds ``NULL_TRACER``,
-whose ``span()`` returns one shared no-op context manager.
+whose ``span()`` returns one shared no-op context manager. Each span has
+an ``id`` unique in its tracer and its enclosing span's ``parent_id``.
+
+``stage(name, device)`` opens a span of the process-wide ``STAGES``
+tracer around a stage of Path M's master step: the root ``pathm.query``
+(``root=True``), and under it the products, the decode and the solve's
+gather, LU and triangular solves. A stage span is live only while a
+``torch.profiler`` session records (``obs.profile.capture`` or the
+profiler itself), the current stream is not capturing a CUDA graph and,
+unless it is a root, a root is open, so the serve head's solve records
+nothing; otherwise ``stage`` returns the shared no-op after one profiler
+check. A live one is a ``StageSpan``: a ``record_function`` range of its
+name, so it sits on the profiler's clock beside the kernels, and on a
+CUDA device a pair of timing events on the current stream, whose
+``device_s`` waits for the end event when first read. On the CPU, where
+ops run synchronously, a stage's device time is its host duration.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 import json
 import time
 from collections import deque
 
-__all__ = ["Span", "SpanTracer", "NullTracer", "NULL_TRACER",
-           "spans_to_chrome"]
+import torch
+
+__all__ = ["Span", "StageSpan", "SpanTracer", "NullTracer", "NULL_TRACER", "STAGES",
+           "stage", "spans_to_chrome"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +57,25 @@ class Span:
     depth: int  # 0 = top-level
     parent: str | None  # enclosing span's name (None at depth 0)
     attrs: dict
+    id: int = 0  # unique in its tracer
+    parent_id: int | None = None  # enclosing span's id (None at depth 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class StageSpan(Span):
+    """A finished stage span with its CUDA timing events (None on the CPU)."""
+
+    events: tuple | None = dataclasses.field(default=None, repr=False, compare=False)
+
+    @functools.cached_property
+    def device_s(self) -> float:
+        """Seconds on the card between the events, waiting for the end one
+        when first read; on the CPU the host duration."""
+        if self.events is None:
+            return self.dur_s
+        start, end = self.events
+        end.synchronize()
+        return start.elapsed_time(end) * 1e-3
 
 
 class _NullSpan:
@@ -74,7 +112,7 @@ NULL_TRACER = NullTracer()
 class _ActiveSpan:
     """Context manager recording one span into its tracer on exit."""
 
-    __slots__ = ("_tracer", "name", "attrs", "_t0")
+    __slots__ = ("_tracer", "name", "attrs", "id", "_t0")
 
     def __init__(self, tracer: "SpanTracer", name: str, attrs: dict):
         self._tracer = tracer
@@ -86,7 +124,8 @@ class _ActiveSpan:
         self.attrs.update(attrs)
 
     def __enter__(self) -> "_ActiveSpan":
-        self._tracer._stack.append(self.name)
+        self.id = next(self._tracer._ids)
+        self._tracer._stack.append(self)
         self._t0 = time.perf_counter()
         return self
 
@@ -100,8 +139,10 @@ class _ActiveSpan:
             t0_s=self._t0,
             dur_s=t1 - self._t0,
             depth=len(stack),
-            parent=stack[-1] if stack else None,
+            parent=stack[-1].name if stack else None,
             attrs=self.attrs,
+            id=self.id,
+            parent_id=stack[-1].id if stack else None,
         )
         tracer.spans.append(span)
         tel = tracer.telemetry
@@ -139,7 +180,8 @@ class SpanTracer:
         #: finished spans, oldest dropped past ``max_spans`` (the JSONL
         #: sink, when present, keeps every span regardless)
         self.spans: deque[Span] = deque(maxlen=max_spans)
-        self._stack: list[str] = []
+        self._stack: list[_ActiveSpan] = []
+        self._ids = itertools.count(1)
 
     def span(self, name: str, **attrs) -> _ActiveSpan:
         """``with tracer.span("decode_chunk", steps=4): ...``"""
@@ -168,6 +210,63 @@ class SpanTracer:
             for s in self.spans
         ]
         return spans_to_chrome(recs, path)
+
+
+#: Path M's stage spans in this process (kept while a profiler records)
+STAGES = SpanTracer(max_spans=4096)
+_profiling = torch._C._autograd._profiler_enabled
+
+
+class _StageSpan:
+    """A live stage span of ``STAGES``: a ``record_function`` range and,
+    on a CUDA device, a timing event on the current stream at each end."""
+
+    __slots__ = ("name", "id", "_device", "_range", "_start", "_t0")
+
+    def __init__(self, name: str, device: torch.device):
+        self.name = name
+        self._device = device
+
+    def _event(self):
+        if self._device.type != "cuda":
+            return None
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self._device))
+        return event
+
+    def __enter__(self) -> "_StageSpan":
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        self._start = self._event()
+        self.id = next(STAGES._ids)
+        STAGES._stack.append(self)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        end = self._event()
+        t1 = time.perf_counter()
+        stack = STAGES._stack
+        stack.pop()
+        up = stack[-1] if stack else None
+        STAGES.spans.append(StageSpan(
+            name=self.name, t0_s=self._t0, dur_s=t1 - self._t0, depth=len(stack),
+            parent=up and up.name, attrs={}, id=self.id, parent_id=up and up.id,
+            events=None if end is None else (self._start, end)))
+        self._range.__exit__(*exc)
+        return False
+
+
+def stage(name: str, device: torch.device, *, root: bool = False):
+    """``with stage("decode.lu", g.device): ...`` — a span of ``STAGES``
+    while a ``torch.profiler`` session records, a root is open (or this
+    is one, ``root=True``) and, on a CUDA ``device``, the current stream
+    is not capturing a CUDA graph (an event recorded there would belong
+    to the graph); else the shared no-op."""
+    if (not _profiling() or not (root or STAGES._stack)
+            or (device.type == "cuda" and torch.cuda.is_current_stream_capturing())):
+        return _NULL_SPAN
+    return _StageSpan(name, device)
 
 
 def spans_to_chrome(span_records, path: str) -> str:

@@ -309,6 +309,9 @@ LEFT_OUT = {
                         "lm_logits", "loss_fn"},
     # a jitted step builder: Trainer builds its step
     "runtime/train_loop.py": {"make_train_step"},
+    # golden-summary diffs: nothing in the port read them; the benchmark
+    # compares runs and the stage spans attribute device time
+    "obs/profile.py": {"diff_summaries", "format_diff"},
 }
 
 

@@ -6,8 +6,8 @@ summary, the serve loop's spans, the ops report and bf16 compression.
   reference test's contract cases, and README.md's generated table in
   sync (``--check``);
 * ``repro_torch.obs.profile``: on the reference test's fixture (the XLA
-  layout, no device events) ``summarize`` / ``diff_summaries`` /
-  ``format_diff`` equal the reference's exactly, and a missing capture
+  layout, no device events) ``summarize`` equals the reference's
+  exactly, and a missing capture
   raises the same ``FileNotFoundError``; on a written-out torch-format
   trace, device events are filed by their launch (a kernel whose own
   midpoint lies outside its phase, a memcpy, a driver launch; one with
@@ -168,7 +168,7 @@ def _x(name, ts, dur, cat=None, **args):
 
 def test_profile_summary_matches_reference_fixture(tmp_path):
     """The reference test's fixture: two capture sessions with unrelated
-    time bases, one phase each, and a golden summary to diff against."""
+    time bases, one phase each."""
     _write_xla_trace(tmp_path, "generate", [
         _x("jit_generate#meta#", 1000, 100),
         _x("matmul", 1010, 40), _x("matmul", 1060, 20),
@@ -183,16 +183,6 @@ def test_profile_summary_matches_reference_fixture(tmp_path):
     assert summ["jit_generate"]["ops"][0] == {"name": "matmul", "total_us": 60.0, "count": 2}
     assert profile.summarize(str(tmp_path), phases, top_k=1) == ref_profile.summarize(
         str(tmp_path), phases, top_k=1)
-    golden = {
-        "jit_generate": {"wall_us": 50.0, "op_total_us": 60.0, "n_ops": 2,
-                         "ops": [{"name": "matmul", "total_us": 60.0, "count": 2}]},
-        "prefill": {"wall_us": 10.0, "op_total_us": 6.0, "n_ops": 1, "ops": []},
-    }
-    diff = profile.diff_summaries(summ, golden)
-    assert diff == ref_profile.diff_summaries(summ, golden)
-    assert diff["worst_phase"] == "jit_generate"
-    assert profile.format_diff(diff) == ref_profile.format_diff(diff)
-    assert profile.format_diff({"phases": {}}) == ref_profile.format_diff({"phases": {}})
     assert profile.find_trace_file(str(tmp_path)) == ref_profile.find_trace_file(str(tmp_path))
     kept = profile.summarize(str(tmp_path), phases, events=True)
     assert kept["prefill"].pop("events") == [_x("splice", 42, 6)]

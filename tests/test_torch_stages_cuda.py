@@ -1,0 +1,94 @@
+"""Path M's stage spans on the card (``-m cuda``; each test skips where
+there is no card):
+
+    PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_stages_cuda.py
+
+* a profiled query at k 8,000 (the second of a session, past the
+  profiler's first-use cost) gives every stage span a device time from
+  its CUDA events, and the solve's three stages (``decode.*``) sum to
+  within 3% of ``pathm.decode``;
+* ``decode_systematic`` at a serve head's size, captured in a CUDA graph
+  inside an open ``pathm.query`` while a profiler records, adds no stage
+  of its own to ``STAGES``, and its replays equal the eager solve.
+"""
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.core.coded_matvec import DecodePipeline, pack_coded_matrix
+from repro_torch.core.coding import decode_systematic, make_generator
+from repro_torch.core.runtime_model import ClusterSpec
+from repro_torch.obs import trace
+from repro_torch.runtime.executor import CodedRoundExecutor
+
+pytestmark = pytest.mark.cuda
+
+K, D = 8000, 1024
+STAGE_NAMES = ("pathm.query", "pathm.products", "pathm.decode", "decode.gather", "decode.lu",
+               "decode.trisolve")
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.fixture(scope="module")
+def deployment(card):
+    exe = CodedRoundExecutor(ClusterSpec.make([40, 60, 100], [8.0, 2.0, 0.5], 1.0), K,
+                             "optimal", deadline_safety=3.0, device="cuda")
+    plan = exe.plan
+    g = make_generator(plan.n, plan.k, seed=1, device="cuda")
+    a = torch.randn((K, D), generator=torch.Generator(device="cuda").manual_seed(2),
+                    device="cuda")
+    packed, row_of = pack_coded_matrix(g, a, plan)
+    mask = exe.finish_mask(torch.Generator(device="cuda").manual_seed(3))
+    return plan, g, packed, row_of, mask
+
+
+def test_profiled_query_times_every_stage_on_the_card(deployment):
+    plan, g, packed, row_of, mask = deployment
+    x = torch.randn(D, device="cuda")
+    pipe = DecodePipeline(g, row_of)
+    pipe(packed, x, mask)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        pipe(packed, x, mask)
+        before = len(trace.STAGES.spans)
+        pipe(packed, x, mask)
+        torch.cuda.synchronize()
+    spans = list(trace.STAGES.spans)[before:]
+    assert sorted(s.name for s in spans) == sorted(STAGE_NAMES)
+    dev = {s.name: s.device_s for s in spans}
+    assert all(v > 0 for v in dev.values()), dev
+    solve = dev["decode.gather"] + dev["decode.lu"] + dev["decode.trisolve"]
+    assert 0.97 * dev["pathm.decode"] <= solve <= dev["pathm.decode"] * 1.0001, dev
+    assert dev["pathm.products"] + dev["pathm.decode"] <= dev["pathm.query"] * 1.0001, dev
+
+
+def test_a_captured_solve_records_no_stage_and_replays(card):
+    n, k = 312, 250
+    g = make_generator(n, k, seed=4, device="cuda")
+    y = torch.randn(n, device="cuda")
+    fin = torch.ones(n, dtype=torch.bool, device="cuda")
+    fin[: n - k - 7] = False
+    want, want_ok = decode_systematic(g, y, fin)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_systematic(g, y, fin)  # warm up off the default stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = list(trace.STAGES.spans)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with trace.stage("pathm.query", g.device, root=True):
+            with torch.cuda.graph(graph):
+                z, ok = decode_systematic(g, y, fin)
+        torch.cuda.synchronize()
+    assert [s.name for s in list(trace.STAGES.spans)[len(before):]] == ["pathm.query"]
+    for _ in range(2):
+        z.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(z, want) and bool(ok) == bool(want_ok)
