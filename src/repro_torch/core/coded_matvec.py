@@ -42,6 +42,7 @@ from repro_torch.core.coding import (
     decode_from_rows,
     decode_systematic,
     encode,
+    is_systematic,
     make_generator,
 )
 from repro_torch.core.planner import DeploymentPlan
@@ -189,14 +190,15 @@ def decode_coded_result(generator, row_of, partials, finished_workers, k: int):
 
 
 def masked_decode(generator: torch.Tensor, row_of: torch.Tensor, partials: torch.Tensor,
-                  finished_workers: torch.Tensor):
+                  finished_workers: torch.Tensor, *, systematic: bool = False):
     """Erasure mask and decode on the device, no sync with the host.
 
     Scatters the packed per-slot products, (W, max_load) or (W, max_load,
     c), into coded-row order (pad slots and the slots of workers that
     missed the deadline go to a dropped row ``n``), marks the surviving
-    rows and runs ``decode_systematic``. Returns (z, ok), ``ok`` a 0-d
-    bool tensor (False: < k rows survived).
+    rows and runs ``decode_systematic`` (its reduced solve with
+    ``systematic``). Returns (z, ok), ``ok`` a 0-d bool tensor (False: < k
+    rows survived).
     """
     n = generator.shape[0]
     fin = finished_workers.to(device=row_of.device, dtype=torch.bool)
@@ -205,18 +207,25 @@ def masked_decode(generator: torch.Tensor, row_of: torch.Tensor, partials: torch
     y = torch.zeros((n + 1, *cols), dtype=partials.dtype, device=partials.device)
     y.index_put_((rows,), partials.reshape(-1, *cols))
     alive = torch.zeros((n + 1,), dtype=torch.bool, device=partials.device)
-    alive[rows] = True
-    return decode_systematic(generator, y[:n], alive[:n])
+    alive.index_fill_(0, rows, True)  # no host value copied to the card
+    return decode_systematic(generator, y[:n], alive[:n], systematic=systematic)
 
 
 class DecodePipeline:
     """The master step: worker products -> erasure mask -> decode, on the
     device, bound to one deployment's generator and slot map.
 
+    The generator is checked once here (``is_systematic``, one host read).
+    A systematic one, [I_k; P] as the program's own, is decoded by the
+    reduced solve: each surviving systematic row is its own unknown, and
+    the e erased ones come from a static (n - k)-square system of the
+    first e surviving parity rows, the rest of it identity. Any other is
+    decoded by the (k, k) solve of the first k survivors.
+
     With a ``workers`` mesh the products are split over its ranks; the
     master, rank 0 of the axis's group, decodes and broadcasts (z, ok), so
-    that every rank returns the same result and one (k, k) solve runs, not
-    R copies of it. Only the master needs ``generator`` and ``row_of``:
+    that every rank returns the same result and one solve runs, not R
+    copies of it. Only the master needs ``generator`` and ``row_of``:
     every other rank may pass ``None`` for both and gives ``k``, the
     decoded length.
     """
@@ -231,6 +240,7 @@ class DecodePipeline:
         self.mesh = mesh
         self.axis = axis
         self.k = generator.shape[1] if k is None else int(k)
+        self.systematic = generator is not None and is_systematic(generator)
 
     def __call__(self, packed: torch.Tensor, x: torch.Tensor,
                  finished_workers: torch.Tensor):
@@ -253,7 +263,8 @@ class DecodePipeline:
             if self.generator is None or self.row_of is None:
                 raise ValueError("the master (rank 0 of the axis) decodes: "
                                  "give it the generator and row_of")
-            return masked_decode(self.generator, self.row_of, partials, finished_workers)
+            return masked_decode(self.generator, self.row_of, partials, finished_workers,
+                                 systematic=self.systematic)
 
         with stage("pathm.decode", partials.device):
             if self.mesh is None:

@@ -30,7 +30,9 @@ check. A live one is a ``StageSpan``: a ``record_function`` range of its
 name, so it sits on the profiler's clock beside the kernels, and on a
 CUDA device a pair of timing events on the current stream, whose
 ``device_s`` waits for the end event when first read. On the CPU, where
-ops run synchronously, a stage's device time is its host duration.
+ops run synchronously, a stage's device time is its host duration. A
+stage's ``set`` attaches attributes, device tensors among them (the
+solve's count of erased rows); ``host_attrs`` reads them on first read.
 """
 from __future__ import annotations
 
@@ -66,6 +68,12 @@ class StageSpan(Span):
     """A finished stage span with its CUDA timing events (None on the CPU)."""
 
     events: tuple | None = dataclasses.field(default=None, repr=False, compare=False)
+
+    @functools.cached_property
+    def host_attrs(self) -> dict:
+        """``attrs`` with each tensor read to a Python number (from the
+        card, on first read)."""
+        return {k: v.item() if torch.is_tensor(v) else v for k, v in self.attrs.items()}
 
     @functools.cached_property
     def device_s(self) -> float:
@@ -221,11 +229,16 @@ class _StageSpan:
     """A live stage span of ``STAGES``: a ``record_function`` range and,
     on a CUDA device, a timing event on the current stream at each end."""
 
-    __slots__ = ("name", "id", "_device", "_range", "_start", "_t0")
+    __slots__ = ("name", "id", "attrs", "_device", "_range", "_start", "_t0")
 
     def __init__(self, name: str, device: torch.device):
         self.name = name
+        self.attrs = {}
         self._device = device
+
+    def set(self, **attrs) -> None:
+        """Attach attributes, device tensors left unread until the span is."""
+        self.attrs.update(attrs)
 
     def _event(self):
         if self._device.type != "cuda":
@@ -251,7 +264,7 @@ class _StageSpan:
         up = stack[-1] if stack else None
         STAGES.spans.append(StageSpan(
             name=self.name, t0_s=self._t0, dur_s=t1 - self._t0, depth=len(stack),
-            parent=up and up.name, attrs={}, id=self.id, parent_id=up and up.id,
+            parent=up and up.name, attrs=self.attrs, id=self.id, parent_id=up and up.id,
             events=None if end is None else (self._start, end)))
         self._range.__exit__(*exc)
         return False

@@ -13,7 +13,9 @@ port (workers as a batch dimension):
   ``tests/test_decode_pipeline.py`` (0, 3, 8 and 16 of 48 rows erased, 16
   exactly the threshold), with and without columns; fewer than k
   survivors (``ok`` False, zeros exact); garbage in pad and dead slots
-  never reaches the solve. Tolerance 1e-4: a float32 LU solve with one
+  never reaches the solve; each on both solves, the general (k, k) one
+  and the reduced one that ``DecodePipeline`` takes for the reference's
+  systematic generator. Tolerance 1e-4: a float32 LU solve with one
   refinement step on a well-conditioned systematic system;
 * ``decode_coded_result`` (host least squares) and
   ``end_to_end_coded_matvec`` with the reference's generator injected.
@@ -54,6 +56,9 @@ torch.set_num_threads(1)
 
 KEY = jax.random.PRNGKey(0)
 TOL = dict(rtol=1e-4, atol=1e-4)
+#: ``masked_decode``'s two solves: the general (k, k) one, and the reduced
+#: one of the erased systematic unknowns (the reference's G is systematic)
+PATHS = dict(argnames="systematic", argvalues=[False, True], ids=["general", "reduced"])
 #: (workers, mus, alphas): the reference pipeline test's fleet, and a
 #: three-group one whose loads differ (pads in every short block)
 FLEETS = [([4, 4], [4.0, 1.0], 1.0), ([3, 5, 4], [4.0, 1.0, 0.4], 1.0)]
@@ -141,10 +146,12 @@ def _grid(erasures, cols, seed=0):
 
 @pytest.mark.parametrize("erasures", [0, 3, 8, 16])  # 16 = exactly threshold
 @pytest.mark.parametrize("cols", [None, 5])
-def test_masked_decode_matches_reference_across_erasure_grid(erasures, cols):
+@pytest.mark.parametrize(**PATHS)
+def test_masked_decode_matches_reference_across_erasure_grid(erasures, cols, systematic):
     g, row_of, partials, fin, x = _grid(erasures, cols)
     z, ok = masked_decode(torch.from_numpy(g), torch.from_numpy(row_of),
-                          torch.from_numpy(partials), torch.from_numpy(fin))
+                          torch.from_numpy(partials), torch.from_numpy(fin),
+                          systematic=systematic)
     assert bool(ok) and tuple(z.shape) == x.shape and z.dtype == torch.float32
     np.testing.assert_allclose(z.numpy(), x, **TOL)
     if cols is None:
@@ -183,11 +190,13 @@ def test_decode_pipeline_matches_reference_across_erasure_grid(erasures):
 
 
 @pytest.mark.parametrize("cols", [None, 5])
-def test_masked_decode_insufficient_survivors_zeroed(cols):
+@pytest.mark.parametrize(**PATHS)
+def test_masked_decode_insufficient_survivors_zeroed(cols, systematic):
     """21 rows erased (> n - k): ok False and an exactly zero output."""
     g, row_of, partials, fin, x = _grid(21, cols)
     z, ok = masked_decode(torch.from_numpy(g), torch.from_numpy(row_of),
-                          torch.from_numpy(partials), torch.from_numpy(fin))
+                          torch.from_numpy(partials), torch.from_numpy(fin),
+                          systematic=systematic)
     assert not bool(ok)
     np.testing.assert_array_equal(z.numpy(), np.zeros(x.shape, np.float32))
     if cols is None:
@@ -196,16 +205,18 @@ def test_masked_decode_insufficient_survivors_zeroed(cols):
         np.testing.assert_array_equal(z.numpy(), np.asarray(want))
 
 
-def test_masked_decode_drops_pad_and_dead_slots():
+@pytest.mark.parametrize(**PATHS)
+def test_masked_decode_drops_pad_and_dead_slots(systematic):
     """Garbage (1e30 in pads, NaN in a dead worker's slots) must not reach
     the solve: the result equals the one from clean partials."""
     g, row_of, partials, fin, x = _grid(8, None, seed=1)
     clean = np.where(np.isfinite(partials) & (np.abs(partials) < 1e29), partials, 0.0)
     got, ok = masked_decode(torch.from_numpy(g), torch.from_numpy(row_of),
-                            torch.from_numpy(partials), torch.from_numpy(fin))
+                            torch.from_numpy(partials), torch.from_numpy(fin),
+                            systematic=systematic)
     base, ok2 = masked_decode(torch.from_numpy(g), torch.from_numpy(row_of),
                               torch.from_numpy(clean.astype(np.float32)),
-                              torch.from_numpy(fin))
+                              torch.from_numpy(fin), systematic=systematic)
     assert bool(ok) and bool(ok2) and bool(torch.isfinite(got).all())
     np.testing.assert_allclose(got.numpy(), base.numpy(), **TOL)
     np.testing.assert_allclose(got.numpy(), x, **TOL)

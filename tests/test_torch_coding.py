@@ -3,10 +3,16 @@
 ``decode_systematic`` (the port's torch twin of ``decode_systematic_jit``)
 is held against both reference decoders over the erasure grid of
 ``tests/test_decode_pipeline.py``: none, some, exactly k survivors, and
-fewer than k (``ok`` false, zeroed output). The generator comes from the
-reference and is injected as numpy. Tolerance 1e-4: a float32 LU solve
-with one refinement step on a well-conditioned systematic system, the
-reference test's own bound.
+fewer than k (``ok`` false, zeroed output), the erasures drawn from every
+row, from the systematic rows alone or from the parity rows alone. Each
+case runs on both paths: the general (k, k) solve, and the reduced solve
+of the erased systematic unknowns that a systematic generator allows
+(``systematic=True``). The generator comes from the reference and is
+injected as numpy; the reference's ``chebyshev_vandermonde`` generator,
+not systematic, is refused the reduced path by ``is_systematic`` and
+decodes on the general one. Tolerance 1e-4: a float32 LU solve with one
+refinement step on a well-conditioned systematic system, the reference
+test's own bound.
 """
 import jax
 import jax.numpy as jnp
@@ -21,32 +27,50 @@ from repro.core.coding import make_generator as ref_make_generator
 from repro_torch.core.coding import (
     decode_systematic,
     encode,
+    is_systematic,
     make_generator,
 )
+from repro_torch.obs.metrics import REGISTRY
 
 # one intra-op thread: the suite runs test files in parallel worker
 # processes, beside the reference's wall-clock tests
 torch.set_num_threads(1)
 
 KEY = jax.random.PRNGKey(0)
+PATHS = dict(argnames="systematic", argvalues=[False, True], ids=["general", "reduced"])
 
 
-def _ref_g(n, k):
-    return np.array(ref_make_generator(n, k, KEY), np.float32)
+def _ref_g(n, k, kind="systematic_gaussian"):
+    return np.array(ref_make_generator(n, k, KEY, kind=kind), np.float32)
+
+
+def _erase(n, k, erasures, where):
+    """An (n,) mask with ``erasures`` rows erased, drawn from every row
+    (``mixed``), from the k systematic rows or from the parity rows."""
+    rng = np.random.default_rng(erasures)
+    pool = {"mixed": n, "systematic": np.arange(k), "parity": np.arange(k, n)}[where]
+    mask = np.ones(n, bool)
+    mask[rng.choice(pool, size=erasures, replace=False)] = False
+    return mask
+
+
+def _decodes(path):
+    return REGISTRY.counter("erasure_decodes", path=path).value
 
 
 @pytest.mark.parametrize("erasures", [0, 3, 8, 16])  # 16 = exactly threshold
 @pytest.mark.parametrize("cols", [None, 5])
-def test_decode_matches_reference_across_erasure_grid(erasures, cols):
+@pytest.mark.parametrize("where", ["mixed", "systematic", "parity"])
+@pytest.mark.parametrize(**PATHS)
+def test_decode_matches_reference_across_erasure_grid(erasures, cols, where, systematic):
     k, n = 32, 48
     g = _ref_g(n, k)
     shape = (k,) if cols is None else (k, cols)
     x = np.random.default_rng(100 + erasures).standard_normal(shape).astype(np.float32)
     y = np.array(ref_encode(jnp.asarray(g), jnp.asarray(x)), np.float32)
-    mask = np.ones(n, bool)
-    mask[np.random.default_rng(erasures).choice(n, size=erasures, replace=False)] = False
+    mask = _erase(n, k, erasures, where)
     z, ok = decode_systematic(torch.from_numpy(g), torch.from_numpy(y),
-                              torch.from_numpy(mask))
+                              torch.from_numpy(mask), systematic=systematic)
     z_jit, ok_jit = ref_decode_jit(g, jnp.asarray(y), jnp.asarray(mask))
     z_np, ok_np = ref_decode_np(g, y, mask, k)
     assert bool(ok) and bool(ok_jit) and ok_np
@@ -57,19 +81,69 @@ def test_decode_matches_reference_across_erasure_grid(erasures, cols):
 
 
 @pytest.mark.parametrize("survivors", [0, 15])
-def test_decode_insufficient_survivors_zeroed(survivors):
-    """< k survivors: ok False and zeros (not garbage), like the reference."""
+@pytest.mark.parametrize(**PATHS)
+def test_decode_insufficient_survivors_zeroed(survivors, systematic):
+    """< k survivors: ok False and zeros (not garbage), like the reference;
+    on the reduced path also with more erased systematic rows (16 or 1 of
+    16) than its 8 unknowns, and with NaN in every erased row."""
     k, n = 16, 24
     g = _ref_g(n, k)
     y = g @ np.ones((k,), np.float32)
     mask = np.zeros(n, bool)
     mask[:survivors] = True
-    z, ok = decode_systematic(torch.from_numpy(g), torch.from_numpy(y),
-                              torch.from_numpy(mask))
+    garbage = np.where(mask, y, np.nan).astype(np.float32)
+    z, ok = decode_systematic(torch.from_numpy(g), torch.from_numpy(garbage),
+                              torch.from_numpy(mask), systematic=systematic)
     z_jit, ok_jit = ref_decode_jit(g, jnp.asarray(y), jnp.asarray(mask))
     assert not bool(ok) and not bool(ok_jit) and not ref_decode_np(g, y, mask, k)[1]
     np.testing.assert_array_equal(z.numpy(), np.zeros(k, np.float32))
     np.testing.assert_array_equal(z.numpy(), np.asarray(z_jit))
+
+
+@pytest.mark.parametrize("cols", [None, 3])
+def test_a_non_systematic_generator_takes_the_general_path(cols):
+    """The reference's ``chebyshev_vandermonde`` G (top rows not I_k):
+    ``is_systematic`` says so, and its decode, counted on the general
+    path, matches the reference's jitted decode and A x."""
+    k, n = 8, 12
+    g = _ref_g(n, k, "chebyshev_vandermonde")
+    assert not is_systematic(torch.from_numpy(g))
+    assert is_systematic(torch.from_numpy(_ref_g(n, k)))
+    shape = (k,) if cols is None else (k, cols)
+    x = np.random.default_rng(7).standard_normal(shape).astype(np.float32)
+    y = np.array(ref_encode(jnp.asarray(g), jnp.asarray(x)), np.float32)
+    mask = np.ones(n, bool)
+    mask[[0, 3, 5, 10]] = False  # exactly k survive
+    before = _decodes("general"), _decodes("reduced")
+    z, ok = decode_systematic(torch.from_numpy(g), torch.from_numpy(y),
+                              torch.from_numpy(mask),
+                              systematic=is_systematic(torch.from_numpy(g)))
+    assert (_decodes("general"), _decodes("reduced")) == (before[0] + 1, before[1])
+    z_jit, ok_jit = ref_decode_jit(g, jnp.asarray(y), jnp.asarray(mask))
+    assert bool(ok) and bool(ok_jit)
+    np.testing.assert_allclose(z.numpy(), np.asarray(z_jit), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(z.numpy(), x, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize(**PATHS)
+def test_the_path_counter_counts_each_decode_once(systematic):
+    """``erasure_decodes`` in ``obs.metrics.REGISTRY``: one count a call,
+    on the path it took; a systematic G with n == k has nothing to
+    eliminate and counts as general."""
+    n, k = 24, 16
+    g = torch.from_numpy(_ref_g(n, k))
+    y = torch.ones(n)
+    path, other = ("reduced", "general") if systematic else ("general", "reduced")
+    before = _decodes(path), _decodes(other)
+    for _ in range(3):
+        decode_systematic(g, y, torch.ones(n, dtype=torch.bool), systematic=systematic)
+    assert (_decodes(path), _decodes(other)) == (before[0] + 3, before[1])
+    square = torch.eye(k)
+    before = _decodes("general"), _decodes("reduced")
+    z, ok = decode_systematic(square, torch.arange(k, dtype=torch.float32),
+                              torch.ones(k, dtype=torch.bool), systematic=True)
+    assert (_decodes("general"), _decodes("reduced")) == (before[0] + 1, before[1])
+    assert bool(ok) and torch.equal(z, torch.arange(k, dtype=torch.float32))
 
 
 def test_make_generator_injected_and_seeded():
@@ -107,7 +181,9 @@ def test_port_generator_decodes_its_own_code():
     y = encode(g, x)
     mask = torch.ones(n, dtype=torch.bool)
     mask[:16] = False  # every erasure a systematic row: exactly k survive
-    z, ok = decode_systematic(g, y, mask)
-    assert bool(ok)
-    torch.testing.assert_close(z, x, rtol=1e-4, atol=1e-4)
+    assert is_systematic(g)
+    for systematic in (False, True):
+        z, ok = decode_systematic(g, y, mask, systematic=systematic)
+        assert bool(ok)
+        torch.testing.assert_close(z, x, rtol=1e-4, atol=1e-4)
 

@@ -11,6 +11,10 @@ and the same bits either way.
   the names, a device time on each (its host duration on the CPU), and each span a ``user_annotation`` of the
   profiler's Chrome trace; through ``__call__`` and ``on_block`` of a
   one-rank ``workers`` mesh too;
+* a query counts one decode in ``REGISTRY``'s ``erasure_decodes`` on its
+  path (reduced for the seeded systematic G, general for a G that is not),
+  and the reduced path's ``decode.gather`` carries the mask's count of
+  erased systematic rows as ``erased``;
 * ``z`` and ``ok`` are bit-identical with and without the profiler.
 """
 import json
@@ -24,6 +28,7 @@ from repro_torch.core.coding import decode_systematic, make_generator
 from repro_torch.core.runtime_model import ClusterSpec
 from repro_torch.launch.mesh import destroy_local_mesh, make_workers_mesh
 from repro_torch.obs import trace
+from repro_torch.obs.metrics import REGISTRY
 from repro_torch.runtime.executor import CodedRoundExecutor
 
 K, D = 96, 64
@@ -88,6 +93,7 @@ def test_a_profiled_query_records_the_stage_tree(deployment, tmp_path, path):
         if mesh is not None:
             destroy_local_mesh()
     spans = list(trace.STAGES.spans)[before:]
+    lost = row_of[~mask]  # the erased worker's coded rows, -1 in pads
     assert sorted(s.name for s in spans) == sorted(TREE)
     by_id = {s.id: s for s in spans}
     assert len(by_id) == len(TREE)
@@ -98,7 +104,10 @@ def test_a_profiled_query_records_the_stage_tree(deployment, tmp_path, path):
         if want is not None:
             assert by_id[s.parent_id].name == want
         assert isinstance(s, trace.StageSpan) and s.device_s == s.dur_s > 0
-        assert s.attrs == {}
+        if s.name == "decode.gather":  # the reduced solve's count of erased rows
+            assert s.host_attrs == {"erased": int(((lost >= 0) & (lost < plan.k)).sum())}
+        else:
+            assert s.attrs == {}
     summ = trace.STAGES.summary()
     assert all(summ[name]["count"] >= 1 for name in TREE)
     path_json = tmp_path / "t.pt.trace.json"
@@ -106,6 +115,31 @@ def test_a_profiled_query_records_the_stage_tree(deployment, tmp_path, path):
     events = json.loads(path_json.read_text())["traceEvents"]
     notes = [e["name"] for e in events if e.get("cat") == "user_annotation"]
     assert sorted(n for n in notes if n in TREE) == sorted(TREE)
+
+
+@pytest.mark.parametrize("erased", [0, 1, 3])
+@pytest.mark.parametrize("systematic", [True, False], ids=["reduced", "general"])
+def test_a_query_counts_its_path_and_the_erased_rows(deployment, erased, systematic):
+    plan, g, packed, row_of = deployment
+    x, mask = _inputs(plan, erased)
+    if not systematic:  # the same code with its top block mixed: not [I; P]
+        mix = torch.randn((K, K), generator=torch.Generator().manual_seed(7))
+        g = g @ torch.linalg.qr(mix)[0]
+        packed, row_of = pack_coded_matrix(g, torch.randn((K, D)), plan)
+    pipe = DecodePipeline(g, row_of)
+    assert pipe.systematic == systematic
+    counts = lambda: {p: REGISTRY.counter("erasure_decodes", path=p).value  # noqa: E731
+                      for p in ("reduced", "general")}
+    before = counts()
+    with profile():
+        n0 = len(trace.STAGES.spans)
+        pipe(packed, x, mask)
+    path = "reduced" if systematic else "general"
+    assert counts() == {p: v + (p == path) for p, v in before.items()}
+    gather, = [s for s in list(trace.STAGES.spans)[n0:] if s.name == "decode.gather"]
+    lost = row_of[~mask]
+    want = {"erased": int(((lost >= 0) & (lost < plan.k)).sum())} if systematic else {}
+    assert gather.host_attrs == want
 
 
 def test_plain_span_ids_nest():

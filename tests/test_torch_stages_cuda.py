@@ -7,16 +7,23 @@ there is no card):
   profiler's first-use cost) gives every stage span a device time from
   its CUDA events, and the solve's three stages (``decode.*``) sum to
   within 3% of ``pathm.decode``;
-* ``decode_systematic`` at a serve head's size, captured in a CUDA graph
-  inside an open ``pathm.query`` while a profiler records, adds no stage
-  of its own to ``STAGES``, and its replays equal the eager solve.
+* ``decode_systematic`` at a serve head's size on its reduced path,
+  captured in a CUDA graph inside an open ``pathm.query`` while a profiler
+  records, adds no stage of its own to ``STAGES``, and its replays equal
+  the eager solve bit for bit;
+* after a warm-up, a query runs under ``torch.cuda.set_sync_debug_mode
+  ("error")``: the decode never waits for the host;
+* at Path M's k 20,000 with n - k systematic rows erased (exactly k
+  survive, the reduced system at its full 6,980 x 6,980), the reduced
+  solve's error against A x in float64 is within 30x that of the general
+  (k, k) solve on the same rows.
 """
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core.coded_matvec import DecodePipeline, pack_coded_matrix
-from repro_torch.core.coding import decode_systematic, make_generator
+from repro_torch.core.coding import decode_systematic, encode, is_systematic, make_generator
 from repro_torch.core.runtime_model import ClusterSpec
 from repro_torch.obs import trace
 from repro_torch.runtime.executor import CodedRoundExecutor
@@ -73,18 +80,19 @@ def test_a_captured_solve_records_no_stage_and_replays(card):
     y = torch.randn(n, device="cuda")
     fin = torch.ones(n, dtype=torch.bool, device="cuda")
     fin[: n - k - 7] = False
-    want, want_ok = decode_systematic(g, y, fin)
+    assert is_systematic(g)
+    want, want_ok = decode_systematic(g, y, fin, systematic=True)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        decode_systematic(g, y, fin)  # warm up off the default stream
+        decode_systematic(g, y, fin, systematic=True)  # warm up off the default stream
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     before = list(trace.STAGES.spans)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         with trace.stage("pathm.query", g.device, root=True):
             with torch.cuda.graph(graph):
-                z, ok = decode_systematic(g, y, fin)
+                z, ok = decode_systematic(g, y, fin, systematic=True)
         torch.cuda.synchronize()
     assert [s.name for s in list(trace.STAGES.spans)[len(before):]] == ["pathm.query"]
     for _ in range(2):
@@ -92,3 +100,39 @@ def test_a_captured_solve_records_no_stage_and_replays(card):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(z, want) and bool(ok) == bool(want_ok)
+
+
+def test_a_query_does_not_sync_with_the_host(deployment):
+    plan, g, packed, row_of, mask = deployment
+    x = torch.randn(D, device="cuda")
+    pipe = DecodePipeline(g, row_of)
+    assert pipe.systematic
+    want, want_ok = pipe(packed, x, mask)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        z, ok = pipe(packed, x, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(z, want) and bool(ok) == bool(want_ok)
+
+
+def test_the_reduced_solve_at_path_m_size_with_exactly_k_survivors(card):
+    k, n, d, load = 20000, 26980, 64, 20  # 1,349 workers of 20 rows
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    g = make_generator(n, k, seed=6, device="cuda")
+    a = torch.randn((k, d), generator=gen, device="cuda")
+    x = torch.randn(d, generator=gen, device="cuda")
+    packed = encode(g, a).reshape(n // load, load, d)
+    row_of = torch.arange(n, dtype=torch.int32, device="cuda").reshape(n // load, load)
+    fin = torch.ones(n // load, dtype=torch.bool, device="cuda")
+    fin[: (n - k) // load] = False  # rows 0..6,979: n - k systematic rows
+    want = (a.double() @ x.double())
+    pipe = DecodePipeline(g, row_of)
+    assert pipe.systematic
+    z, ok = pipe(packed, x, fin)
+    pipe.systematic = False
+    z_full, ok_full = pipe(packed, x, fin)
+    assert bool(ok) and bool(ok_full)
+    err, err_full = (z.double() - want).norm(), (z_full.double() - want).norm()
+    assert err <= 30 * err_full, (float(err), float(err_full), float(want.norm()))
