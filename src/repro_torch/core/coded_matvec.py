@@ -20,8 +20,9 @@ worker order, and the master decodes and broadcasts (z, ok): every rank
 returns the same result.
 
 * ``DecodePipeline`` — the hot path: products, erasure mask and the
-  fixed-shape decode (``masked_decode`` -> ``decode_systematic``) on the
-  device, with no sync with the host;
+  decode (``masked_decode`` -> ``decode_systematic``) on the device, with
+  one read of the query's e on the host, which sizes the solve (the serve
+  head's static solve reads none);
 * ``coded_matvec`` / ``decode_coded_result`` — the split pair, the decode
   on the host by least squares (the reference's oracle path).
 
@@ -191,24 +192,19 @@ def decode_coded_result(generator, row_of, partials, finished_workers, k: int):
 
 def masked_decode(generator: torch.Tensor, row_of: torch.Tensor, partials: torch.Tensor,
                   finished_workers: torch.Tensor, *, systematic: bool = False):
-    """Erasure mask and decode on the device, no sync with the host.
+    """Erasure mask and decode on the device, with one read of the host.
 
-    Scatters the packed per-slot products, (W, max_load) or (W, max_load,
-    c), into coded-row order (pad slots and the slots of workers that
-    missed the deadline go to a dropped row ``n``), marks the surviving
-    rows and runs ``decode_systematic`` (its reduced solve with
-    ``systematic``). Returns (z, ok), ``ok`` a 0-d bool tensor (False: < k
-    rows survived).
+    ``decode_systematic`` given ``row_of`` scatters the packed per-slot
+    products, (W, max_load) or (W, max_load, c), into coded-row order (pad
+    slots and the slots of workers that missed the deadline go to a
+    dropped row ``n``) and marks the surviving rows, inside its
+    ``decode.gather`` span, then decodes (with ``systematic``, its reduced
+    solve sized by the query's e: the one read, of e and whether k rows
+    survived). Returns (z, ok), ``ok`` a 0-d bool tensor (False: < k rows
+    survived).
     """
-    n = generator.shape[0]
-    fin = finished_workers.to(device=row_of.device, dtype=torch.bool)
-    rows = torch.where((row_of >= 0) & fin[:, None], row_of.long(), n).reshape(-1)
-    cols = partials.shape[2:]
-    y = torch.zeros((n + 1, *cols), dtype=partials.dtype, device=partials.device)
-    y.index_put_((rows,), partials.reshape(-1, *cols))
-    alive = torch.zeros((n + 1,), dtype=torch.bool, device=partials.device)
-    alive.index_fill_(0, rows, True)  # no host value copied to the card
-    return decode_systematic(generator, y[:n], alive[:n], systematic=systematic)
+    return decode_systematic(generator, partials, finished_workers, systematic=systematic,
+                             sized=True, row_of=row_of)
 
 
 class DecodePipeline:
@@ -218,8 +214,10 @@ class DecodePipeline:
     The generator is checked once here (``is_systematic``, one host read).
     A systematic one, [I_k; P] as the program's own, is decoded by the
     reduced solve: each surviving systematic row is its own unknown, and
-    the e erased ones come from a static (n - k)-square system of the
-    first e surviving parity rows, the rest of it identity. Any other is
+    the e erased ones come from the first e surviving parity rows, in a
+    system of e rounded up to 128 rows, the rest of it identity. A query
+    reads e (and whether k rows survived) to the host once, after B1 and
+    the scatter are queued; it solves nothing where e is 0. Any other G is
     decoded by the (k, k) solve of the first k survivors.
 
     With a ``workers`` mesh the products are split over its ranks; the

@@ -227,7 +227,8 @@ _profiling = torch._C._autograd._profiler_enabled
 
 class _StageSpan:
     """A live stage span of ``STAGES``: a ``record_function`` range and,
-    on a CUDA device, a timing event on the current stream at each end."""
+    on a CUDA device, a timing event on the current stream at each end,
+    recorded outside the range."""
 
     __slots__ = ("name", "id", "attrs", "_device", "_range", "_start", "_t0")
 
@@ -248,17 +249,20 @@ class _StageSpan:
         return event
 
     def __enter__(self) -> "_StageSpan":
+        # the events outermost, so that sibling stages tile their parent
+        # on the card but for the span's own bookkeeping
+        self._start = self._event()
         self._range = torch.profiler.record_function(self.name)
         self._range.__enter__()
-        self._start = self._event()
         self.id = next(STAGES._ids)
         STAGES._stack.append(self)
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> bool:
-        end = self._event()
         t1 = time.perf_counter()
+        self._range.__exit__(*exc)
+        end = self._event()
         stack = STAGES._stack
         stack.pop()
         up = stack[-1] if stack else None
@@ -266,7 +270,6 @@ class _StageSpan:
             name=self.name, t0_s=self._t0, dur_s=t1 - self._t0, depth=len(stack),
             parent=up and up.name, attrs=self.attrs, id=self.id, parent_id=up and up.id,
             events=None if end is None else (self._start, end)))
-        self._range.__exit__(*exc)
         return False
 
 

@@ -17,6 +17,10 @@ port (workers as a batch dimension):
   and the reduced one that ``DecodePipeline`` takes for the reference's
   systematic generator. Tolerance 1e-4: a float32 LU solve with one
   refinement step on a well-conditioned systematic system;
+* ``masked_decode``'s reduced solve sized by the query's e, on a code
+  whose c = n - k = 260 is no multiple of 128, one coded row a worker
+  (and a pad): no erasure, e at the rounding edge 128 / 129, e = c with
+  exactly k survivors (384 capped at c), and fewer than k;
 * ``decode_coded_result`` (host least squares) and
   ``end_to_end_coded_matvec`` with the reference's generator injected.
 """
@@ -47,6 +51,7 @@ from repro_torch.core.coded_matvec import (
 )
 from repro_torch.core.coding import encode
 from repro_torch.core.planner import plan_deployment
+from repro_torch.obs.metrics import REGISTRY
 from repro_torch.core.runtime_model import ClusterSpec
 from repro_torch.kernels.coded_matvec.ops import blocked_matvec_batch
 
@@ -220,6 +225,56 @@ def test_masked_decode_drops_pad_and_dead_slots(systematic):
     assert bool(ok) and bool(ok2) and bool(torch.isfinite(got).all())
     np.testing.assert_allclose(got.numpy(), base.numpy(), **TOL)
     np.testing.assert_allclose(got.numpy(), x, **TOL)
+
+
+#: one coded row a worker and a pad slot each, on a code whose c = n - k =
+#: 260 is no multiple of 128; (erased systematic rows, erased parity rows)
+#: -> the sized system's rows, as in ``tests/test_torch_coding.py``
+BIG_K, BIG_N = 400, 660
+SIZED = {(0, 0): 0, (1, 5): 128, (128, 40): 128, (129, 0): 256,
+         (260, 0): 260, (100, 200): 0}
+
+
+@pytest.mark.parametrize("cols", [None, 5])
+@pytest.mark.parametrize("erased", list(SIZED), ids=[f"e{e}-p{p}" for e, p in SIZED])
+def test_masked_decode_sizes_the_solve_across_erasure_grid(erased, cols):
+    """``masked_decode`` solves at e rounded up to 128 (at most c), none
+    where e is 0 or fewer than k rows survive, against the reference and
+    A x; each query counts once in ``erasure_solve_rows`` at its size."""
+    e, lost = erased
+    g = _ref_g(BIG_N, BIG_K)
+    rng = np.random.default_rng(100 + e)
+    shape = (BIG_K,) if cols is None else (BIG_K, cols)
+    x = rng.standard_normal(shape).astype(np.float32)
+    row_of = np.stack([np.arange(BIG_N, dtype=np.int32), np.full(BIG_N, -1, np.int32)], 1)
+    partials = np.full((BIG_N, 2) + shape[1:], 1e30, np.float32)
+    partials[:, 0] = g @ x
+    fin = np.ones(BIG_N, bool)
+    fin[rng.choice(BIG_K, size=e, replace=False)] = False
+    fin[BIG_K + rng.choice(BIG_N - BIG_K, size=lost, replace=False)] = False
+    partials[~fin] = np.nan
+    decodable = int(fin.sum()) >= BIG_K
+    rows = lambda: {r["labels"]["size"]: r["value"] for r in REGISTRY.snapshot()  # noqa: E731
+                    if r["name"] == "erasure_solve_rows"}
+    before = rows()
+    z, ok = masked_decode(torch.from_numpy(g), torch.from_numpy(row_of),
+                          torch.from_numpy(partials), torch.from_numpy(fin), systematic=True)
+    after = rows()
+    assert {s: v - before.get(s, 0) for s, v in after.items() if v != before.get(s, 0)} \
+        == {SIZED[erased]: 1}
+    assert bool(ok) == decodable and tuple(z.shape) == x.shape
+    if cols is None:
+        want, want_ok = ref_masked_decode(jnp.asarray(g), jnp.asarray(row_of),
+                                          jnp.asarray(partials), jnp.asarray(fin))
+    else:  # the reference scatters one column; decode its scattered rows
+        y = np.where(fin[:, None], g @ x, 0).astype(np.float32)
+        want, want_ok = ref_decode_jit(jnp.asarray(g), jnp.asarray(y), jnp.asarray(fin))
+    assert bool(want_ok) == decodable
+    if not decodable:
+        np.testing.assert_array_equal(z.numpy(), np.zeros(x.shape, np.float32))
+        return
+    np.testing.assert_allclose(z.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(z.numpy(), x, **TOL)
 
 
 @pytest.mark.parametrize("erased", [[], [7], [0, 6]])

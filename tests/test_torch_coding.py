@@ -13,23 +13,34 @@ not systematic, is refused the reduced path by ``is_systematic`` and
 decodes on the general one. Tolerance 1e-4: a float32 LU solve with one
 refinement step on a well-conditioned systematic system, the reference
 test's own bound.
+
+The reduced solve sized by the query's e (``sized=True``, Path M's) is
+held against both reference decoders and the static one on a code whose
+c = n - k = 260 is no multiple of ``SIZE_STEP``: no erasure (no solve),
+e at the rounding edge 128 / 129, e = c with exactly k survivors (384
+capped at c), and fewer than k survivors (no solve, zeros);
+with its count ``erasure_solve_rows`` by size, and the ``erased`` and
+``size`` attributes of ``decode.gather`` in a profiled query.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import profile
 
 from repro.core.coding import decode_systematic as ref_decode_np
 from repro.core.coding import decode_systematic_jit as ref_decode_jit
 from repro.core.coding import encode as ref_encode
 from repro.core.coding import make_generator as ref_make_generator
 from repro_torch.core.coding import (
+    SIZE_STEP,
     decode_systematic,
     encode,
     is_systematic,
     make_generator,
 )
+from repro_torch.obs import trace
 from repro_torch.obs.metrics import REGISTRY
 
 # one intra-op thread: the suite runs test files in parallel worker
@@ -56,6 +67,36 @@ def _erase(n, k, erasures, where):
 
 def _decodes(path):
     return REGISTRY.counter("erasure_decodes", path=path).value
+
+
+def _sizes():
+    """``erasure_solve_rows`` by size, as the registry holds it now."""
+    return {r["labels"]["size"]: r["value"] for r in REGISTRY.snapshot()
+            if r["name"] == "erasure_solve_rows"}
+
+
+#: a code whose c = n - k = 260 is no multiple of ``SIZE_STEP``
+BIG_K, BIG_N = 400, 660
+#: (erased systematic rows, erased parity rows) -> the sized system's rows:
+#: none erased; one; the rounding edge at 128 and 129; e = c with exactly
+#: k survivors (384 capped at c); fewer than k survivors
+SIZED = {(0, 0): 0, (1, 5): 128, (128, 40): 128, (129, 0): 256,
+         (260, 0): 260, (100, 200): 0}
+SIZED_IDS = [f"e{e}-p{p}" for e, p in SIZED]
+
+
+def _big_case(erased, cols):
+    """(g, x, y, mask, decodable) on the big code, ``erased`` = (systematic,
+    parity) rows erased, drawn from the seed."""
+    e, lost = erased
+    g = _ref_g(BIG_N, BIG_K)
+    rng = np.random.default_rng(100 + e)
+    x = rng.standard_normal((BIG_K,) if cols is None else (BIG_K, cols)).astype(np.float32)
+    y = np.array(ref_encode(jnp.asarray(g), jnp.asarray(x)), np.float32)
+    mask = np.ones(BIG_N, bool)
+    mask[rng.choice(BIG_K, size=e, replace=False)] = False
+    mask[BIG_K + rng.choice(BIG_N - BIG_K, size=lost, replace=False)] = False
+    return g, x, y, mask, int(mask.sum()) >= BIG_K
 
 
 @pytest.mark.parametrize("erasures", [0, 3, 8, 16])  # 16 = exactly threshold
@@ -187,3 +228,72 @@ def test_port_generator_decodes_its_own_code():
         assert bool(ok)
         torch.testing.assert_close(z, x, rtol=1e-4, atol=1e-4)
 
+
+
+@pytest.mark.parametrize("cols", [None, 5])
+@pytest.mark.parametrize("erased", list(SIZED), ids=SIZED_IDS)
+def test_the_sized_solve_matches_reference_across_erasure_grid(erased, cols):
+    """The reduced solve sized by e, against both reference decoders and A
+    x; fewer than k survivors: ok False and zeros, no solve. Each decode
+    counts once in ``erasure_solve_rows`` at its size."""
+    g, x, y, mask, decodable = _big_case(erased, cols)
+    before = _sizes()
+    z, ok = decode_systematic(torch.from_numpy(g), torch.from_numpy(y),
+                              torch.from_numpy(mask), systematic=True, sized=True)
+    size = SIZED[erased]
+    after = _sizes()
+    assert {s: v - before.get(s, 0) for s, v in after.items() if v != before.get(s, 0)} \
+        == {size: 1}
+    assert size == (0 if erased[0] == 0 or not decodable
+                    else min(-(-erased[0] // SIZE_STEP) * SIZE_STEP, BIG_N - BIG_K))
+    z_jit, ok_jit = ref_decode_jit(g, jnp.asarray(y), jnp.asarray(mask))
+    z_np, ok_np = ref_decode_np(g, y, mask, BIG_K)
+    assert bool(ok) == bool(ok_jit) == ok_np == decodable
+    assert z.dtype == torch.float32 and tuple(z.shape) == x.shape
+    if not decodable:
+        np.testing.assert_array_equal(z.numpy(), np.zeros(x.shape, np.float32))
+        np.testing.assert_array_equal(z.numpy(), np.asarray(z_jit))
+        return
+    np.testing.assert_allclose(z.numpy(), np.asarray(z_jit), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(z.numpy(), z_np, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(z.numpy(), x, rtol=1e-4, atol=1e-4)
+    if erased[0] == 0:  # no solve: the systematic rows as they came
+        np.testing.assert_array_equal(z.numpy(), y[:BIG_K])
+
+
+@pytest.mark.parametrize("cols", [None, 5])
+@pytest.mark.parametrize("erased", list(SIZED), ids=SIZED_IDS)
+def test_the_sized_and_static_reduced_solves_agree(erased, cols):
+    """The same system, its live block solved at e rounded up to 128 and
+    at the static c: ok equal, z within the decode's tolerance, and equal
+    where neither solves anything (no erasure) or both zero (too few)."""
+    g, _, y, mask, decodable = _big_case(erased, cols)
+    args = torch.from_numpy(g), torch.from_numpy(y), torch.from_numpy(mask)
+    z, ok = decode_systematic(*args, systematic=True, sized=True)
+    z_c, ok_c = decode_systematic(*args, systematic=True)
+    assert bool(ok) == bool(ok_c) == decodable
+    if SIZED[erased] == 0:
+        assert torch.equal(z, z_c)
+    np.testing.assert_allclose(z.numpy(), z_c.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("sized", [True, False], ids=["sized", "static"])
+@pytest.mark.parametrize("erased", [(0, 0), (129, 0), (100, 200)], ids=["e0", "e129", "too-few"])
+def test_a_profiled_solve_carries_erased_and_size(erased, sized):
+    """Inside an open ``pathm.query`` under the profiler, ``decode.gather``
+    carries e as ``erased`` and the system's rows as ``size`` (the static
+    solve: c), and every one of the three stages opens, empty or not; the
+    static solve counts nothing in ``erasure_solve_rows``."""
+    g, _, y, mask, decodable = _big_case(erased, None)
+    before = _sizes()
+    with profile():
+        n0 = len(trace.STAGES.spans)
+        with trace.stage("pathm.query", torch.device("cpu"), root=True):
+            decode_systematic(torch.from_numpy(g), torch.from_numpy(y),
+                              torch.from_numpy(mask), systematic=True, sized=sized)
+    spans = list(trace.STAGES.spans)[n0:]
+    assert [s.name for s in spans] == ["decode.gather", "decode.lu", "decode.trisolve",
+                                       "pathm.query"]
+    size = SIZED[erased] if sized else BIG_N - BIG_K
+    assert spans[0].host_attrs == {"erased": erased[0], "size": size}
+    assert (_sizes() == before) != sized

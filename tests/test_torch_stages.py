@@ -14,7 +14,9 @@ and the same bits either way.
 * a query counts one decode in ``REGISTRY``'s ``erasure_decodes`` on its
   path (reduced for the seeded systematic G, general for a G that is not),
   and the reduced path's ``decode.gather`` carries the mask's count of
-  erased systematic rows as ``erased``;
+  erased systematic rows as ``erased`` and the system's rows (e rounded up
+  to 128, at most n - k; 0: no solve) as ``size``, which the query also
+  counts once in ``erasure_solve_rows``;
 * ``z`` and ``ok`` are bit-identical with and without the profiler.
 """
 import json
@@ -24,7 +26,7 @@ import torch
 from torch.profiler import profile
 
 from repro_torch.core.coded_matvec import DecodePipeline, pack_coded_matrix
-from repro_torch.core.coding import decode_systematic, make_generator
+from repro_torch.core.coding import SIZE_STEP, decode_systematic, make_generator
 from repro_torch.core.runtime_model import ClusterSpec
 from repro_torch.launch.mesh import destroy_local_mesh, make_workers_mesh
 from repro_torch.obs import trace
@@ -46,6 +48,16 @@ def deployment():
     a = torch.randn((K, D), generator=torch.Generator().manual_seed(4))
     packed, row_of = pack_coded_matrix(g, a, plan)
     return plan, g, packed, row_of
+
+
+def _gather_attrs(plan, row_of, mask) -> dict:
+    """``decode.gather``'s attributes on the sized reduced path: e, the
+    erased workers' systematic rows, and the system's rows (0 where fewer
+    than k rows survive)."""
+    lost = row_of[~mask]  # the erased workers' coded rows, -1 in pads
+    e = int(((lost >= 0) & (lost < plan.k)).sum())
+    size = min(-(-e // SIZE_STEP) * SIZE_STEP, plan.n - plan.k)
+    return {"erased": e, "size": size if int((row_of[mask] >= 0).sum()) >= plan.k else 0}
 
 
 def _inputs(plan, erased: int):
@@ -93,7 +105,6 @@ def test_a_profiled_query_records_the_stage_tree(deployment, tmp_path, path):
         if mesh is not None:
             destroy_local_mesh()
     spans = list(trace.STAGES.spans)[before:]
-    lost = row_of[~mask]  # the erased worker's coded rows, -1 in pads
     assert sorted(s.name for s in spans) == sorted(TREE)
     by_id = {s.id: s for s in spans}
     assert len(by_id) == len(TREE)
@@ -104,8 +115,8 @@ def test_a_profiled_query_records_the_stage_tree(deployment, tmp_path, path):
         if want is not None:
             assert by_id[s.parent_id].name == want
         assert isinstance(s, trace.StageSpan) and s.device_s == s.dur_s > 0
-        if s.name == "decode.gather":  # the reduced solve's count of erased rows
-            assert s.host_attrs == {"erased": int(((lost >= 0) & (lost < plan.k)).sum())}
+        if s.name == "decode.gather":  # the reduced solve's e and its system's rows
+            assert s.host_attrs == _gather_attrs(plan, row_of, mask)
         else:
             assert s.attrs == {}
     summ = trace.STAGES.summary()
@@ -130,16 +141,19 @@ def test_a_query_counts_its_path_and_the_erased_rows(deployment, erased, systema
     assert pipe.systematic == systematic
     counts = lambda: {p: REGISTRY.counter("erasure_decodes", path=p).value  # noqa: E731
                       for p in ("reduced", "general")}
-    before = counts()
+    sizes = lambda: {r["labels"]["size"]: r["value"] for r in REGISTRY.snapshot()  # noqa: E731
+                     if r["name"] == "erasure_solve_rows"}
+    before, rows = counts(), sizes()
     with profile():
         n0 = len(trace.STAGES.spans)
         pipe(packed, x, mask)
     path = "reduced" if systematic else "general"
     assert counts() == {p: v + (p == path) for p, v in before.items()}
     gather, = [s for s in list(trace.STAGES.spans)[n0:] if s.name == "decode.gather"]
-    lost = row_of[~mask]
-    want = {"erased": int(((lost >= 0) & (lost < plan.k)).sum())} if systematic else {}
+    want = _gather_attrs(plan, row_of, mask) if systematic else {}
     assert gather.host_attrs == want
+    grew = {s: v - rows.get(s, 0) for s, v in sizes().items() if v != rows.get(s, 0)}
+    assert grew == ({want["size"]: 1} if systematic else {})
 
 
 def test_plain_span_ids_nest():

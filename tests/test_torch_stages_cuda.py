@@ -5,19 +5,28 @@ there is no card):
 
 * a profiled query at k 8,000 (the second of a session, past the
   profiler's first-use cost) gives every stage span a device time from
-  its CUDA events, and the solve's three stages (``decode.*``) sum to
-  within 3% of ``pathm.decode``;
-* ``decode_systematic`` at a serve head's size on its reduced path,
-  captured in a CUDA graph inside an open ``pathm.query`` while a profiler
-  records, adds no stage of its own to ``STAGES``, and its replays equal
-  the eager solve bit for bit;
-* after a warm-up, a query runs under ``torch.cuda.set_sync_debug_mode
-  ("error")``: the decode never waits for the host;
+  its CUDA events, the children within their parents, and the solve's
+  three stages (``decode.*``, the scatter of the workers' slots in
+  ``decode.gather``) sum to within 3% of ``pathm.decode``: on the
+  deployment's own mask, and with 20 of the fast workers out (e ~1,700,
+  an LU that holds the card); a profiled query with nothing erased still
+  records all six spans, ``decode.gather`` with ``erased`` and ``size``
+  0;
+* ``decode_systematic`` at a serve head's size on its static reduced
+  path, captured in a CUDA graph inside an open ``pathm.query`` while a
+  profiler records, adds no stage of its own to ``STAGES``, and its
+  replays equal the eager solve bit for bit;
+* the static reduced solve, as the serve head calls it, runs under
+  ``torch.cuda.set_sync_debug_mode("error")``: it never waits for the
+  host; a Path M query, after a warm-up, syncs with the host exactly once
+  (counted under ``"warn"``): the read of e that sizes its solve;
 * at Path M's k 20,000 with n - k systematic rows erased (exactly k
-  survive, the reduced system at its full 6,980 x 6,980), the reduced
+  survive, the sized system at its cap c, 6,980 x 6,980), the reduced
   solve's error against A x in float64 is within 30x that of the general
   (k, k) solve on the same rows.
 """
+import warnings
+
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -26,6 +35,7 @@ from repro_torch.core.coded_matvec import DecodePipeline, pack_coded_matrix
 from repro_torch.core.coding import decode_systematic, encode, is_systematic, make_generator
 from repro_torch.core.runtime_model import ClusterSpec
 from repro_torch.obs import trace
+from repro_torch.obs.metrics import REGISTRY
 from repro_torch.runtime.executor import CodedRoundExecutor
 
 pytestmark = pytest.mark.cuda
@@ -54,10 +64,8 @@ def deployment(card):
     return plan, g, packed, row_of, mask
 
 
-def test_profiled_query_times_every_stage_on_the_card(deployment):
-    plan, g, packed, row_of, mask = deployment
-    x = torch.randn(D, device="cuda")
-    pipe = DecodePipeline(g, row_of)
+def _profiled(pipe, packed, x, mask) -> dict:
+    """Device seconds by stage of the second of two profiled queries."""
     pipe(packed, x, mask)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
@@ -67,11 +75,20 @@ def test_profiled_query_times_every_stage_on_the_card(deployment):
         torch.cuda.synchronize()
     spans = list(trace.STAGES.spans)[before:]
     assert sorted(s.name for s in spans) == sorted(STAGE_NAMES)
-    dev = {s.name: s.device_s for s in spans}
-    assert all(v > 0 for v in dev.values()), dev
-    solve = dev["decode.gather"] + dev["decode.lu"] + dev["decode.trisolve"]
-    assert 0.97 * dev["pathm.decode"] <= solve <= dev["pathm.decode"] * 1.0001, dev
-    assert dev["pathm.products"] + dev["pathm.decode"] <= dev["pathm.query"] * 1.0001, dev
+    return {s.name: s.device_s for s in spans}
+
+
+def test_profiled_query_times_every_stage_on_the_card(deployment):
+    plan, g, packed, row_of, mask = deployment
+    x = torch.randn(D, device="cuda")
+    pipe = DecodePipeline(g, row_of)
+    for m in (mask, torch.where(torch.arange(plan.num_workers, device="cuda") < 20, False,
+                                mask)):
+        dev = _profiled(pipe, packed, x, m)
+        assert all(v > 0 for v in dev.values()), dev
+        solve = dev["decode.gather"] + dev["decode.lu"] + dev["decode.trisolve"]
+        assert 0.97 * dev["pathm.decode"] <= solve <= dev["pathm.decode"] * 1.0001, dev
+        assert dev["pathm.products"] + dev["pathm.decode"] <= dev["pathm.query"] * 1.0001, dev
 
 
 def test_a_captured_solve_records_no_stage_and_replays(card):
@@ -102,18 +119,59 @@ def test_a_captured_solve_records_no_stage_and_replays(card):
         assert torch.equal(z, want) and bool(ok) == bool(want_ok)
 
 
-def test_a_query_does_not_sync_with_the_host(deployment):
+def test_a_profiled_query_with_nothing_erased_records_every_stage(deployment):
+    plan, g, packed, row_of, _ = deployment
+    x = torch.randn(D, device="cuda")
+    everyone = torch.ones(plan.num_workers, dtype=torch.bool, device="cuda")
+    pipe = DecodePipeline(g, row_of)
+    want, want_ok = pipe(packed, x, everyone)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        before = len(trace.STAGES.spans)
+        z, ok = pipe(packed, x, everyone)
+        torch.cuda.synchronize()
+    spans = list(trace.STAGES.spans)[before:]
+    assert sorted(s.name for s in spans) == sorted(STAGE_NAMES)
+    gather, = [s for s in spans if s.name == "decode.gather"]
+    assert gather.host_attrs == {"erased": 0, "size": 0}
+    assert all(s.device_s >= 0 for s in spans)
+    assert bool(ok) and bool(want_ok) and torch.equal(z, want)
+
+
+def test_the_static_reduced_solve_does_not_sync_with_the_host(card):
+    n, k, cols = 312, 250, 4 * 1024  # yi-9b's coded head: nb, kb, B x R
+    g = make_generator(n, k, seed=4, device="cuda")
+    y = torch.randn((n, cols), device="cuda")
+    fin = torch.ones(n, dtype=torch.bool, device="cuda")
+    fin[: n - k - 7] = False
+    assert is_systematic(g)
+    want, want_ok = decode_systematic(g, y, fin, systematic=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        z, ok = decode_systematic(g, y, fin, systematic=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(z, want) and bool(ok) == bool(want_ok)
+
+
+def test_a_query_syncs_with_the_host_once(deployment):
     plan, g, packed, row_of, mask = deployment
     x = torch.randn(D, device="cuda")
     pipe = DecodePipeline(g, row_of)
     assert pipe.systematic
     want, want_ok = pipe(packed, x, mask)
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        z, ok = pipe(packed, x, mask)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            z, ok = pipe(packed, x, mask)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in seen
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == 1, syncs
     assert torch.equal(z, want) and bool(ok) == bool(want_ok)
 
 
@@ -130,7 +188,10 @@ def test_the_reduced_solve_at_path_m_size_with_exactly_k_survivors(card):
     want = (a.double() @ x.double())
     pipe = DecodePipeline(g, row_of)
     assert pipe.systematic
+    at_cap = REGISTRY.counter("erasure_solve_rows", size=n - k)
+    before = at_cap.value
     z, ok = pipe(packed, x, fin)
+    assert at_cap.value == before + 1
     pipe.systematic = False
     z_full, ok_full = pipe(packed, x, fin)
     assert bool(ok) and bool(ok_full)
