@@ -8,11 +8,14 @@ card from the seed, and has the program encode and pack A~ = G A (B3).
 Each query's x and finish mask are drawn before its clock starts: the
 mask from the fleet's shifted-exponential model (1) at the plan's
 deadline, t_w = alpha l_w / k + l_w / (k mu_w) Exp(1). A query's wall runs
-from x on the card to z and ok ready after a synchronise.
+from x on the card to z and ok ready after a synchronise. The window
+keeps each wall as a host float and the outputs of the check's sample
+alone (``Window``); garbage is collected once, just before it opens.
 
-The check, once the window has closed and the program's state is freed:
-every ok flag against whether the mask left k coded rows (exact); and on
-a sample of the queries that decoded, drawn from the seed, z's error
+The check: every ok flag against whether the mask left k coded rows
+(exact), counted as each query finishes; and, once the window has closed
+and the program's state is freed, on a sample of the queries that
+decoded, drawn from the seed as they come, z's error
 against A x in float64 over the error of the plain float32 coded matvec
 on the same mask (``reference.matvec.coded``), the widest such ratio.
 The erasure solve amplifies float32's error by the condition of G_S,
@@ -92,20 +95,56 @@ class Queries:
         return torch.tensor(sorted(rows)[: self.k], device=mask.device)
 
 
-def run_queries(pipe, packed, qs: Queries, n: int, *, seconds: float | None = None):
-    """Queries until ``n`` are done or ``seconds`` have passed: each
-    (x, mask, z, ok, wall)."""
-    out, t0 = [], time.perf_counter()
+class Window:
+    """What the harness keeps of a run of queries: each query's wall as a
+    host float, ``failed`` (ok False) and ``wrong_ok`` (ok against whether
+    the mask left k coded rows) counted as each query finishes, and x, the
+    mask and z of the check's sample alone. The sample is drawn from the
+    seed as the queries come (Algorithm R): at most ``keep`` of the queries
+    that decoded, each equally likely; a replaced entry is dropped."""
+
+    def __init__(self, qs: Queries, keep: int, seed: int):
+        self.qs, self.keep = qs, int(keep)
+        self.walls: list[float] = []
+        self.failed = self.wrong_ok = self.decoded = 0
+        self.picked: dict[int, tuple] = {}  # reservoir slot -> (query index, x, mask, z)
+        self.g = torch.Generator().manual_seed(seed)
+
+    @property
+    def attempted(self) -> int:
+        return len(self.walls)
+
+    def add(self, x, mask, z, ok, wall: float) -> None:
+        index = len(self.walls)
+        self.walls.append(wall)
+        ok = bool(ok)
+        self.failed += not ok
+        self.wrong_ok += ok != self.qs.decodable(mask)
+        if not ok:
+            return
+        seen, self.decoded = self.decoded, self.decoded + 1
+        slot = seen if seen < self.keep else int(torch.randint(seen + 1, (1,), generator=self.g))
+        if slot < self.keep:
+            self.picked[slot] = (index, x, mask, z)
+
+    def sample(self) -> list[tuple]:
+        """The sampled queries, (x, mask, z) each, in the window's order."""
+        return [q[1:] for q in sorted(self.picked.values(), key=lambda q: q[0])]
+
+
+def run_queries(pipe, packed, win: Window, n: int, *, seconds: float | None = None) -> Window:
+    """Queries until ``win`` holds ``n`` or ``seconds`` have passed."""
+    qs, t0 = win.qs, time.perf_counter()
     sync = torch.cuda.synchronize if packed.device.type == "cuda" else (lambda: None)
-    while len(out) < n and (seconds is None or time.perf_counter() - t0 < seconds):
+    while win.attempted < n and (seconds is None or time.perf_counter() - t0 < seconds):
         x, mask = qs.next()
         sync()
         t = time.perf_counter()
         z, ok = pipe(packed, x, mask)
         sync()
         wall = time.perf_counter() - t
-        out.append((x, mask, z, ok, wall))
-    return out
+        win.add(x, mask, z, ok, wall)
+    return win
 
 
 def sync(cx) -> None:
@@ -134,27 +173,23 @@ def build(cx, seed: int):
     return Queries(cx, exe, seed), DecodePipeline(g, row_of), packed, a, g
 
 
-def sample(cx, queries: list) -> list:
-    """The decoded queries the reference judges: ``check.queries`` of them,
-    drawn from the seed."""
-    good = [q for q in queries if bool(q[3])]
-    g = torch.Generator().manual_seed(gen.sub_seed(cx.seed, 13))
-    pick = torch.randperm(len(good), generator=g)[: int(cx.mix["check"]["queries"])]
-    return [good[i] for i in sorted(pick.tolist())]
+def window(cx, qs: Queries) -> Window:
+    """An empty window whose sample is the check's: ``check.queries`` of the
+    queries that decoded, drawn from the seed."""
+    return Window(qs, int(cx.mix["check"]["queries"]), gen.sub_seed(cx.seed, 13))
 
 
-def judge(cx, queries: list, picked: list, a: torch.Tensor, g: torch.Tensor, qs: Queries,
-          *, control: bool = False) -> dict:
+def judge(cx, win: Window, a: torch.Tensor, g: torch.Tensor, *, control: bool = False) -> dict:
     """``wrong_ok``: ok flags that disagree with the mask, over every query;
     ``err_ratio``: the widest ratio of z's error to the plain float32
     reference's on the sampled queries (with ``control``, also the
     control's ratio, and both raw errors)."""
-    out = {"wrong_ok": sum(bool(ok) != qs.decodable(mask) for _, mask, _, ok, _ in queries),
-           "err_ratio": float("inf") if not picked else 0.0}
+    picked = win.sample()
+    out = {"wrong_ok": win.wrong_ok, "err_ratio": float("inf") if not picked else 0.0}
     raw, ctl, ctl_raw = [], [], []
-    for x, mask, z, _, _ in picked:
+    for x, mask, z in picked:
         want = ref.exact(a, x[:, None])[:, 0]
-        rows = qs.rows(cx.plan, mask)
+        rows = win.qs.rows(cx.plan, mask)
         base = (ref.coded(g, a, x, rows) - want).norm()
         err = (z.double() - want).norm()
         out["err_ratio"] = max(out["err_ratio"], float(err / base))
@@ -172,35 +207,34 @@ def judge(cx, queries: list, picked: list, a: torch.Tensor, g: torch.Tensor, qs:
 
 def run(cx) -> None:
     qs, pipe, packed, a, g = build(cx, cx.seed)
-    run_queries(pipe, packed, qs, int(cx.mix["warmup_queries"]))
+    run_queries(pipe, packed, window(cx, qs), int(cx.mix["warmup_queries"]))
+    gc.collect()
     cx.mark("warmup")
-    cx.setup_s = time.perf_counter() - cx.t_start
-    queries = run_queries(pipe, packed, qs, 10**9, seconds=cx.seconds)
-    cx.window = queries
+    win = run_queries(pipe, packed, window(cx, qs), 10**9, seconds=cx.seconds)
+    cx.window = win
     if cx.trace:
         # a few more queries under the profiler, their inputs drawn first
         # so that the window holds the queries' work alone
         drawn = [qs.next() for _ in range(int(cx.mix["profile_queries"]))]
-        win = profiling.Window()
-        win.start()
+        prof = profiling.Window()
+        prof.start()
         for x, mask in drawn:
             with profiling.annotate("query"):
                 pipe(packed, x, mask)
                 if cx.device.type == "cuda":
                     torch.cuda.synchronize()
-        win.stop()
-        cx.profile = win.trace
+        prof.stop()
+        cx.profile = prof.trace
         cx.profiled_queries = len(drawn)
     if cx.device.type == "cuda":
         torch.cuda.synchronize()
         cx.memory_peak_bytes = torch.cuda.max_memory_allocated(cx.device)
-    cx.attempted = len(queries)
-    cx.failed = sum(not bool(ok) for _, _, _, ok, _ in queries)
+    cx.attempted, cx.failed = win.attempted, win.failed
     pipe = packed = None
     gc.collect()
     if cx.device.type == "cuda":
         torch.cuda.empty_cache()
-    r = judge(cx, queries, sample(cx, queries), a, g, qs)
+    r = judge(cx, win, a, g)
     cx.checks = {"err_ratio": (r["err_ratio"], cx.limit("err_ratio")),
                  "wrong_ok": (float(r["wrong_ok"]), 0.0)}
     cx.correct = all(v <= lim for v, lim in cx.checks.values())

@@ -300,7 +300,6 @@ def run(cx) -> None:
     model = make_model(cx, cx.seed)
     srv = make_server(cx, model)
     warmup(cx, srv, kw)
-    cx.setup_s = time.perf_counter() - cx.t_start
     calls = window(cx, srv, kw)
     cx.window = calls
     if cx.trace:

@@ -58,14 +58,15 @@ def matvec_readings(cx, drv, seeds, control: bool):
     for seed in seeds:
         cx.seed = seed
         qs, pipe, packed, a, g = drv.build(cx, seed)
-        drv.run_queries(pipe, packed, qs, int(cx.mix["warmup_queries"]))
-        queries = drv.run_queries(pipe, packed, qs, 10**9, seconds=cx.seconds)
+        drv.run_queries(pipe, packed, drv.window(cx, qs), int(cx.mix["warmup_queries"]))
+        gc.collect()
+        win = drv.run_queries(pipe, packed, drv.window(cx, qs), 10**9, seconds=cx.seconds)
         pipe = packed = None
         gc.collect()
         if cx.device.type == "cuda":
             torch.cuda.empty_cache()
-        r = drv.judge(cx, queries, drv.sample(cx, queries), a, g, qs, control=control)
-        out = {"seed": seed, "queries": len(queries),
+        r = drv.judge(cx, win, a, g, control=control)
+        out = {"seed": seed, "queries": win.attempted,
                "program": {"err_ratio": r["err_ratio"], "wrong_ok": r["wrong_ok"],
                            "max_rel_err": r["max_rel_err"]}}
         if control:

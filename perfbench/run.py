@@ -18,16 +18,13 @@ cell asks for; 3 JAX or the JAX package was loaded; 1 anything else.
 """
 from __future__ import annotations
 
+import argparse
+import importlib.util
+import json
+import os
+import sys
 import time
-
-T_START = time.perf_counter()
-
-import argparse  # noqa: E402
-import importlib.util  # noqa: E402
-import json  # noqa: E402
-import os  # noqa: E402
-import sys  # noqa: E402
-from pathlib import Path  # noqa: E402
+from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -65,7 +62,6 @@ class Cell:
         self.device = None
         self.t_start = time.perf_counter()
         self._last_mark = None
-        self.setup_s = None
         self.setup_phases: dict[str, float] = {}
         self.attempted = self.failed = 0
         self.checks: dict[str, tuple[float, float]] = {}
@@ -74,8 +70,8 @@ class Cell:
         self.profile = None
 
     def mark(self, phase: str) -> None:
-        """The seconds since the last mark (or the harness's start) as
-        set-up phase ``phase``; printed to standard error with the result."""
+        """The seconds since the last mark (or the cell's making) as set-up
+        phase ``phase``; printed to standard error with the result."""
         now = time.perf_counter()
         since = self.t_start if self._last_mark is None else self._last_mark
         self.setup_phases[phase] = now - since
@@ -142,12 +138,12 @@ def main(argv=None, *, root: Path | None = None, device: str | None = None,
                   file=sys.stderr)
             return 2
         device = "cuda"
+        torch.cuda.synchronize()  # the card's context, made in the check
     cx.device = torch.device(device)
     cx.mark("card")
     prepare(root)
 
     driver = load_module(cx.dir / "drivers" / f"{cx.mix['kind']}.py")
-    cx.t_start = T_START
     driver.run(cx)
 
     bad = forbidden_modules()
