@@ -897,7 +897,6 @@ def matvec_phase(device: str = "cuda") -> dict:
         DecodePipeline,
         coded_matvec,
         end_to_end_coded_matvec,
-        masked_decode,
         pack_coded_matrix,
     )
     from repro_torch.core.coding import make_generator
@@ -952,7 +951,7 @@ def matvec_phase(device: str = "cuda") -> dict:
           f"cond_inf(G_S) {cond_inf:.3e}")
     check(err2 <= tol, "the decoded A x within its error model")
 
-    # the pieces: pack once more (B3), the insufficient case, and the times
+    # the pieces: pack once more (B3), the insufficient case, and the kernels' times
     packed, row_of = pack_coded_matrix(g, a, plan)
     # only the slow group finishes: 9,800 rows < k
     bad = torch.from_numpy(plan.group_of_worker == 2).to(dev)
@@ -962,7 +961,6 @@ def matvec_phase(device: str = "cuda") -> dict:
           f"all zeros {bool((zb == 0).all())}")
     check(not bool(okb) and bool((zb == 0).all()), "fewer than k rows must flag and zero")
     partials = coded_matvec(packed, x)
-    decode_ms = cuda_ms(lambda: masked_decode(g, row_of, partials, mask), 3, 1)
     out = {"z": z.cpu(), "partials": partials.cpu()}
 
     flat = packed.reshape(w * ml, d)
@@ -1010,8 +1008,7 @@ def matvec_phase(device: str = "cuda") -> dict:
     print(f"[matvec] mds_encode: {r['ms']:.3f} ms ({2 * m * n * kk / r['ms'] / 1e9:.1f} "
           f"TFLOP/s, {r['ms'] / r['bound'][0]:.2f}x bound, {r['ms'] / r['library_ms']:.2f}x "
           f"cuBLAS), plain {r['plain_ms']:.3f} ms, cuBLAS SGEMM {r['library_ms']:.3f} ms, "
-          f"bound {r['bound'][0]:.3f} ms ({r['bound'][1]}); decode (library LU, one "
-          f"refinement) {decode_ms:.3f} ms")
+          f"bound {r['bound'][0]:.3f} ms ({r['bound'][1]})")
     del g, a
     if dev.type == "cuda":
         torch.cuda.empty_cache()

@@ -20,8 +20,8 @@ worker order, and the master decodes and broadcasts (z, ok): every rank
 returns the same result.
 
 * ``DecodePipeline`` — the hot path: products, erasure mask and the
-  decode (``masked_decode`` -> ``decode_systematic``) on the device, with
-  one read of the query's e on the host, which sizes the solve (the serve
+  decode (its ``coding.ErasureDecoder``, sized) on the device, with one
+  read of the query's e on the host, which sizes the solve (the serve
   head's static solve reads none);
 * ``coded_matvec`` / ``decode_coded_result`` — the split pair, the decode
   on the host by least squares (the reference's oracle path).
@@ -40,11 +40,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.coding import (
+    ErasureDecoder,
     decode_from_rows,
-    decode_systematic,
     encode,
-    is_systematic,
     make_generator,
+    slot_map,
 )
 from repro_torch.core.planner import DeploymentPlan
 from repro_torch.device import resolve_device
@@ -58,13 +58,11 @@ def pack_coded_matrix(generator: torch.Tensor, a: torch.Tensor, plan: Deployment
     Returns, on ``a``'s device:
       packed: (W, max_load, d) float32 — worker i's rows in [i, :load_i];
       row_of: (W, max_load) int32 — the coded row of each packed slot,
-        -1 for a pad.
+        -1 for a pad (``coding.slot_map``).
     """
     coded = encode(generator, a)
     w, ml, d = plan.num_workers, plan.max_load, coded.shape[1]
-    row_of = np.full((w, ml), -1, np.int32)
-    for i, (s, e) in enumerate(plan.row_ranges):
-        row_of[i, : e - s] = np.arange(s, e, dtype=np.int32)
+    row_of = slot_map(plan.row_ranges, ml)
     slots = np.flatnonzero(row_of.ravel() >= 0)
     packed = torch.zeros((w * ml, d), dtype=torch.float32, device=coded.device)
     packed[torch.from_numpy(slots).to(coded.device)] = coded[
@@ -191,34 +189,34 @@ def decode_coded_result(generator, row_of, partials, finished_workers, k: int):
 
 
 def masked_decode(generator: torch.Tensor, row_of: torch.Tensor, partials: torch.Tensor,
-                  finished_workers: torch.Tensor, *, systematic: bool = False):
-    """Erasure mask and decode on the device, with one read of the host.
+                  finished_workers: torch.Tensor):
+    """Erasure mask and decode on the device, with one read of the host:
+    a sized ``ErasureDecoder`` with ``row_of`` bound for one call.
 
-    ``decode_systematic`` given ``row_of`` scatters the packed per-slot
-    products, (W, max_load) or (W, max_load, c), into coded-row order (pad
-    slots and the slots of workers that missed the deadline go to a
-    dropped row ``n``) and marks the surviving rows, inside its
-    ``decode.gather`` span, then decodes (with ``systematic``, its reduced
-    solve sized by the query's e: the one read, of e and whether k rows
-    survived). Returns (z, ok), ``ok`` a 0-d bool tensor (False: < k rows
-    survived).
+    It scatters the packed per-slot products, (W, max_load) or (W,
+    max_load, c), into coded-row order (pad slots and the slots of workers
+    that missed the deadline go to a dropped row ``n``) and marks the
+    surviving rows, inside its ``decode.gather`` span, then decodes (for a
+    systematic G, the reduced solve sized by the query's e: the one read,
+    of e and whether k rows survived). Returns (z, ok), ``ok`` a 0-d bool
+    tensor (False: < k rows survived).
     """
-    return decode_systematic(generator, partials, finished_workers, systematic=systematic,
-                             sized=True, row_of=row_of)
+    return ErasureDecoder(generator, row_of=row_of, sized=True)(partials, finished_workers)
 
 
 class DecodePipeline:
     """The master step: worker products -> erasure mask -> decode, on the
     device, bound to one deployment's generator and slot map.
 
-    The generator is checked once here (``is_systematic``, one host read).
-    A systematic one, [I_k; P] as the program's own, is decoded by the
-    reduced solve: each surviving systematic row is its own unknown, and
-    the e erased ones come from the first e surviving parity rows, in a
-    system of e rounded up to 128 rows, the rest of it identity. A query
-    reads e (and whether k rows survived) to the host once, after B1 and
-    the scatter are queued; it solves nothing where e is 0. Any other G is
-    decoded by the (k, k) solve of the first k survivors.
+    The master binds its ``ErasureDecoder`` here (one host read), sized
+    and with ``row_of``. A systematic generator, [I_k; P] as the
+    program's own, is decoded by the reduced solve: each surviving
+    systematic row is its own unknown, and the e erased ones come from the
+    first e surviving parity rows, in a system of e rounded up to 128
+    rows, the rest of it identity. A query reads e (and whether k rows
+    survived) to the host once, after B1 and the scatter are queued; it
+    solves nothing where e is 0. Any other G is decoded by the (k, k)
+    solve of the first k survivors.
 
     With a ``workers`` mesh the products are split over its ranks; the
     master, rank 0 of the axis's group, decodes and broadcasts (z, ok), so
@@ -233,12 +231,11 @@ class DecodePipeline:
         if generator is None and (mesh is None or k is None):
             raise ValueError("without the generator, give a mesh and k "
                              "(a rank other than the master)")
-        self.generator = generator
-        self.row_of = row_of
         self.mesh = mesh
         self.axis = axis
         self.k = generator.shape[1] if k is None else int(k)
-        self.systematic = generator is not None and is_systematic(generator)
+        self.decoder = (None if generator is None or row_of is None
+                        else ErasureDecoder(generator, row_of=row_of, sized=True))
 
     def __call__(self, packed: torch.Tensor, x: torch.Tensor,
                  finished_workers: torch.Tensor):
@@ -255,14 +252,13 @@ class DecodePipeline:
             return self.decode(partials, finished_workers)
 
     def decode(self, partials: torch.Tensor, finished_workers: torch.Tensor):
-        """``masked_decode`` of the gathered (W, max_load) products: here,
-        or with a mesh at the master and broadcast to every rank."""
+        """The decoder's (z, ok) of the gathered (W, max_load) products:
+        here, or with a mesh at the master and broadcast to every rank."""
         def decode():
-            if self.generator is None or self.row_of is None:
+            if self.decoder is None:
                 raise ValueError("the master (rank 0 of the axis) decodes: "
                                  "give it the generator and row_of")
-            return masked_decode(self.generator, self.row_of, partials, finished_workers,
-                                 systematic=self.systematic)
+            return self.decoder(partials, finished_workers)
 
         with stage("pathm.decode", partials.device):
             if self.mesh is None:

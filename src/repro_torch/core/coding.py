@@ -15,11 +15,14 @@ M's master step).
 * ``encode``         — ``A~ = G A`` through the B3 ``mds_encode`` kernel;
 * ``split_loads``    — each worker's row range of A~ from integer loads;
 * ``is_systematic`` — whether G's top k rows are I_k (one host read,
-  where a generator is bound);
+  where a decoder is bound);
+* ``slot_map``      — each worker's packed slots -> coded rows, which
+  ``pack_coded_matrix`` packs by and the decode scatters by;
+* ``ErasureDecoder`` — the decode bound to one G, which picks its solve
+  once: the general (k, k) one, or for a systematic G the reduced one,
+  static (no host read) or sized by the query's e (one read);
 * ``decode_systematic`` — the torch twin of the reference's
-  ``decode_systematic_jit``: the reduced solve when its caller says G is
-  systematic, at a fixed shape with no host read, or with ``sized`` at
-  the query's size after one read of e;
+  ``decode_systematic_jit``: a decoder bound for one call;
 * ``decode_from_rows`` — least-squares recovery from any >= k surviving
   rows (the reference's host-side oracle).
 """
@@ -78,8 +81,8 @@ def decode_from_rows(generator_rows: torch.Tensor, coded_values: torch.Tensor
 
 
 def is_systematic(generator: torch.Tensor) -> bool:
-    """Whether the generator's top k rows are I_k, so that
-    ``decode_systematic(..., systematic=True)`` may take the reduced solve.
+    """Whether the generator's top k rows are I_k, so that an
+    ``ErasureDecoder`` may take the reduced solve.
 
     One pass over the top (k, k) block on its device and one host read: a
     check for where a generator is bound, never for a query.
@@ -87,6 +90,8 @@ def is_systematic(generator: torch.Tensor) -> bool:
     k = generator.shape[1]
     top = generator[:k]
     return bool((torch.count_nonzero(top) == k) & (top.diagonal() == 1).all())
+
+
 
 
 #: decodes by path, counted on the host as each is called (a replay of a
@@ -97,6 +102,37 @@ _DECODES = {path: _METRICS.counter("erasure_decodes", path=path)
 #: the sized solve's step: e rounds up to a multiple of it (never past c),
 #: so that a deployment meets at most c / 128 + 1 sizes of the system
 SIZE_STEP = 128
+
+
+def slot_map(row_ranges, max_load: int) -> np.ndarray:
+    """(W, max_load) int32: the coded row of each worker's packed slot,
+    worker i's rows [start_i, stop_i) of ``row_ranges`` in its first
+    slots, -1 in a pad. ``_scatter`` reads it."""
+    row_of = np.full((len(row_ranges), max_load), -1, np.int32)
+    for i, (s, e) in enumerate(row_ranges):
+        row_of[i, : e - s] = np.arange(s, e, dtype=np.int32)
+    return row_of
+
+
+def _scatter(n: int, row_of: torch.Tensor, partials: torch.Tensor,
+             finished_workers: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y (n, ...), alive (n,)): the workers' packed per-slot products,
+    (W, max_load) or (W, max_load, c), in coded-row order, and the rows
+    that arrived. Pad slots (``row_of`` -1) and the slots of workers that
+    missed the deadline go to a dropped row ``n``."""
+    fin = finished_workers.to(device=row_of.device, dtype=torch.bool)
+    rows = row_of.long().masked_fill_((row_of < 0) | ~fin[:, None], n).reshape(-1)
+    cols = partials.shape[2:]
+    y = torch.zeros((n + 1, *cols), dtype=partials.dtype, device=partials.device)
+    y.index_put_((rows,), partials.reshape(-1, *cols))
+    alive = torch.zeros((n + 1,), dtype=torch.bool, device=partials.device)
+    alive.index_fill_(0, rows, True)  # no host value copied to the card
+    return y[:n], alive[:n]
+
+
+def _columns(y: torch.Tensor) -> torch.Tensor:
+    """``y`` as (rows, cols): a vector gets one column."""
+    return y if y.dim() == 2 else y[:, None]
 
 
 def _reduced_system(generator: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
@@ -135,34 +171,6 @@ def _reduced_system(generator: torch.Tensor, y: torch.Tensor, mask: torch.Tensor
     return m, b, erased.masked_fill(pad, k), y_known
 
 
-def _sized(mask: torch.Tensor, survivors: torch.Tensor, k: int, c: int) -> tuple[int, int]:
-    """(e, size) on the host, from one read of the card: the count of
-    erased systematic rows, and the system's size, e rounded up to
-    ``SIZE_STEP`` and at most c, or 0 where there is nothing to solve (no
-    erased row, or fewer than k ``survivors``). Each is counted in
-    ``obs.metrics.REGISTRY``'s ``erasure_solve_rows`` by ``size``."""
-    e, survived = torch.stack([(~mask[:k]).sum(), survivors]).tolist()
-    size = min(-(-e // SIZE_STEP) * SIZE_STEP, c) if survived >= k else 0
-    _METRICS.counter("erasure_solve_rows", size=size).inc()
-    return e, size
-
-
-def _scatter(n: int, row_of: torch.Tensor, partials: torch.Tensor,
-             finished_workers: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(y (n, ...), alive (n,)): the workers' packed per-slot products,
-    (W, max_load) or (W, max_load, c), in coded-row order, and the rows
-    that arrived. Pad slots (``row_of`` -1) and the slots of workers that
-    missed the deadline go to a dropped row ``n``."""
-    fin = finished_workers.to(device=row_of.device, dtype=torch.bool)
-    rows = row_of.long().masked_fill_((row_of < 0) | ~fin[:, None], n).reshape(-1)
-    cols = partials.shape[2:]
-    y = torch.zeros((n + 1, *cols), dtype=partials.dtype, device=partials.device)
-    y.index_put_((rows,), partials.reshape(-1, *cols))
-    alive = torch.zeros((n + 1,), dtype=torch.bool, device=partials.device)
-    alive.index_fill_(0, rows, True)  # no host value copied to the card
-    return y[:n], alive[:n]
-
-
 def _factor(a: torch.Tensor):
     """LU factors of ``a`` and the row order the solve takes its
     right-hand side in (a = P L U)."""
@@ -184,91 +192,153 @@ def _refined_solve(a: torch.Tensor, lu: torch.Tensor, perm: torch.Tensor,
     return z + solve(rhs - a @ z)
 
 
-def decode_systematic(generator: torch.Tensor, coded_values: torch.Tensor,
-                      finished_mask: torch.Tensor, *, systematic: bool = False,
-                      sized: bool = False, row_of: torch.Tensor | None = None):
-    """Erasure decode on the tensors' device.
+def _fill(y_known: torch.Tensor, slot: torch.Tensor, z_erased: torch.Tensor) -> torch.Tensor:
+    """z: y on the surviving systematic rows, ``z_erased`` into the erased
+    ones through ``slot`` (its padding into a dropped row k)."""
+    full = torch.cat([y_known, y_known.new_zeros((1, z_erased.shape[1]))])
+    return full.index_put_((slot,), z_erased)[:-1]
 
-    The rows are the first k survivors (stable argsort of ``~mask``, index
-    order kept). With ``systematic`` (the caller's ``is_systematic`` of
-    the generator, decided where it binds one) and n > k, the same system
-    is solved block-eliminated (``_reduced_system``): each surviving
-    systematic row is its own unknown, and only the erased systematic
-    unknowns are solved for. By default in a static c x c system, c =
-    min(n - k, k), with no read of the host, so a CUDA graph can hold the
-    decode (the serve head's). With ``sized`` (Path M's master step) the
-    query's e and whether k rows survived are read to the host in one
-    transfer, and the system is e rounded up to ``SIZE_STEP`` rows (at most
-    c): no solve where e is 0 (z is y) or fewer than k survived. Otherwise
-    the (k, k) system G_S of those rows is gathered and solved whole. Each
-    solve is an LU with one step of iterative refinement in the
-    generator's precision. ``ok`` is a 0-d bool tensor, ``mask.sum() >=
-    k``; the output is zeroed where it is False.
 
-    Inside a profiled Path M query its stages are the spans
-    ``decode.gather`` (the system built, after ``row_of``'s scatter of the
-    workers' slots where it is given; on the reduced path with the
-    attributes ``erased``, the count of erased systematic rows, a 0-d
-    tensor read when the span is or the host's int, and ``size``, the
-    system's rows), ``decode.lu`` and ``decode.trisolve``
-    (``obs.trace.stage``), each opened on every call, empty where there is
-    nothing to solve. Each call counts once in ``obs.metrics.REGISTRY``'s
-    ``erasure_decodes`` by ``path``, ``reduced`` or ``general``.
+class ErasureDecoder:
+    """The erasure decode of one generator, on its device: ``decoder(y,
+    mask)`` -> (z, ok), z = A x of shape (k,) or (k, c) in y's dtype and
+    ``ok`` a 0-d bool tensor, ``mask.sum() >= k``; z is zero where ``ok``
+    is False.
 
-    Args:
-      generator: (n, k) generator used at encode time.
-      coded_values: (n,) or (n, c) coded products (garbage where erased).
-      finished_mask: (n,) bool — which coded rows arrived by the deadline.
-      systematic: the generator's top k rows are I_k.
-      sized: size the reduced solve by the query's e, read on the host.
-      row_of: (W, max_load) int, each worker slot's coded row (-1: pad).
-        With it ``coded_values`` are the workers' packed products (W,
-        max_load) or (W, max_load, c) and ``finished_mask`` is (W,), which
-        workers met the deadline: they are scattered into coded-row order
-        first (``_scatter``).
+    The solve is chosen here, once, from G and the two options; a call
+    never tests it again. G's shape and ``is_systematic`` (one host read)
+    decide between
+      * general: G is not [I_k; P], or n == k. The first k survivors
+        (stable argsort of ``~mask``) give G_S, solved whole, (k, k);
+      * reduced (``_reduced_system``): each surviving systematic row is
+        its own unknown, and only the erased ones are solved for, in a
+        system of the first surviving parity rows. ``sized`` False, the
+        static c x c system, c = min(n - k, k), with no read of the host,
+        so a CUDA graph can hold the decode (the serve head's); ``sized``
+        True (Path M's), the query's e and whether k rows survived read
+        to the host in one transfer, and the system is e rounded up to
+        ``SIZE_STEP`` rows (at most c): no solve where e is 0 (z is y) or
+        fewer than k survived.
+    Each solve is an LU with one step of iterative refinement in G's
+    precision.
 
-    Returns (z, ok) with z of shape (k,) or (k, c) in ``coded_values``'s
-    dtype.
+    With ``row_of`` (W, max_load) int (``slot_map``), the decoder takes
+    the workers' packed products, (W, max_load) or (W, max_load, c), and
+    a (W,) mask of the workers that met the deadline, and scatters them
+    into coded-row order first (``_scatter``); without it, (n,) or (n, c)
+    coded products (garbage where erased) and an (n,) mask of the rows
+    that arrived.
+
+    Inside a profiled Path M query a call opens the spans
+    ``decode.gather`` (the scatter, the mask and the system built; on the
+    reduced path with the attributes ``erased``, the count of erased
+    systematic rows, a 0-d tensor read when the span is or the host's
+    int, and ``size``, the system's rows), ``decode.lu`` and
+    ``decode.trisolve`` (``obs.trace.stage``), each on every call, empty
+    where there is nothing to solve. Each solve is a generator that runs
+    a stage's work a step and yields z last. ``obs.metrics.REGISTRY``
+    counts each call once in ``erasure_decodes`` by ``path``, and each
+    sized call once in ``erasure_solve_rows`` by its ``size`` (0: no
+    solve).
     """
-    n, k = generator.shape
-    dev = generator.device
-    reduced = systematic and n > k
-    _DECODES["reduced" if reduced else "general"].inc()
-    known = None  # z where there is nothing to solve
-    with stage("decode.gather", dev) as span:
-        if row_of is not None:
-            coded_values, finished_mask = _scatter(n, row_of, coded_values, finished_mask)
-        mask = finished_mask.to(torch.bool)
-        survivors = mask.sum()
-        ok = survivors >= k
-        if reduced:
-            y = coded_values.to(generator.dtype)
-            y = y if y.dim() == 2 else y[:, None]
-            c = min(n - k, k)
-            e, size = _sized(mask, survivors, k, c) if sized else ((~mask[:k]).sum(), c)
-            span.set(erased=e, size=size)
-            if size:
-                a, rhs, slot, y_known = _reduced_system(generator, y, mask, size, e)
-            else:  # all k systematic rows survived (z = y), or fewer than k rows did
-                known = y[:k].clone() if e == 0 else torch.zeros_like(y[:k])
-        else:
-            order = torch.argsort((~mask).to(torch.int8), stable=True)
-            idx = order[:k]
-            a = generator[idx]
-            y_s = coded_values[idx].to(generator.dtype)
-            rhs = y_s if y_s.dim() == 2 else y_s[:, None]
-    with stage("decode.lu", dev):
-        if known is None:
-            lu, perm = _factor(a)
-    with stage("decode.trisolve", dev):
-        if known is None:
-            z = _refined_solve(a, lu, perm, rhs)
-            if reduced:  # z_J = y_J, and z_E into E through the dropped row k
-                full = torch.cat([y_known, y_known.new_zeros((1, z.shape[1]))])
-                z = full.index_put_((slot,), z)[:k]
-            if not (reduced and sized):  # sized, a solve runs only where k rows survived
-                z = torch.where(ok, z, torch.zeros_like(z))
-        else:
-            z = known
-        z = z if coded_values.dim() == 2 else z[:, 0]
-        return z.to(coded_values.dtype), ok
+
+    def __init__(self, generator: torch.Tensor, *, row_of: torch.Tensor | None = None,
+                 sized: bool = False):
+        self.generator = generator
+        self.row_of = row_of
+        self.n, self.k = generator.shape
+        self.c = min(self.n - self.k, self.k)
+        reduced = is_systematic(generator) and self.n > self.k
+        #: the solve's ``erasure_decodes`` label: "reduced" or "general"
+        self.path = "reduced" if reduced else "general"
+        self._decodes = _DECODES[self.path]
+        self._solve = self._general if not reduced else self._sized if sized else self._static
+        self._solve_rows = {}  # size -> its erasure_solve_rows counter
+
+    def __call__(self, coded_values: torch.Tensor, finished_mask: torch.Tensor):
+        self._decodes.inc()
+        dev = self.generator.device
+        with stage("decode.gather", dev) as gather:
+            if self.row_of is not None:
+                coded_values, finished_mask = _scatter(self.n, self.row_of, coded_values,
+                                                       finished_mask)
+            mask = finished_mask.to(torch.bool)
+            survivors = mask.sum()
+            ok = survivors >= self.k
+            steps = self._solve(coded_values, mask, survivors, ok, gather)
+            next(steps)
+        with stage("decode.lu", dev):
+            next(steps)
+        with stage("decode.trisolve", dev):
+            z = next(steps)
+            z = z if coded_values.dim() == 2 else z[:, 0]
+            return z.to(coded_values.dtype), ok
+
+    def _general(self, y, mask, survivors, ok, gather):
+        """The (k, k) solve of the first k survivors' G_S."""
+        idx = torch.argsort((~mask).to(torch.int8), stable=True)[:self.k]
+        a = self.generator[idx]
+        rhs = _columns(y[idx].to(self.generator.dtype))
+        yield
+        lu, perm = _factor(a)
+        yield
+        z = _refined_solve(a, lu, perm, rhs)
+        yield torch.where(ok, z, torch.zeros_like(z))
+
+    def _static(self, y, mask, survivors, ok, gather):
+        """The reduced solve at c, no host read."""
+        y = _columns(y.to(self.generator.dtype))
+        e = (~mask[:self.k]).sum()
+        gather.set(erased=e, size=self.c)
+        a, rhs, slot, y_known = _reduced_system(self.generator, y, mask, self.c, e)
+        yield
+        lu, perm = _factor(a)
+        yield
+        z = _fill(y_known, slot, _refined_solve(a, lu, perm, rhs))
+        yield torch.where(ok, z, torch.zeros_like(z))
+
+    def _sized(self, y, mask, survivors, ok, gather):
+        """The reduced solve at the query's size, read once on the host:
+        ``_solve_at`` it, or no solve where it is 0."""
+        y = _columns(y.to(self.generator.dtype))
+        e, size = self._size(mask, survivors)
+        gather.set(erased=e, size=size)
+        if size:
+            yield from self._solve_at(size, y, mask, e)
+        else:  # all k systematic rows survived (z = y), or fewer than k rows did
+            z = y[:self.k].clone() if e == 0 else torch.zeros_like(y[:self.k])
+            yield
+            yield
+            yield z
+
+    def _solve_at(self, size: int, y, mask, e):
+        """The sized solve's work at ``size`` rows once e (the host's int)
+        is read, with no host read of its own; it runs only where k rows
+        survived, so nothing is zeroed."""
+        a, rhs, slot, y_known = _reduced_system(self.generator, y, mask, size, e)
+        yield
+        lu, perm = _factor(a)
+        yield
+        yield _fill(y_known, slot, _refined_solve(a, lu, perm, rhs))
+
+    def _size(self, mask, survivors) -> tuple[int, int]:
+        """(e, size) on the host, from one read of the card: the count of
+        erased systematic rows, and the system's size, e rounded up to
+        ``SIZE_STEP`` and at most c, or 0 where there is nothing to solve (no
+        erased row, or fewer than k ``survivors``), counted by size."""
+        e, survived = torch.stack([(~mask[:self.k]).sum(), survivors]).tolist()
+        size = min(-(-e // SIZE_STEP) * SIZE_STEP, self.c) if survived >= self.k else 0
+        counter = self._solve_rows.get(size)
+        if counter is None:
+            counter = self._solve_rows[size] = _METRICS.counter("erasure_solve_rows", size=size)
+        counter.inc()
+        return e, size
+
+
+def decode_systematic(generator: torch.Tensor, coded_values: torch.Tensor,
+                      finished_mask: torch.Tensor):
+    """The torch twin of the reference's ``decode_systematic_jit``: an
+    ``ErasureDecoder`` of ``generator`` bound for one decode (the static
+    reduced solve for a systematic G, the general one otherwise). Returns
+    (z, ok)."""
+    return ErasureDecoder(generator)(coded_values, finished_mask)

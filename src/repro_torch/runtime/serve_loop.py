@@ -76,7 +76,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.coding import decode_systematic, encode, is_systematic
+from repro_torch.core.coding import ErasureDecoder, encode
 from repro_torch.core.planner import DeploymentPlan
 from repro_torch.core.runtime_model import ClusterSpec
 from repro_torch.core.schemes import AllocationScheme
@@ -173,7 +173,8 @@ class CodedLMHead:
 
     def refresh(self, g: np.ndarray | None = None) -> None:
         """(Re)bind the plan-derived state: nb, G (the seeded one, or the
-        injected (nb, kb) ``g``), coded blocks (one B3 launch), deadline.
+        injected (nb, kb) ``g``) and its decoder, coded blocks (one B3
+        launch), deadline.
 
         In bucket mode nb is the slot capacity ``n_cap``: one generator
         and one coded table serve every admitted bucket (capacity rows
@@ -182,7 +183,7 @@ class CodedLMHead:
         self.plan: DeploymentPlan = self.executor.plan
         self.nb = self.executor.n_slots
         self.generator = self.executor.generator(g=g)
-        self.systematic = is_systematic(self.generator)
+        self.decoder = ErasureDecoder(self.generator)
         vp, d = self.table.shape
         blocks = F.pad(self.table, (0, 0, 0, self.kb * self.block_rows - vp))
         self.coded = encode(
@@ -242,19 +243,18 @@ class CodedLMHead:
         The torch twin of the reference's ``decode_logits_jit`` (and, in
         bucket mode, ``decode_logits_bucket_jit``): the worker mask
         gathers through the executor's ``slot_mask`` to an (nb,)
-        block-erasure mask (capacity padding rows dead) and
-        ``decode_systematic`` solves for the logit blocks. For the seeded
-        systematic generator (``systematic``, checked at ``refresh``) that
-        is the reduced solve: the surviving systematic blocks are taken as
-        they are and the erased ones solved for in a static (nb - kb)-square
-        system of the surviving parity blocks (in bucket mode nb is the
-        capacity, its padding rows always dead); for an injected
-        non-systematic ``g``, the static (kb, kb) system.
+        block-erasure mask (capacity padding rows dead) and the head's
+        ``decoder`` (bound at ``refresh``) solves for the logit blocks. For
+        the seeded systematic generator that is the static reduced solve:
+        the surviving systematic blocks are taken as they are and the
+        erased ones solved for in a static (nb - kb)-square system of the
+        surviving parity blocks (in bucket mode nb is the capacity, its
+        padding rows always dead); for an injected non-systematic ``g``,
+        the static (kb, kb) system.
         """
         nb, b, r = products.shape
-        z, ok = decode_systematic(self.generator, products.reshape(nb, b * r),
-                                  self.executor.slot_mask(finished_workers),
-                                  systematic=self.systematic)
+        z, ok = self.decoder(products.reshape(nb, b * r),
+                             self.executor.slot_mask(finished_workers))
         return z.reshape(self.kb, b, r).permute(1, 0, 2).reshape(b, -1), ok
 
     def worker_products(self, h: torch.Tensor) -> torch.Tensor:

@@ -13,17 +13,23 @@ port (workers as a batch dimension):
   ``tests/test_decode_pipeline.py`` (0, 3, 8 and 16 of 48 rows erased, 16
   exactly the threshold), with and without columns; fewer than k
   survivors (``ok`` False, zeros exact); garbage in pad and dead slots
-  never reaches the solve; each on both solves, the general (k, k) one
-  and the reduced one that ``DecodePipeline`` takes for the reference's
-  systematic generator. Tolerance 1e-4: a float32 LU solve with one
-  refinement step on a well-conditioned systematic system;
+  never reaches the solve; each on the decoder's three solves of the
+  reference's systematic generator with ``row_of``: the sized reduced one
+  that ``masked_decode`` and ``DecodePipeline`` bind, the general (k, k)
+  one and the static reduced one. Tolerance 1e-4: a float32 LU solve with
+  one refinement step on a well-conditioned systematic system;
 * ``masked_decode``'s reduced solve sized by the query's e, on a code
   whose c = n - k = 260 is no multiple of 128, one coded row a worker
   (and a pad): no erasure, e at the rounding edge 128 / 129, e = c with
   exactly k survivors (384 capped at c), and fewer than k;
 * ``decode_coded_result`` (host least squares) and
-  ``end_to_end_coded_matvec`` with the reference's generator injected.
+  ``end_to_end_coded_matvec`` with the reference's generator injected;
+* ``masked_decode`` and ``decode_systematic`` take the reference's
+  parameters, no more.
 """
+import inspect
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -49,7 +55,8 @@ from repro_torch.core.coded_matvec import (
     masked_decode,
     pack_coded_matrix,
 )
-from repro_torch.core.coding import encode
+from repro_torch.core import coding
+from repro_torch.core.coding import ErasureDecoder, decode_systematic, encode, slot_map
 from repro_torch.core.planner import plan_deployment
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.core.runtime_model import ClusterSpec
@@ -61,9 +68,10 @@ torch.set_num_threads(1)
 
 KEY = jax.random.PRNGKey(0)
 TOL = dict(rtol=1e-4, atol=1e-4)
-#: ``masked_decode``'s two solves: the general (k, k) one, and the reduced
-#: one of the erased systematic unknowns (the reference's G is systematic)
-PATHS = dict(argnames="systematic", argvalues=[False, True], ids=["general", "reduced"])
+#: the decoder's three solves with ``row_of`` on the reference's systematic
+#: G (``reduced``: the sized solve, which ``masked_decode`` binds)
+SOLVES = dict(argnames="solve", argvalues=["general", "sized", "static"],
+              ids=["general", "reduced", "static"])
 #: (workers, mus, alphas): the reference pipeline test's fleet, and a
 #: three-group one whose loads differ (pads in every short block)
 FLEETS = [([4, 4], [4.0, 1.0], 1.0), ([3, 5, 4], [4.0, 1.0, 0.4], 1.0)]
@@ -82,6 +90,21 @@ def _ref_g(n, k):
     return np.array(ref_make_generator(n, k, KEY), np.float32)
 
 
+def _masked_decode(g, row_of, partials, fin, solve):
+    """(z, ok) of the packed products by ``solve``: the sized one through
+    ``masked_decode``, the static one by its decoder, and the general one
+    of the systematic g through the private route of a bind that reads g
+    as not systematic (no option selects it)."""
+    g, row_of = torch.from_numpy(g), torch.from_numpy(row_of)
+    args = torch.from_numpy(partials), torch.from_numpy(fin)
+    if solve == "sized":
+        return masked_decode(g, row_of, *args)
+    if solve == "general":
+        with mock.patch.object(coding, "is_systematic", lambda _: False):
+            return ErasureDecoder(g, row_of=row_of, sized=True)(*args)
+    return ErasureDecoder(g, row_of=row_of)(*args)
+
+
 @pytest.mark.parametrize("fi,k,d", [(0, 64, 32), (1, 40, 17)])
 def test_pack_coded_matrix_matches_reference(fi, k, d):
     plan, ref_plan = _plans(fi, k)
@@ -96,6 +119,7 @@ def test_pack_coded_matrix_matches_reference(fi, k, d):
     want, want_rows = ref_pack(jnp.asarray(g_int), jnp.asarray(a_int), ref_plan)
     assert packed.dtype == torch.float32 and row_of.dtype == torch.int32
     np.testing.assert_array_equal(row_of.numpy(), want_rows)
+    np.testing.assert_array_equal(slot_map(plan.row_ranges, plan.max_load), want_rows)
     np.testing.assert_array_equal(packed.numpy(), want)
     assert (row_of.numpy() < 0).any()  # this fleet's blocks carry pads
     # the reference's Gaussian generator: f32 sums of k terms
@@ -151,12 +175,10 @@ def _grid(erasures, cols, seed=0):
 
 @pytest.mark.parametrize("erasures", [0, 3, 8, 16])  # 16 = exactly threshold
 @pytest.mark.parametrize("cols", [None, 5])
-@pytest.mark.parametrize(**PATHS)
-def test_masked_decode_matches_reference_across_erasure_grid(erasures, cols, systematic):
+@pytest.mark.parametrize(**SOLVES)
+def test_masked_decode_matches_reference_across_erasure_grid(erasures, cols, solve):
     g, row_of, partials, fin, x = _grid(erasures, cols)
-    z, ok = masked_decode(torch.from_numpy(g), torch.from_numpy(row_of),
-                          torch.from_numpy(partials), torch.from_numpy(fin),
-                          systematic=systematic)
+    z, ok = _masked_decode(g, row_of, partials, fin, solve)
     assert bool(ok) and tuple(z.shape) == x.shape and z.dtype == torch.float32
     np.testing.assert_allclose(z.numpy(), x, **TOL)
     if cols is None:
@@ -195,13 +217,11 @@ def test_decode_pipeline_matches_reference_across_erasure_grid(erasures):
 
 
 @pytest.mark.parametrize("cols", [None, 5])
-@pytest.mark.parametrize(**PATHS)
-def test_masked_decode_insufficient_survivors_zeroed(cols, systematic):
+@pytest.mark.parametrize(**SOLVES)
+def test_masked_decode_insufficient_survivors_zeroed(cols, solve):
     """21 rows erased (> n - k): ok False and an exactly zero output."""
     g, row_of, partials, fin, x = _grid(21, cols)
-    z, ok = masked_decode(torch.from_numpy(g), torch.from_numpy(row_of),
-                          torch.from_numpy(partials), torch.from_numpy(fin),
-                          systematic=systematic)
+    z, ok = _masked_decode(g, row_of, partials, fin, solve)
     assert not bool(ok)
     np.testing.assert_array_equal(z.numpy(), np.zeros(x.shape, np.float32))
     if cols is None:
@@ -210,18 +230,14 @@ def test_masked_decode_insufficient_survivors_zeroed(cols, systematic):
         np.testing.assert_array_equal(z.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize(**PATHS)
-def test_masked_decode_drops_pad_and_dead_slots(systematic):
+@pytest.mark.parametrize(**SOLVES)
+def test_masked_decode_drops_pad_and_dead_slots(solve):
     """Garbage (1e30 in pads, NaN in a dead worker's slots) must not reach
     the solve: the result equals the one from clean partials."""
     g, row_of, partials, fin, x = _grid(8, None, seed=1)
     clean = np.where(np.isfinite(partials) & (np.abs(partials) < 1e29), partials, 0.0)
-    got, ok = masked_decode(torch.from_numpy(g), torch.from_numpy(row_of),
-                            torch.from_numpy(partials), torch.from_numpy(fin),
-                            systematic=systematic)
-    base, ok2 = masked_decode(torch.from_numpy(g), torch.from_numpy(row_of),
-                              torch.from_numpy(clean.astype(np.float32)),
-                              torch.from_numpy(fin), systematic=systematic)
+    got, ok = _masked_decode(g, row_of, partials, fin, solve)
+    base, ok2 = _masked_decode(g, row_of, clean.astype(np.float32), fin, solve)
     assert bool(ok) and bool(ok2) and bool(torch.isfinite(got).all())
     np.testing.assert_allclose(got.numpy(), base.numpy(), **TOL)
     np.testing.assert_allclose(got.numpy(), x, **TOL)
@@ -258,7 +274,7 @@ def test_masked_decode_sizes_the_solve_across_erasure_grid(erased, cols):
                     if r["name"] == "erasure_solve_rows"}
     before = rows()
     z, ok = masked_decode(torch.from_numpy(g), torch.from_numpy(row_of),
-                          torch.from_numpy(partials), torch.from_numpy(fin), systematic=True)
+                          torch.from_numpy(partials), torch.from_numpy(fin))
     after = rows()
     assert {s: v - before.get(s, 0) for s, v in after.items() if v != before.get(s, 0)} \
         == {SIZED[erased]: 1}
@@ -349,3 +365,13 @@ def test_encode_feeds_pack_through_the_kernel_wrapper():
     packed, row_of = pack_coded_matrix(g, a, plan)
     live = row_of >= 0
     assert torch.equal(packed[live], encode(g, a)[row_of[live].long()])
+
+
+@pytest.mark.parametrize("ours,ref", [(masked_decode, ref_masked_decode),
+                                      (decode_systematic, ref_decode_jit)],
+                         ids=["masked_decode", "decode_systematic"])
+def test_the_decode_entry_points_take_the_references_parameters(ours, ref):
+    """The reference's names keep its signatures: the solve is the bound
+    decoder's choice, so neither takes an option of its own."""
+    want = list(inspect.signature(getattr(ref, "__wrapped__", ref)).parameters)
+    assert list(inspect.signature(ours).parameters) == want

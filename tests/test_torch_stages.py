@@ -11,8 +11,9 @@ and the same bits either way.
   the names, a device time on each (its host duration on the CPU), and each span a ``user_annotation`` of the
   profiler's Chrome trace; through ``__call__`` and ``on_block`` of a
   one-rank ``workers`` mesh too;
-* a query counts one decode in ``REGISTRY``'s ``erasure_decodes`` on its
-  path (reduced for the seeded systematic G, general for a G that is not),
+* a query counts one decode in ``REGISTRY``'s ``erasure_decodes`` on the
+  path its pipeline's decoder bound (reduced for the seeded systematic G,
+  general for a G that is not),
   and the reduced path's ``decode.gather`` carries the mask's count of
   erased systematic rows as ``erased`` and the system's rows (e rounded up
   to 128, at most n - k; 0: no solve) as ``size``, which the query also
@@ -138,7 +139,8 @@ def test_a_query_counts_its_path_and_the_erased_rows(deployment, erased, systema
         g = g @ torch.linalg.qr(mix)[0]
         packed, row_of = pack_coded_matrix(g, torch.randn((K, D)), plan)
     pipe = DecodePipeline(g, row_of)
-    assert pipe.systematic == systematic
+    path = "reduced" if systematic else "general"
+    assert pipe.decoder.path == path
     counts = lambda: {p: REGISTRY.counter("erasure_decodes", path=p).value  # noqa: E731
                       for p in ("reduced", "general")}
     sizes = lambda: {r["labels"]["size"]: r["value"] for r in REGISTRY.snapshot()  # noqa: E731
@@ -147,7 +149,6 @@ def test_a_query_counts_its_path_and_the_erased_rows(deployment, erased, systema
     with profile():
         n0 = len(trace.STAGES.spans)
         pipe(packed, x, mask)
-    path = "reduced" if systematic else "general"
     assert counts() == {p: v + (p == path) for p, v in before.items()}
     gather, = [s for s in list(trace.STAGES.spans)[n0:] if s.name == "decode.gather"]
     want = _gather_attrs(plan, row_of, mask) if systematic else {}

@@ -12,8 +12,8 @@ there is no card):
   an LU that holds the card); a profiled query with nothing erased still
   records all six spans, ``decode.gather`` with ``erased`` and ``size``
   0;
-* ``decode_systematic`` at a serve head's size on its static reduced
-  path, captured in a CUDA graph inside an open ``pathm.query`` while a
+* an ``ErasureDecoder`` at a serve head's size, bound to the static
+  reduced solve, captured in a CUDA graph inside an open ``pathm.query`` while a
   profiler records, adds no stage of its own to ``STAGES``, and its
   replays equal the eager solve bit for bit;
 * the static reduced solve, as the serve head calls it, runs under
@@ -23,16 +23,19 @@ there is no card):
 * at Path M's k 20,000 with n - k systematic rows erased (exactly k
   survive, the sized system at its cap c, 6,980 x 6,980), the reduced
   solve's error against A x in float64 is within 30x that of the general
-  (k, k) solve on the same rows.
+  (k, k) solve on the same rows (a pipeline whose decoder was bound
+  reading G as not systematic).
 """
 import warnings
+from unittest import mock
 
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core.coded_matvec import DecodePipeline, pack_coded_matrix
-from repro_torch.core.coding import decode_systematic, encode, is_systematic, make_generator
+from repro_torch.core import coding
+from repro_torch.core.coding import ErasureDecoder, encode, make_generator
 from repro_torch.core.runtime_model import ClusterSpec
 from repro_torch.obs import trace
 from repro_torch.obs.metrics import REGISTRY
@@ -97,19 +100,20 @@ def test_a_captured_solve_records_no_stage_and_replays(card):
     y = torch.randn(n, device="cuda")
     fin = torch.ones(n, dtype=torch.bool, device="cuda")
     fin[: n - k - 7] = False
-    assert is_systematic(g)
-    want, want_ok = decode_systematic(g, y, fin, systematic=True)
+    decoder = ErasureDecoder(g)
+    assert decoder.path == "reduced"
+    want, want_ok = decoder(y, fin)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        decode_systematic(g, y, fin, systematic=True)  # warm up off the default stream
+        decoder(y, fin)  # warm up off the default stream
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     before = list(trace.STAGES.spans)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         with trace.stage("pathm.query", g.device, root=True):
             with torch.cuda.graph(graph):
-                z, ok = decode_systematic(g, y, fin, systematic=True)
+                z, ok = decoder(y, fin)
         torch.cuda.synchronize()
     assert [s.name for s in list(trace.STAGES.spans)[len(before):]] == ["pathm.query"]
     for _ in range(2):
@@ -144,12 +148,13 @@ def test_the_static_reduced_solve_does_not_sync_with_the_host(card):
     y = torch.randn((n, cols), device="cuda")
     fin = torch.ones(n, dtype=torch.bool, device="cuda")
     fin[: n - k - 7] = False
-    assert is_systematic(g)
-    want, want_ok = decode_systematic(g, y, fin, systematic=True)
+    decoder = ErasureDecoder(g)  # the bind's one host read, outside the check
+    assert decoder.path == "reduced"
+    want, want_ok = decoder(y, fin)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        z, ok = decode_systematic(g, y, fin, systematic=True)
+        z, ok = decoder(y, fin)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(z, want) and bool(ok) == bool(want_ok)
@@ -159,7 +164,7 @@ def test_a_query_syncs_with_the_host_once(deployment):
     plan, g, packed, row_of, mask = deployment
     x = torch.randn(D, device="cuda")
     pipe = DecodePipeline(g, row_of)
-    assert pipe.systematic
+    assert pipe.decoder.path == "reduced"
     want, want_ok = pipe(packed, x, mask)
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as seen:
@@ -187,13 +192,15 @@ def test_the_reduced_solve_at_path_m_size_with_exactly_k_survivors(card):
     fin[: (n - k) // load] = False  # rows 0..6,979: n - k systematic rows
     want = (a.double() @ x.double())
     pipe = DecodePipeline(g, row_of)
-    assert pipe.systematic
+    assert pipe.decoder.path == "reduced"
     at_cap = REGISTRY.counter("erasure_solve_rows", size=n - k)
     before = at_cap.value
     z, ok = pipe(packed, x, fin)
     assert at_cap.value == before + 1
-    pipe.systematic = False
-    z_full, ok_full = pipe(packed, x, fin)
+    with mock.patch.object(coding, "is_systematic", lambda _: False):
+        general = DecodePipeline(g, row_of)
+    assert general.decoder.path == "general"
+    z_full, ok_full = general(packed, x, fin)
     assert bool(ok) and bool(ok_full)
     err, err_full = (z.double() - want).norm(), (z_full.double() - want).norm()
     assert err <= 30 * err_full, (float(err), float(err_full), float(want.norm()))
